@@ -1,0 +1,490 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one CUDA card.
+
+    python3 chip_smoke.py                 # every phase, one card
+
+Phases, in order; any failure exits non-zero and prints no result line:
+
+  1. device     card name, device count, ``nvidia-smi`` name + power limit
+  2. build      nvcc builds ``src/repro_torch/kernels/csrc/*.cu`` for
+                sm_90a (one process per source, all at once) and prints
+                registers / shared memory / spills per kernel
+  3. kernels    each kernel against its plain PyTorch version on the card:
+                every config of ``repro_torch/kernels/manifest.py`` (the
+                reference's configs; f32 and f64, weighted with inf
+                weights at alpha = 0) and the main path's shapes
+  4. main       the Cov solve at p = 16384 (chain graph, n = 8192 samples
+                drawn on the card, float64) through ``ConcordEstimator``:
+                ``fit_cov`` then a warm-started ``fit_path``; kernel launch
+                counts are zeroed before and read after
+  5. obs        one Obs fit at p = 16384, n = 1200
+  6. cross      p = 2048: the kernel path against the dense plain path
+  7. timing     each kernel at the main path's inputs: CUDA-event time,
+                plain-version time, library time, and the bound
+
+``--profile`` adds a torch.profiler pass over one warm main-path fit
+(device time by kernel, the card's idle share); ``--phases`` runs a
+subset while iterating.
+
+The second-to-last line is the ``kernels`` JSON object; the last line is
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
+package.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+#: H100 SXM data sheet: HBM3 bandwidth and peak rates (dense, no
+#: sparsity): float64 on the tensor cores, float32 outside them
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float64": 67e12, "float32": 67e12}
+
+P_MAIN, N_MAIN, N_OBS, P_CROSS, BLOCK = 16384, 8192, 1200, 2048, 128
+LAM_PATH = [0.3, 0.2, 0.15]
+
+
+def phase(name: str):
+    print(f"== {name}", flush=True)
+
+
+def fail(msg: str):
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def check(cond: bool, msg: str):
+    if not cond:
+        fail(msg)
+
+
+# ---------------------------------------------------------------------------
+# phases 1-3
+# ---------------------------------------------------------------------------
+
+def device_line(torch) -> tuple[str, int, str]:
+    name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(f"device: {name} (count {count}) torch {torch.__version__} "
+          f"cuda {torch.version.cuda}")
+    print(f"nvidia-smi: {smi}")
+    return name, count, smi
+
+
+def build_kernels(build):
+    t0 = time.perf_counter()
+    libs = build.build()
+    print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    for name, log in build.PTXAS_REPORT.items():
+        for line in log.splitlines():
+            if any(k in line for k in ("Compiling entry", "registers",
+                                       "spill", "smem")):
+                print(f"  ptxas[{name}] {line.strip()}")
+
+
+def _dt(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def compare_prox(torch, ent, ops, ref, z, dm, alpha, w, block):
+    """Kernel vs plain version on the same CUDA inputs, at the tolerance
+    classes of the manifest entry ``ent``; returns the max abs error of
+    ``out`` (0 when bit-exact)."""
+    got = ops.fused_prox_stats(z, dm, alpha, weights=w, block=block)
+    torch.cuda.synchronize()
+    want = ref.fused_prox_stats(z, dm, alpha, weights=w, block=block)
+    tol = ent["rtol"][_dt(z.dtype)]
+    names = ("out", "logdet", "l1", "sumsq", "min_diag", "block_nnz")
+    for nm, g, e in zip(names, got, want):
+        if nm in ent["exact"]:
+            check(torch.equal(g, e), f"fused prox {nm} is not bit-exact")
+        else:
+            check(torch.allclose(g, e, rtol=tol, atol=tol),
+                  f"fused prox {nm}: {float(g)} vs {float(e)}")
+    return float((got[0] - want[0]).abs().max())
+
+
+def check_kernels(torch, kman, ops, ref, dev):
+    """Both kernels against their plain versions at every config of the
+    port's kernel manifest (the reference's configs), f64 and f32."""
+    soft = kman.entry("fused_prox_stats")
+    bsr = kman.entry("blocksparse_matmul")
+    rng = np.random.default_rng(0)
+    for dtype in (torch.float64, torch.float32):
+        for cfg in soft["configs"]:
+            z, mask, w = kman.softthresh_problem(cfg, rng,
+                                                 bool(cfg.get("weighted")))
+            zt = torch.as_tensor(z, dtype=dtype, device=dev)
+            wt = None if w is None else torch.as_tensor(w, dtype=dtype,
+                                                        device=dev)
+            mt = torch.as_tensor(mask, dtype=dtype, device=dev)
+            for dm in (mt, None):
+                compare_prox(torch, soft, ops, ref, zt, dm,
+                             cfg.get("alpha", 0.3), wt, cfg["block"])
+        tol = bsr["rtol"][_dt(dtype)]
+        for cfg in bsr["configs"]:
+            a, vals, rows, cols, b = kman.blocksparse_problem(
+                cfg, np.random.default_rng(cfg["seed"]))
+            at = torch.as_tensor(a, dtype=dtype, device=dev)
+            bt = torch.as_tensor(b, dtype=dtype, device=dev)
+            got = ops.blocksparse_matmul(
+                torch.as_tensor(vals, dtype=dtype, device=dev),
+                torch.as_tensor(rows, device=dev),
+                torch.as_tensor(cols, device=dev), bt)
+            bs = cfg["bs"]
+            mask = (ref.block_nnz(at, (bs, bs)) > 0).to(torch.int8)
+            cap = max(1, int(mask.sum()))
+            got_m = ops.masked_matmul(at, bt, mask, block_size=bs,
+                                      capacity=cap)
+            torch.cuda.synchronize()
+            want = ref.masked_matmul(at, bt, mask, block_size=bs,
+                                     capacity=cap)
+            for g in (got, got_m):
+                check(torch.allclose(g, want, rtol=tol, atol=tol),
+                      f"blocksparse {cfg['label']} {dtype}")
+                check(torch.allclose(g, at @ bt, rtol=tol, atol=tol),
+                      f"blocksparse {cfg['label']} {dtype} vs dense")
+    print("manifest configs: fused prox and block-sparse agree "
+          "(f32, f64, weighted inf at alpha=0, explicit and implicit "
+          "diagonal)")
+
+
+def check_kernels_main_shape(torch, kman, ops, ref, dev) -> dict:
+    """Both kernels at the main path's shapes against the plain versions."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    p, bs = P_MAIN, BLOCK
+    z = 0.1 * torch.randn((p, p), generator=gen, dtype=torch.float64,
+                          device=dev)
+    z.diagonal().add_(1.0)
+    err_prox = compare_prox(torch, kman.entry("fused_prox_stats"), ops, ref,
+                            z, None, 0.3, None, (bs, bs))
+    del z
+    nb = p // bs
+    keep = torch.rand((nb, nb), generator=gen, device=dev) < 0.03
+    keep[::7] = False                         # some empty block-rows
+    mask = keep.to(torch.int8)
+    a = torch.randn((p, p), generator=gen, dtype=torch.float64, device=dev)
+    a *= keep.repeat_interleave(bs, 0).repeat_interleave(bs, 1)
+    b = torch.randn((p, p), generator=gen, dtype=torch.float64, device=dev)
+    occ = int(keep.sum())
+    got = ops.masked_matmul(a, b, mask, block_size=bs, capacity=occ)
+    torch.cuda.synchronize()
+    want = ref.masked_matmul(a, b, mask, block_size=bs, capacity=occ)
+    tol = kman.entry("blocksparse_matmul")["rtol"]["float64"]
+    check(torch.allclose(got, want, rtol=tol, atol=tol),
+          "block-sparse at the main shape disagrees with the plain version")
+    err_bsmm = float((got - want).abs().max())
+    print(f"main shapes: fused prox {p}x{p} out bit-exact; block-sparse "
+          f"{p}x{p}x{p} at {occ}/{nb * nb} occupied blocks, max abs err "
+          f"{err_bsmm:.3e}")
+    del a, b, got, want
+    torch.cuda.empty_cache()
+    return {"fused_prox_stats": err_prox, "blocksparse_matmul": err_bsmm}
+
+
+# ---------------------------------------------------------------------------
+# phases 4-6: the main path
+# ---------------------------------------------------------------------------
+
+def support_stats(torch, est, truth, tol=1e-8):
+    """PPV and FDR of the estimated off-diagonal support, on the card."""
+    e = torch.triu(est.abs() > tol, diagonal=1)
+    t = torch.triu(truth != 0, diagonal=1)
+    tp, fp = torch.stack([(e & t).sum(), (e & ~t).sum()]).tolist()
+    ppv = tp / max(tp + fp, 1)
+    return ppv, 1.0 - ppv
+
+
+def main_path(torch, mods, dev) -> dict:
+    graphs, est_mod, penalty, ops = mods
+    omega0 = graphs.chain_omega(P_MAIN, dtype=np.float64)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    x = graphs.sample_gaussian_torch(omega0, N_MAIN, gen, dev)
+    s = (x.T @ x) / N_MAIN
+    del x
+    torch.cuda.synchronize()
+    print(f"sampled X ({N_MAIN}x{P_MAIN}) and S on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    truth = torch.as_tensor(omega0, device=dev)
+    cfg = est_mod.SolverConfig(backend="reference", variant="cov",
+                               use_pallas=True, sparse_matmul="on",
+                               dtype="float64")
+    est = est_mod.ConcordEstimator(penalty=penalty.PenaltySpec.l1(0.3, 0.05),
+                                   config=cfg)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    est.fit_cov(s, n_samples=N_MAIN)
+    wall = time.perf_counter() - t0
+    rep = est.report_
+    launches_fit = dict(ops.LAUNCHES)
+    print(rep.summary())
+    ppv, fdr = support_stats(torch, rep.omega, truth)
+    print(f"fit_cov: iters={rep.iters} trials={rep.ls_total} "
+          f"wall={wall:.2f} s ({1e3 * rep.wall_time_s / rep.ls_total:.1f} "
+          f"ms/trial) peak={torch.cuda.max_memory_allocated() / 2**30:.1f} "
+          f"GiB PPV={ppv:.4f} FDR={fdr:.4f} launches={launches_fit}")
+    check(rep.converged and not rep.stalled, "main fit did not converge")
+    check(rep.block_density < 0.25,
+          f"final block density {rep.block_density} >= 0.25")
+    check(launches_fit["fused_prox_stats"] == rep.ls_total,
+          "fused prox launches != line-search trials")
+    check(launches_fit["blocksparse_matmul"] > 0,
+          "the block-sparse kernel never ran on the main path")
+    check(bool(torch.isfinite(rep.omega).all()), "non-finite estimate")
+
+    t0 = time.perf_counter()
+    path = est.fit_path(s=s, lam1_grid=LAM_PATH, n_samples=N_MAIN)
+    pwall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    best = path.best_bic()
+    print(path.summary())
+    print(f"fit_path: {len(path)} points, iters={path.total_iters} "
+          f"trials={path.total_ls} wall={pwall:.2f} s, BIC picks "
+          f"lam1={best.lam1} peak={torch.cuda.max_memory_allocated() / 2**30:.1f}"
+          f" GiB launches={launches}")
+    for r in path:
+        check(r.converged and not r.stalled, f"path point {r.lam1} failed")
+        check(r.block_density < 0.25, f"path point {r.lam1} is dense")
+    check(launches["fused_prox_stats"] == rep.ls_total + path.total_ls,
+          "fused prox launches != line-search trials along the path")
+    ppv, fdr = support_stats(torch, best.omega, truth)
+    print(f"BIC choice lam1={best.lam1}: PPV={ppv:.4f} FDR={fdr:.4f}")
+    return {"launches": launches, "omega": rep.omega, "s": s,
+            "lam1": 0.3, "lam2": 0.05}
+
+
+def obs_fit(torch, mods, dev):
+    graphs, est_mod, penalty, ops = mods
+    omega0 = graphs.chain_omega(P_MAIN, dtype=np.float64)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = graphs.sample_gaussian_torch(omega0, N_OBS, gen, dev)
+    cfg = est_mod.SolverConfig(backend="reference", variant="obs",
+                               use_pallas=True, sparse_matmul="on",
+                               dtype="float64")
+    est = est_mod.ConcordEstimator(penalty=penalty.PenaltySpec.l1(0.3, 0.05),
+                                   config=cfg)
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    est.fit(x)
+    rep = est.report_
+    print(rep.summary())
+    print(f"obs fit: p={P_MAIN} n={N_OBS} launches={dict(ops.LAUNCHES)} "
+          f"peak={torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    check(rep.converged and not rep.stalled, "obs fit did not converge")
+    check(ops.LAUNCHES["fused_prox_stats"] == rep.ls_total,
+          "obs: fused prox launches != trials")
+    check(ops.LAUNCHES["blocksparse_matmul"] > 0,
+          "obs: the block-sparse kernel never ran")
+
+
+def cross_check(torch, mods, dev):
+    graphs, est_mod, penalty, ops = mods
+    omega0 = graphs.chain_omega(P_CROSS, dtype=np.float64)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = graphs.sample_gaussian_torch(omega0, 4096, gen, dev)
+    s = (x.T @ x) / x.shape[0]
+    reps = []
+    for kern in (True, False):
+        cfg = est_mod.SolverConfig(
+            backend="reference", variant="cov", use_pallas=kern,
+            sparse_matmul="on" if kern else "off", dtype="float64")
+        est = est_mod.ConcordEstimator(
+            penalty=penalty.PenaltySpec.l1(0.3, 0.05), config=cfg)
+        reps.append(est.fit_cov(s, n_samples=4096).report_)
+    a, b = reps
+    err = float((a.omega - b.omega).abs().max())
+    print(f"cross-check p={P_CROSS}: kernels iters={a.iters} "
+          f"trials={a.ls_total} vs plain dense iters={b.iters} "
+          f"trials={b.ls_total}; max |dOmega| = {err:.3e}")
+    check((a.iters, a.ls_total) == (b.iters, b.ls_total),
+          "kernel and plain paths took different iterations")
+    check(err <= 1e-10, "kernel and plain paths disagree beyond 1e-10")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: timing
+# ---------------------------------------------------------------------------
+
+def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    if t_bytes >= t_ops:
+        return 1e3 * t_bytes, "bytes"
+    return 1e3 * t_ops, "operations"
+
+
+def timing(torch, kman, ops, ref, state, errs, smi) -> list[dict]:
+    from repro_torch.core.objective import gradient_from_w
+    omega, s = state["omega"], state["s"]
+    p, bs = omega.shape[0], BLOCK
+    # kernel 1 at a main-path trial: z = Omega - tau * grad, alpha = tau*lam1
+    tau = 0.5
+    z = omega - tau * gradient_from_w(omega, omega @ s, state["lam2"])
+    alpha = tau * state["lam1"]
+    k1 = time_ms(torch, lambda: ops.fused_prox_stats(
+        z, None, alpha, block=(bs, bs)), 20)
+    k1_plain = time_ms(torch, lambda: ref.fused_prox_stats(
+        z, None, alpha, block=(bs, bs)), 5, 1)
+    gm = -(-p // bs)
+    nbytes = 2 * p * p * 8 + gm * gm * 5 * 8        # z in, out + stats out
+    b1, by1 = bound(nbytes, 8.0 * p * p, "float64")
+    del z
+    # kernel 2 at the main path's product: W = Omega S over Omega's tiles
+    mask = (ref.block_nnz(omega, (bs, bs)) > 0).to(torch.int8)
+    occ = int(mask.sum())
+    cols = int(mask.any(dim=0).sum())                # block-rows of S read
+    k2 = time_ms(torch, lambda: ops.masked_matmul(
+        omega, s, mask, block_size=bs, capacity=occ), 10)
+    k2_plain = time_ms(torch, lambda: ref.masked_matmul(
+        omega, s, mask, block_size=bs, capacity=occ), 3, 1)
+    lib2 = time_ms(torch, lambda: omega @ s, 3, 1)
+    nbytes = occ * bs * bs * 8 + cols * bs * p * 8 + mask.numel() \
+        + p * p * 8
+    b2, by2 = bound(nbytes, 2.0 * occ * bs * bs * p, "float64")
+    print(f"timing on {smi}:")
+    print(f"  fused_prox_stats {p}x{p} f64: kernel {k1:.3f} ms, plain "
+          f"{k1_plain:.3f} ms, bound {b1:.3f} ms ({by1})")
+    print(f"  blocksparse_matmul {p}x{p}x{p} f64 at {occ}/{mask.numel()} "
+          f"blocks: kernel {k2:.3f} ms, plain {k2_plain:.3f} ms, dense "
+          f"torch.matmul {lib2:.3f} ms, bound {b2:.3f} ms ({by2})")
+    measured = {
+        "fused_prox_stats": {"ms": k1, "plain_ms": k1_plain, "bound_ms": b1,
+                             "bound_by": by1, "library_ms": None},
+        "blocksparse_matmul": {"ms": k2, "plain_ms": k2_plain,
+                               "bound_ms": b2, "bound_by": by2,
+                               "library_ms": lib2},
+    }
+    return [{"name": e["name"], "route": e["route"], "source": e["source"],
+             "replaces": e["replaces"][0],
+             "launches": state["launches"][e["name"]],
+             "max_abs_err": errs[e["name"]], **measured[e["name"]]}
+            for e in kman.KERNEL_ENTRIES]
+
+
+def profile_fit(torch, mods, state):
+    """Device time by kernel over one warm Cov fit at the main path's
+    size, and the card's idle share of the fit's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    _, est_mod, penalty, _ = mods
+    cfg = est_mod.SolverConfig(backend="reference", variant="cov",
+                               use_pallas=True, sparse_matmul="on",
+                               dtype="float64")
+    est = est_mod.ConcordEstimator(penalty=penalty.PenaltySpec.l1(0.3, 0.05),
+                                   config=cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        est.fit_cov(state["s"], n_samples=N_MAIN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rep = est.report_
+    # device-side events only: the host ops that launched them carry the
+    # same time again
+    rows = [(e.self_device_time_total / 1e6, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    check(busy > 0, "the profiler saw no device time")
+    print(f"profile: fit_cov iters={rep.iters} trials={rep.ls_total} "
+          f"wall={wall:.3f} s (profiled), device busy {busy:.3f} s, idle "
+          f"share {1.0 - busy / wall:.3f}")
+    for secs, n, key in rows[:12]:
+        print(f"  {100 * secs / wall:5.1f}% {1e3 * secs / rep.ls_total:7.3f}"
+              f" ms/trial x{n:<5d} {key[:90]}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default="all",
+                    help="comma list of device,build,kernels,main,obs,"
+                         "cross,timing (default: all)")
+    ap.add_argument("--profile", action="store_true",
+                    help="after the phases, profile one warm main-path fit "
+                         "(needs the main phase)")
+    args = ap.parse_args(argv)
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: src/repro_torch not found next to this script",
+              file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch import estimator as est_mod
+    from repro_torch.core import graphs, penalty
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import manifest as kman
+
+    want = set(args.phases.split(",")) if args.phases != "all" else None
+    run = lambda name: want is None or name in want   # noqa: E731
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    mods = (graphs, est_mod, penalty, ops)
+
+    phase("device")
+    name, count, smi = device_line(torch)
+    phase("build")
+    build_kernels(build)
+    errs, state, rows = {}, None, None
+    if run("kernels"):
+        phase("kernels")
+        check_kernels(torch, kman, ops, ref, dev)
+        errs = check_kernels_main_shape(torch, kman, ops, ref, dev)
+    if run("main"):
+        phase("main")
+        state = main_path(torch, mods, dev)
+    if run("obs"):
+        phase("obs")
+        obs_fit(torch, mods, dev)
+    if run("cross"):
+        phase("cross")
+        cross_check(torch, mods, dev)
+    if run("timing") and state is not None and errs:
+        phase("timing")
+        rows = timing(torch, kman, ops, ref, state, errs, smi)
+    if args.profile and state is not None:
+        phase("profile")
+        profile_fit(torch, mods, state)
+    if rows is not None:
+        print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": count}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,54 @@
+"""repro_torch.estimator — the public API of the PyTorch port.
+
+    from repro_torch.estimator import ConcordEstimator, SolverConfig
+    from repro_torch.core.penalty import PenaltySpec
+
+    est = ConcordEstimator(penalty=PenaltySpec.l1(0.3, 0.05),
+                           config=SolverConfig(backend="reference",
+                                               use_pallas=True,
+                                               sparse_matmul="on"))
+    est.fit_cov(S, n_samples=n)     # -> est.omega_, est.report_
+    path = est.fit_path(X, lam1_grid=[0.3, 0.2, 0.15])
+    best = path.best_bic()
+
+Runs on the CUDA card unless ``SolverConfig(device="cpu")``.
+"""
+from ..core.penalty import (  # noqa: F401
+    PenaltySpec,
+    as_penalty,
+    parse_penalty,
+    penalty_kinds,
+    register_penalty,
+)
+from .backends import (  # noqa: F401
+    Problem,
+    auto_backend,
+    available_backends,
+    get_backend,
+    reference_backend,
+    register_backend,
+)
+from .config import SolverConfig  # noqa: F401
+from .estimator import ConcordEstimator, fit, fit_path  # noqa: F401
+from .report import FitReport, PathResult, pseudo_bic  # noqa: F401
+
+__all__ = [
+    "ConcordEstimator",
+    "FitReport",
+    "PathResult",
+    "PenaltySpec",
+    "Problem",
+    "SolverConfig",
+    "as_penalty",
+    "auto_backend",
+    "available_backends",
+    "fit",
+    "fit_path",
+    "get_backend",
+    "parse_penalty",
+    "penalty_kinds",
+    "pseudo_bic",
+    "reference_backend",
+    "register_backend",
+    "register_penalty",
+]

@@ -1,0 +1,102 @@
+"""The port's kernel registry: one entry per hand-written CUDA kernel.
+
+Port of ``repro.kernels.manifest.KERNEL_ENTRIES``, reduced to what a
+kernel on the card is checked by: the reference entry it ports, the TPU
+kernel body it replaces, its CUDA source, the tolerance of each output
+class, and the reference's configs copied as literals (the parity tests
+hold them equal to the reference's).  ``chip_smoke.py`` and the card-only
+tests run every config through the kernel and its plain version.
+
+The problem builders are numpy only and draw exactly what the
+reference's builders draw from the same generator.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from .ref import dense_to_block_csr
+
+#: the reference's kernel entries that no port entry covers yet, with the
+#: slice of the port that brings each
+NOT_PORTED = {
+    "kernels.pathstep.fused_path_step": "the batched-engine slice (A7)",
+    "kernels.flash_attention.flash_attention": "the LM-zoo slice (A12)",
+}
+
+KERNEL_ENTRIES = (
+    {
+        "name": "fused_prox_stats",
+        "jax_entry": "kernels.softthresh.fused_prox_stats",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/softthresh.cu",
+        # `_kernel` (:71) and `_kernel_weighted` (:82): one CUDA kernel
+        # with a weight operand
+        "replaces": ("src/repro/kernels/softthresh.py:71",
+                     "src/repro/kernels/softthresh.py:82"),
+        # out, min_diag and block_nnz are bit-exact; logdet, l1 and sumsq
+        # differ by summation order (and the device log)
+        "exact": ("out", "min_diag", "block_nnz"),
+        "rtol": {"float64": 1e-12, "float32": 1e-5},
+        "configs": (
+            {"label": "aligned", "m": 32, "n": 32, "block": (16, 16)},
+            {"label": "edge-tile", "m": 40, "n": 24, "block": (16, 16)},
+            {"label": "prime-p", "m": 13, "n": 13, "block": (8, 8)},
+            {"label": "weighted-inf-alpha0", "m": 24, "n": 24,
+             "block": (16, 16), "weighted": True, "alpha": 0.0},
+        ),
+    },
+    {
+        "name": "blocksparse_matmul",
+        "jax_entry": "kernels.blocksparse_matmul.blocksparse_matmul",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/blocksparse_matmul.cu",
+        "replaces": ("src/repro/kernels/blocksparse_matmul.py:30",),
+        # fp-tolerant: the association order of the sums differs
+        "exact": (),
+        "rtol": {"float64": 1e-10, "float32": 1e-4},
+        "configs": (
+            {"label": "dense", "p": 16, "bs": 8, "m": 16, "block_n": 8,
+             "density": 1.0, "seed": 1},
+            {"label": "partial", "p": 32, "bs": 8, "m": 16, "block_n": 8,
+             "density": 0.4, "seed": 2},
+            {"label": "empty-rows", "p": 16, "bs": 4, "m": 8,
+             "block_n": 8, "density": 0.0, "seed": 3},
+            {"label": "edge-n", "p": 16, "bs": 8, "m": 12, "block_n": 8,
+             "density": 0.7, "seed": 4},
+        ),
+    },
+)
+
+
+def entry(name: str) -> dict:
+    return next(e for e in KERNEL_ENTRIES if e["name"] == name)
+
+
+def softthresh_problem(cfg, rng, weighted: bool):
+    """(z, diag_mask, weights or None) for a fused-prox config: a random z
+    with a positive diagonal; ``weighted`` adds weights, ~15% of them
+    inf."""
+    m, n = cfg["m"], cfg["n"]
+    z = rng.standard_normal((m, n))
+    idx = np.arange(min(m, n))
+    z[idx, idx] = np.abs(z[idx, idx]) + 0.1
+    mask = np.zeros((m, n))
+    mask[idx, idx] = 1.0
+    w = None
+    if weighted:
+        w = np.abs(rng.standard_normal((m, n))) + 0.1
+        w[rng.random((m, n)) < 0.15] = np.inf
+    return z, mask, w
+
+
+def blocksparse_problem(cfg, rng):
+    """(a, values, row_idx, col_idx, b) for a block-sparse config, drawn
+    as the reference's ``_bsr_problem`` draws them."""
+    p, bs = cfg["p"], cfg["bs"]
+    nbr = p // bs
+    a = rng.standard_normal((p, p))
+    keep = rng.random((nbr, nbr)) < cfg["density"]
+    a = np.where(np.repeat(np.repeat(keep, bs, 0), bs, 1), a, 0.0)
+    vals, rows, cols = dense_to_block_csr(a, bs)
+    b = rng.standard_normal((p, cfg["m"]))
+    return a, vals, rows, cols, b

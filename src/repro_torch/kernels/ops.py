@@ -1,0 +1,76 @@
+"""Device dispatch for the kernels, with a launch count per kernel.
+
+Port of ``repro.kernels.ops``.  Where the reference chose interpret mode
+by backend, the port chooses by the device of the tensor it is given:
+
+  * a CPU tensor goes to the plain PyTorch version (``kernels.ref``);
+  * a CUDA tensor goes to the hand-written kernel, or the call raises.
+
+Nothing here catches a failed build or launch and falls back.
+
+:data:`LAUNCHES` counts the kernel launches made through these wrappers,
+one per launch and nowhere else, so a run can show that its main path
+went through the kernels (``chip_smoke.py`` zeroes it with
+:func:`reset_launches` before the path and reads it after).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import blocksparse_matmul as _bsmm
+from . import ref
+from . import softthresh as _st
+
+#: kernel launches per kernel since the last reset
+LAUNCHES: dict[str, int] = {"fused_prox_stats": 0, "blocksparse_matmul": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return False
+    if t.device.type == "cuda":
+        return True
+    raise ValueError(f"repro_torch kernels run on cpu or cuda tensors, "
+                     f"got one on {t.device}")
+
+
+def fused_prox_stats(z, diag_mask, alpha, *, weights=None,
+                     block=_st.DEFAULT_BLOCK):
+    """(out, logdet, l1_offdiag, sumsq, min_diag, block_nnz); see
+    ``kernels.ref.fused_prox_stats``."""
+    if not _on_card(z):
+        return ref.fused_prox_stats(z, diag_mask, alpha, weights=weights,
+                                    block=block)
+    res = _st.fused_prox_stats(z, diag_mask, alpha, weights=weights,
+                               block=block)
+    LAUNCHES["fused_prox_stats"] += 1
+    return res
+
+
+def blocksparse_matmul(values, row_idx, col_idx, b):
+    """A @ B with A in block-CSR coordinates (the reference's contract,
+    including its ``ValueError`` on non-contiguous block-row runs)."""
+    if not _on_card(b):
+        _bsmm.validate_row_runs(row_idx)
+        return ref.blocksparse_matmul(values, row_idx, col_idx, b,
+                                      p=b.shape[0])
+    out = _bsmm.blocksparse_matmul(values, row_idx, col_idx, b)
+    LAUNCHES["blocksparse_matmul"] += 1
+    return out
+
+
+def masked_matmul(a, b, mask, *, block_size: int, capacity: int):
+    """The sparse branch of the matops dispatch: A @ B over A's occupied
+    tiles.  ``capacity`` (>= the occupied-block count) sizes the plain
+    version's gather; the kernel visits every occupied tile."""
+    if not _on_card(a):
+        return ref.masked_matmul(a, b, mask, block_size=block_size,
+                                 capacity=capacity)
+    out = _bsmm.masked_matmul(a, b, mask, block_size=block_size)
+    LAUNCHES["blocksparse_matmul"] += 1
+    return out

@@ -1,0 +1,169 @@
+"""Plain PyTorch versions of every kernel in this package.
+
+The port of ``repro.kernels.ref``.  Each function computes exactly what
+its CUDA kernel computes, in eager torch on any device.  ``kernels.ops``
+routes a CPU tensor here; ``chip_smoke.py`` runs these on the card as the
+yardstick each kernel is held against.  Nothing on the main path calls
+them when a card is present.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+#: floor dtype of the fused-prox stats: at least float32, widened to the
+#: operand dtype (a float64 solve keeps float64 line-search stats)
+STATS_MIN_DTYPE = torch.float32
+
+
+def stats_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(dtype, STATS_MIN_DTYPE)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# ---------------------------------------------------------------------------
+# fused prox (softthresh)
+# ---------------------------------------------------------------------------
+
+def fused_prox(z: torch.Tensor, diag_mask, alpha, *,
+               weights=None) -> torch.Tensor:
+    """Soft-threshold off-diagonal entries, pass the diagonal through.
+
+    ``diag_mask=None`` means the main diagonal (i == j), copied from
+    ``z``; an explicit 0/1 mask is blended as ``st*(1-m) + z*m``.
+    ``weights`` switches to the threshold ``alpha * w`` with ``w = inf``
+    forcing exact zeros, even at ``alpha == 0``."""
+    if weights is None:
+        thr = alpha
+    else:
+        w = torch.as_tensor(weights, dtype=z.dtype, device=z.device)
+        thr = torch.where(torch.isinf(w), torch.full_like(w, math.inf),
+                          alpha * w)
+    st = torch.sign(z) * torch.clamp_min(torch.abs(z) - thr, 0.0)
+    if diag_mask is None:
+        st.diagonal().copy_(z.diagonal())
+        return st
+    return st * (1.0 - diag_mask) + z * diag_mask
+
+
+def block_nnz(a: torch.Tensor, block) -> torch.Tensor:
+    """Per-tile nonzero count on the fused-prox stats grid (edge tiles
+    zero-padded), in the stats dtype."""
+    m, n = a.shape
+    bm, bn = min(block[0], m), min(block[1], n)
+    gm, gn = _cdiv(m, bm), _cdiv(n, bn)
+    ap = torch.nn.functional.pad(a, (0, gn * bn - n, 0, gm * bm - m))
+    tiles = (ap != 0).reshape(gm, bm, gn, bn)
+    return tiles.sum(dim=(1, 3)).to(stats_dtype(a.dtype))
+
+
+def fused_prox_stats(z: torch.Tensor, diag_mask, alpha, *, weights=None,
+                     block=(128, 128)):
+    """Prox + the line-search reduction pieces.
+
+    Returns (out, logdet, l1_offdiag, sumsq, min_diag, block_nnz):
+      logdet     = sum over the diagonal of log(max(out, 1e-30))
+      l1_offdiag = sum over the off-diagonal of |out| (unweighted)
+      sumsq      = ||out||_F^2
+      min_diag   = min over the diagonal of out
+      block_nnz  = per-tile nonzero counts (the block-occupancy harvest)
+    """
+    out = fused_prox(z, diag_mask, alpha, weights=weights)
+    sd = stats_dtype(z.dtype)
+    if diag_mask is None:
+        dvals = out.diagonal()
+        logdet = torch.log(torch.clamp_min(dvals, 1e-30)).sum()
+        l1 = torch.abs(out).sum() - torch.abs(dvals).sum()
+        min_diag = (dvals.min() if dvals.numel()
+                    else torch.tensor(math.inf, dtype=out.dtype,
+                                      device=out.device))
+    else:
+        d = diag_mask > 0
+        zero = torch.zeros((), dtype=out.dtype, device=out.device)
+        logdet = torch.where(d, torch.log(torch.clamp_min(out, 1e-30)),
+                             zero).sum()
+        l1 = torch.where(d, zero, torch.abs(out)).sum()
+        min_diag = torch.where(d, out, torch.full_like(out, math.inf)).min()
+    sumsq = (out * out).sum()
+    return (out, logdet.to(sd), l1.to(sd), sumsq.to(sd), min_diag.to(sd),
+            block_nnz(out, block))
+
+
+# ---------------------------------------------------------------------------
+# block-sparse x dense matmul (blocksparse_matmul)
+# ---------------------------------------------------------------------------
+
+def block_csr_to_dense(values: torch.Tensor, row_idx, col_idx,
+                       p: int) -> torch.Tensor:
+    """Materialize a block-CSR matrix (nb, bs, bs) into dense (p, p)."""
+    bs = values.shape[1]
+    dense = torch.zeros((p, p), dtype=values.dtype, device=values.device)
+    for i, (r, c) in enumerate(zip(torch.as_tensor(row_idx).tolist(),
+                                   torch.as_tensor(col_idx).tolist())):
+        dense[r * bs:(r + 1) * bs, c * bs:(c + 1) * bs] = values[i]
+    return dense
+
+
+def blocksparse_matmul(values, row_idx, col_idx, b, p: int) -> torch.Tensor:
+    """A @ B with A given in block-CSR coordinates."""
+    return block_csr_to_dense(values, row_idx, col_idx, p) @ b
+
+
+def dense_to_block_csr(a: np.ndarray, bs: int, *, tol: float = 0.0):
+    """Host-side: dense (p, p) -> (values, row_idx, col_idx) keeping only
+    nonzero bs x bs tiles; every block-row gets at least one (zero) block,
+    as in the reference's builder."""
+    a = np.asarray(a)
+    p = a.shape[0]
+    nbr = p // bs
+    vals, rows, cols = [], [], []
+    for r in range(nbr):
+        found = False
+        for c in range(nbr):
+            blk = a[r * bs:(r + 1) * bs, c * bs:(c + 1) * bs]
+            if np.abs(blk).max() > tol:
+                vals.append(blk)
+                rows.append(r)
+                cols.append(c)
+                found = True
+        if not found:
+            vals.append(np.zeros((bs, bs), a.dtype))
+            rows.append(r)
+            cols.append(r)
+    return (np.stack(vals), np.asarray(rows, np.int32),
+            np.asarray(cols, np.int32))
+
+
+def masked_matmul(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor, *,
+                  block_size: int, capacity: int) -> torch.Tensor:
+    """Block-gather product: C = A @ B using only the occupied bs x bs
+    tiles of A (up to ``capacity`` of them, occupied first).
+
+    The port of ``repro.core.matops.masked_matmul``: gather the tiles,
+    batch-multiply them against the matching row-blocks of B, and sum by
+    block row with ``index_add_`` (the reference's ``segment_sum``).
+    Exact whenever the occupied-block count is <= ``capacity``."""
+    p, k = a.shape
+    m = b.shape[1]
+    bs = block_size
+    nbr, nbc = mask.shape
+    ap = torch.nn.functional.pad(a, (0, nbc * bs - k, 0, nbr * bs - p))
+    bp = torch.nn.functional.pad(b, (0, 0, 0, nbc * bs - b.shape[0]))
+    occupied = mask.reshape(-1) > 0
+    order = torch.argsort((~occupied).to(torch.int8), stable=True)
+    idx = order[:capacity]
+    r_idx = idx // nbc
+    c_idx = idx % nbc
+    a4 = ap.reshape(nbr, bs, nbc, bs)
+    vals = a4[r_idx, :, c_idx, :]                  # (capacity, bs, bs)
+    vals = vals * occupied[idx][:, None, None].to(vals.dtype)
+    b3 = bp.reshape(nbc, bs, m)
+    prods = torch.bmm(vals, b3[c_idx])
+    out = torch.zeros((nbr, bs, m), dtype=prods.dtype, device=prods.device)
+    out.index_add_(0, r_idx, prods)
+    return out.reshape(nbr * bs, m)[:p]
