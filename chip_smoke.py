@@ -12,19 +12,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
   3. kernels    each kernel against its plain PyTorch version on the card:
                 every config of ``repro_torch/kernels/manifest.py`` (the
                 reference's configs; f32 and f64, weighted with inf
-                weights at alpha = 0) and the main path's shapes
+                weights at alpha = 0) and the main paths' shapes (the
+                path step at C = 3 lanes of p = 16384, both bodies)
   4. main       the Cov solve at p = 16384 (chain graph, n = 8192 samples
                 drawn on the card, float64) through ``ConcordEstimator``:
                 ``fit_cov`` then a warm-started ``fit_path``; kernel launch
                 counts are zeroed before and read after
-  5. obs        one Obs fit at p = 16384, n = 1200
-  6. cross      p = 2048: the kernel path against the dense plain path
-  7. timing     each kernel at the main path's inputs: CUDA-event time,
-                plain-version time, library time, and the bound
+  5. batched    the batched lambda path on the same S:
+                ``fit_path(mode="batched")`` over 3 cold lanes, through the
+                fused path-step kernel (one launch per flat step)
+  6. adaptive   p = 4096: ``fit_path(adaptive=True)`` batched (stage 2 on
+                the path step's weighted body) and sequential (stage 2 on
+                the fused prox's weighted body)
+  7. obs        one Obs fit at p = 16384, n = 1200
+  8. cross      p = 2048: the kernel path against the dense plain path;
+                the batched path through the kernel, on the plain route,
+                and as sequential cold solves
+  9. timing     each kernel body at the main paths' inputs: CUDA-event
+                time, plain-version time, library time, and the bound
 
-``--profile`` adds a torch.profiler pass over one warm main-path fit
-(device time by kernel, the card's idle share); ``--phases`` runs a
-subset while iterating.
+``--profile`` adds a torch.profiler pass over one warm main-path fit and
+one batched path (device time by kernel, the card's idle share);
+``--phases`` runs a subset while iterating.
 
 The second-to-last line is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -50,7 +59,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float64": 67e12, "float32": 67e12}
 
 P_MAIN, N_MAIN, N_OBS, P_CROSS, BLOCK = 16384, 8192, 1200, 2048, 128
+P_ADAPT, N_ADAPT = 4096, 4096
 LAM_PATH = [0.3, 0.2, 0.15]
+LANES = len(LAM_PATH)
 
 
 def phase(name: str):
@@ -156,9 +167,53 @@ def check_kernels(torch, kman, ops, ref, dev):
                       f"blocksparse {cfg['label']} {dtype}")
                 check(torch.allclose(g, at @ bt, rtol=tol, atol=tol),
                       f"blocksparse {cfg['label']} {dtype} vs dense")
-    print("manifest configs: fused prox and block-sparse agree "
+        step = kman.entry("fused_path_step")
+        for cfg in step["configs"]:
+            for weighted in sorted({False, bool(cfg.get("weighted"))}):
+                *args, wts = kman.pathstep_problem(
+                    {**cfg, "weighted": weighted}, rng)
+                args = [torch.as_tensor(a, dtype=dtype, device=dev)
+                        for a in args]
+                wt = None if wts is None else torch.as_tensor(
+                    wts, dtype=dtype, device=dev)
+                compare_step(torch, step, ops, ref, args, wt, cfg["block"])
+    print("manifest configs: fused prox, block-sparse and path step agree "
           "(f32, f64, weighted inf at alpha=0, explicit and implicit "
           "diagonal)")
+
+
+def compare_step(torch, ent, ops, ref, args, weights, block) -> float:
+    """The path-step kernel against its plain version on the same CUDA
+    inputs: cand bit-exact, the per-lane stats within the manifest's
+    rtol; returns the max abs error of cand (0 when bit-exact)."""
+    got = ops.fused_path_step(*args, weights=weights, block=block)
+    torch.cuda.synchronize()
+    want = ref.fused_path_step(*args, weights=weights)
+    check(torch.equal(got[0], want[0]), "path step cand is not bit-exact")
+    tol = ent["rtol"][_dt(args[0].dtype)]
+    check(torch.allclose(got[1], want[1], rtol=tol, atol=tol),
+          f"path step stats: {got[1].tolist()} vs {want[1].tolist()}")
+    return float((got[0] - want[0]).abs().max())
+
+
+def path_step_inputs(torch, gen, dev, weighted: bool):
+    """C = 3 lanes of p = 16384 in float64: iterates near the identity,
+    their products, per-lane (tau, lam1, lam2), and per-lane weights with
+    ~1% inf entries (the adaptive path's form)."""
+    c, p = LANES, P_MAIN
+    om = 0.01 * torch.randn((c, p, p), generator=gen, dtype=torch.float64,
+                            device=dev)
+    om.diagonal(dim1=-2, dim2=-1).add_(1.0)
+    w = 0.1 * torch.randn((c, p, p), generator=gen, dtype=torch.float64,
+                          device=dev)
+    f64 = dict(dtype=torch.float64, device=dev)
+    args = [om, w, torch.tensor([1.0, 0.5, 0.25], **f64),
+            torch.tensor(LAM_PATH, **f64), torch.full((c,), 0.05, **f64)]
+    wts = None
+    if weighted:
+        wts = torch.rand((c, p, p), generator=gen, **f64).add_(0.1)
+        wts.masked_fill_(wts > 1.09, float("inf"))
+    return args, wts
 
 
 def check_kernels_main_shape(torch, kman, ops, ref, dev) -> dict:
@@ -190,8 +245,28 @@ def check_kernels_main_shape(torch, kman, ops, ref, dev) -> dict:
           f"{p}x{p}x{p} at {occ}/{nb * nb} occupied blocks, max abs err "
           f"{err_bsmm:.3e}")
     del a, b, got, want
+    errs = {"fused_prox_stats": err_prox, "blocksparse_matmul": err_bsmm}
+    z = 0.1 * torch.randn((p, p), generator=gen, dtype=torch.float64,
+                          device=dev)
+    z.diagonal().add_(1.0)
+    wz = torch.rand((p, p), generator=gen, dtype=torch.float64,
+                    device=dev).add_(0.1)
+    wz.masked_fill_(wz > 1.09, float("inf"))
+    errs["fused_prox_stats[weighted]"] = compare_prox(
+        torch, kman.entry("fused_prox_stats"), ops, ref, z, None, 0.3, wz,
+        (bs, bs))
+    del z, wz
+    step = kman.entry("fused_path_step")
+    for weighted in (False, True):
+        torch.cuda.empty_cache()
+        args, wts = path_step_inputs(torch, gen, dev, weighted)
+        name = "fused_path_step" + ("[weighted]" if weighted else "")
+        errs[name] = compare_step(torch, step, ops, ref, args, wts, 256)
+        del args, wts
+    print(f"main shapes: fused prox {p}x{p} with weights out bit-exact; "
+          f"path step {LANES}x{p}x{p}, both bodies, cand bit-exact")
     torch.cuda.empty_cache()
-    return {"fused_prox_stats": err_prox, "blocksparse_matmul": err_bsmm}
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -264,7 +339,99 @@ def main_path(torch, mods, dev) -> dict:
     ppv, fdr = support_stats(torch, best.omega, truth)
     print(f"BIC choice lam1={best.lam1}: PPV={ppv:.4f} FDR={fdr:.4f}")
     return {"launches": launches, "omega": rep.omega, "s": s,
-            "lam1": 0.3, "lam2": 0.05}
+            "truth": truth, "lam1": 0.3, "lam2": 0.05}
+
+
+def batched_config(est_mod, use_pallas: bool = True, **kw):
+    return est_mod.SolverConfig(backend="reference", variant="cov",
+                                use_pallas=use_pallas, dtype="float64",
+                                **kw)
+
+
+def batched_path(torch, mods, state) -> dict:
+    """The whole lam1 grid in lock step at p = 16384 on the main path's S:
+    every flat step is one path-step launch for all live lanes plus one
+    GEMM per live lane."""
+    _, est_mod, penalty, ops = mods
+    est = est_mod.ConcordEstimator(penalty=penalty.PenaltySpec.l1(0.3, 0.05),
+                                   config=batched_config(est_mod))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    path = est.fit_path(s=state["s"], lam1_grid=LAM_PATH, n_samples=N_MAIN,
+                        mode="batched")
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    st = path.batch_stats
+    steps = len(st.capacities)
+    print(path.summary())
+    best = path.best_bic()
+    ppv, fdr = support_stats(torch, best.omega, state["truth"])
+    print(f"batched path: {len(path)} lanes, {steps} flat steps in "
+          f"{st.segments} segments, lane trials {st.lane_steps}, engine "
+          f"{path.wall_time_s:.2f} s ({1e3 * path.wall_time_s / steps:.1f} "
+          f"ms/flat step), fit_path {wall:.2f} s with BIC; host syncs "
+          f"{steps + st.segments} ({steps} flat steps + {st.segments} "
+          f"harvests); peak {peak / 2**30:.1f} GiB; launches {launches}; "
+          f"BIC picks lam1={best.lam1} PPV={ppv:.4f} FDR={fdr:.4f}")
+    check(path.mode == "batched", "fit_path did not run batched")
+    for r in path:
+        check(r.converged and not r.stalled, f"lane {r.lam1} failed")
+    check(launches["fused_path_step"] == steps,
+          "path-step launches != executed flat steps")
+    check(peak < 80e9, f"peak memory {peak / 1e9:.1f} GB >= 80 GB")
+    return {"launches": launches["fused_path_step"]}
+
+
+def adaptive_paths(torch, mods, dev) -> dict:
+    """The two-stage adaptive lasso at p = 4096, batched (stage 2 through
+    the path step's weighted body) and sequential (stage 2 through the
+    fused prox's weighted body)."""
+    graphs, est_mod, penalty, ops = mods
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = graphs.sample_gaussian_torch(
+        graphs.chain_omega(P_ADAPT, dtype=np.float64), N_ADAPT, gen, dev)
+    s = (x.T @ x) / N_ADAPT
+    del x
+    out = {}
+    for mode in ("batched", "sequential"):
+        sparse = "on" if mode == "sequential" else "off"
+        est = est_mod.ConcordEstimator(
+            penalty=penalty.PenaltySpec.l1(0.3, 0.05),
+            config=batched_config(est_mod, sparse_matmul=sparse))
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        path = est.fit_path(s=s, lam1_grid=LAM_PATH, n_samples=N_ADAPT,
+                            mode=mode, adaptive=True)
+        wall = time.perf_counter() - t0
+        launches, weighted = dict(ops.LAUNCHES), dict(ops.WEIGHTED_LAUNCHES)
+        print(f"adaptive {mode} p={P_ADAPT}: stage 1 iters "
+              f"{[r.iters for r in path.stage1]}, stage 2 iters "
+              f"{[r.iters for r in path]} trials {[r.ls_total for r in path]}"
+              f", {wall:.2f} s, BIC picks lam1={path.best_bic().lam1}; "
+              f"launches {launches}, weighted {weighted}")
+        check(path.adaptive and path.mode == mode, "not an adaptive path")
+        for r in (*path.stage1, *path):
+            check(r.converged and not r.stalled,
+                  f"adaptive {mode} lam1={r.lam1} ({r.penalty}) failed")
+        if mode == "batched":
+            s1 = len(path.stage1.batch_stats.capacities)
+            s2 = len(path.batch_stats.capacities)
+            check(weighted["fused_path_step"] == s2 > 0,
+                  "weighted path-step launches != stage-2 flat steps")
+            check(launches["fused_path_step"] == s1 + s2,
+                  "path-step launches != flat steps of both stages")
+            out["fused_path_step[weighted]"] = s2
+        else:
+            t2 = path.total_ls
+            check(weighted["fused_prox_stats"] == t2 > 0,
+                  "weighted fused-prox launches != stage-2 trials")
+            check(launches["fused_prox_stats"] == path.stage1.total_ls + t2,
+                  "fused-prox launches != trials of both stages")
+            out["fused_prox_stats[weighted]"] = t2
+    return out
 
 
 def obs_fit(torch, mods, dev):
@@ -314,6 +481,35 @@ def cross_check(torch, mods, dev):
           "kernel and plain paths took different iterations")
     check(err <= 1e-10, "kernel and plain paths disagree beyond 1e-10")
 
+    # the batched path: kernel route, plain route, sequential cold solves
+    runs = {}
+    for name, kern in (("kernel", True), ("plain", False)):
+        est = est_mod.ConcordEstimator(
+            penalty=penalty.PenaltySpec.l1(0.3, 0.05),
+            config=batched_config(est_mod, use_pallas=kern))
+        ops.reset_launches()
+        runs[name] = est.fit_path(s=s, lam1_grid=LAM_PATH, n_samples=4096,
+                                  mode="batched", score_bic=False)
+        steps = len(runs[name].batch_stats.capacities)
+        check(ops.LAUNCHES["fused_path_step"] == (steps if kern else 0),
+              f"cross {name}: path-step launches != flat steps")
+    est = est_mod.ConcordEstimator(penalty=penalty.PenaltySpec.l1(0.3, 0.05),
+                                   config=batched_config(est_mod, False))
+    runs["sequential"] = est.fit_path(s=s, lam1_grid=LAM_PATH,
+                                      n_samples=4096, warm_start=False,
+                                      score_bic=False)
+    counts = {k: [(r.iters, r.ls_total) for r in v] for k, v in runs.items()}
+    errs = {k: max(float((r.omega - q.omega).abs().max())
+                   for r, q in zip(runs[k], runs["sequential"]))
+            for k in ("kernel", "plain")}
+    print(f"cross-check batched p={P_CROSS}: (iters, trials) per lane "
+          f"{counts}; max |dOmega| vs sequential {errs}")
+    check(counts["kernel"] == counts["plain"] == counts["sequential"],
+          "batched kernel / plain / sequential lanes took different "
+          "iterations")
+    check(max(errs.values()) <= 1e-9,
+          "batched lanes disagree with sequential solves beyond 1e-9")
+
 
 # ---------------------------------------------------------------------------
 # phase 7: timing
@@ -341,22 +537,30 @@ def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     return 1e3 * t_ops, "operations"
 
 
-def timing(torch, kman, ops, ref, state, errs, smi) -> list[dict]:
+def timing(torch, kman, ops, ref, state, errs, launches, smi) -> list[dict]:
     from repro_torch.core.objective import gradient_from_w
     omega, s = state["omega"], state["s"]
     p, bs = omega.shape[0], BLOCK
+    gm = -(-p // bs)
+    measured = {}
     # kernel 1 at a main-path trial: z = Omega - tau * grad, alpha = tau*lam1
     tau = 0.5
     z = omega - tau * gradient_from_w(omega, omega @ s, state["lam2"])
     alpha = tau * state["lam1"]
-    k1 = time_ms(torch, lambda: ops.fused_prox_stats(
-        z, None, alpha, block=(bs, bs)), 20)
-    k1_plain = time_ms(torch, lambda: ref.fused_prox_stats(
-        z, None, alpha, block=(bs, bs)), 5, 1)
-    gm = -(-p // bs)
-    nbytes = 2 * p * p * 8 + gm * gm * 5 * 8        # z in, out + stats out
-    b1, by1 = bound(nbytes, 8.0 * p * p, "float64")
-    del z
+    # the weighted body at the adaptive path's weights 1 / (|Omega| + eps)
+    wz = 1.0 / (omega.abs() + 1e-3)
+    for name, w in (("fused_prox_stats", None),
+                    ("fused_prox_stats[weighted]", wz)):
+        ms = time_ms(torch, lambda: ops.fused_prox_stats(
+            z, None, alpha, weights=w, block=(bs, bs)), 20)
+        plain = time_ms(torch, lambda: ref.fused_prox_stats(
+            z, None, alpha, weights=w, block=(bs, bs)), 5, 1)
+        # z (and w) in, out + stats out
+        nbytes = (2 + (w is not None)) * p * p * 8 + gm * gm * 5 * 8
+        b, by = bound(nbytes, (8.0 + (w is not None)) * p * p, "float64")
+        measured[name] = {"ms": ms, "plain_ms": plain, "bound_ms": b,
+                          "bound_by": by, "library_ms": None}
+    del z, wz
     # kernel 2 at the main path's product: W = Omega S over Omega's tiles
     mask = (ref.block_nnz(omega, (bs, bs)) > 0).to(torch.int8)
     occ = int(mask.sum())
@@ -369,45 +573,55 @@ def timing(torch, kman, ops, ref, state, errs, smi) -> list[dict]:
     nbytes = occ * bs * bs * 8 + cols * bs * p * 8 + mask.numel() \
         + p * p * 8
     b2, by2 = bound(nbytes, 2.0 * occ * bs * bs * p, "float64")
+    measured["blocksparse_matmul"] = {"ms": k2, "plain_ms": k2_plain,
+                                      "bound_ms": b2, "bound_by": by2,
+                                      "library_ms": lib2}
+    # kernel 3 at the batched path's shape: C lanes of p x p, both bodies
+    gen = torch.Generator(device=omega.device).manual_seed(5)
+    c = LANES
+    for name, weighted in (("fused_path_step", False),
+                           ("fused_path_step[weighted]", True)):
+        torch.cuda.empty_cache()
+        args, wts = path_step_inputs(torch, gen, omega.device, weighted)
+        ms = time_ms(torch, lambda: ops.fused_path_step(*args, weights=wts),
+                     10)
+        plain = time_ms(torch, lambda: ref.fused_path_step(
+            *args, weights=wts), 2, 1)
+        # Omega, W (and the weights) in once, cand out; (C, 3) + (C, 5)
+        nbytes = (3 + weighted) * c * p * p * 8 + c * 8 * 8
+        b, by = bound(nbytes, (20.0 + weighted) * c * p * p, "float64")
+        measured[name] = {"ms": ms, "plain_ms": plain, "bound_ms": b,
+                          "bound_by": by, "library_ms": None}
+        del args, wts
     print(f"timing on {smi}:")
-    print(f"  fused_prox_stats {p}x{p} f64: kernel {k1:.3f} ms, plain "
-          f"{k1_plain:.3f} ms, bound {b1:.3f} ms ({by1})")
-    print(f"  blocksparse_matmul {p}x{p}x{p} f64 at {occ}/{mask.numel()} "
-          f"blocks: kernel {k2:.3f} ms, plain {k2_plain:.3f} ms, dense "
-          f"torch.matmul {lib2:.3f} ms, bound {b2:.3f} ms ({by2})")
-    measured = {
-        "fused_prox_stats": {"ms": k1, "plain_ms": k1_plain, "bound_ms": b1,
-                             "bound_by": by1, "library_ms": None},
-        "blocksparse_matmul": {"ms": k2, "plain_ms": k2_plain,
-                               "bound_ms": b2, "bound_by": by2,
-                               "library_ms": lib2},
-    }
-    return [{"name": e["name"], "route": e["route"], "source": e["source"],
-             "replaces": e["replaces"][0],
-             "launches": state["launches"][e["name"]],
-             "max_abs_err": errs[e["name"]], **measured[e["name"]]}
-            for e in kman.KERNEL_ENTRIES]
+    for name, m in measured.items():
+        lib = ("" if m["library_ms"] is None
+               else f", library {m['library_ms']:.3f} ms")
+        print(f"  {name} f64: kernel {m['ms']:.3f} ms, plain "
+              f"{m['plain_ms']:.3f} ms{lib}, bound {m['bound_ms']:.3f} ms "
+              f"({m['bound_by']}), launches {launches.get(name, 0)}")
+    rows = []
+    for e in kman.KERNEL_ENTRIES:
+        for body, site in enumerate(e["replaces"]):
+            name = e["name"] + ("[weighted]" if body else "")
+            rows.append({"name": name, "route": e["route"],
+                         "source": e["source"], "replaces": site,
+                         "launches": launches.get(name, 0),
+                         "max_abs_err": errs[name], **measured[name]})
+    return rows
 
 
-def profile_fit(torch, mods, state):
-    """Device time by kernel over one warm Cov fit at the main path's
-    size, and the card's idle share of the fit's wall time."""
+def _profile(torch, fn):
+    """(wall s, device-busy s, [(device s, count, kernel)]) of ``fn``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    _, est_mod, penalty, _ = mods
-    cfg = est_mod.SolverConfig(backend="reference", variant="cov",
-                               use_pallas=True, sparse_matmul="on",
-                               dtype="float64")
-    est = est_mod.ConcordEstimator(penalty=penalty.PenaltySpec.l1(0.3, 0.05),
-                                   config=cfg)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        est.fit_cov(state["s"], n_samples=N_MAIN)
+        out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rep = est.report_
     # device-side events only: the host ops that launched them carry the
     # same time again
     rows = [(e.self_device_time_total / 1e6, e.count, e.key)
@@ -417,22 +631,50 @@ def profile_fit(torch, mods, state):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     check(busy > 0, "the profiler saw no device time")
+    return out, wall, busy, rows
+
+
+def profile_fit(torch, mods, state):
+    """Device time by kernel over one warm Cov fit and one batched path at
+    the main path's size, and the card's idle share of each wall time."""
+    _, est_mod, penalty, _ = mods
+    cfg = est_mod.SolverConfig(backend="reference", variant="cov",
+                               use_pallas=True, sparse_matmul="on",
+                               dtype="float64")
+    est = est_mod.ConcordEstimator(penalty=penalty.PenaltySpec.l1(0.3, 0.05),
+                                   config=cfg)
+    _, wall, busy, rows = _profile(
+        torch, lambda: est.fit_cov(state["s"], n_samples=N_MAIN))
+    rep = est.report_
     print(f"profile: fit_cov iters={rep.iters} trials={rep.ls_total} "
           f"wall={wall:.3f} s (profiled), device busy {busy:.3f} s, idle "
           f"share {1.0 - busy / wall:.3f}")
     for secs, n, key in rows[:12]:
         print(f"  {100 * secs / wall:5.1f}% {1e3 * secs / rep.ls_total:7.3f}"
               f" ms/trial x{n:<5d} {key[:90]}")
+    est = est_mod.ConcordEstimator(penalty=penalty.PenaltySpec.l1(0.3, 0.05),
+                                   config=batched_config(est_mod))
+    path, wall, busy, rows = _profile(torch, lambda: est.fit_path(
+        s=state["s"], lam1_grid=LAM_PATH, n_samples=N_MAIN, mode="batched",
+        score_bic=False))
+    st = path.batch_stats
+    steps = len(st.capacities)
+    print(f"profile: batched fit_path {len(path)} lanes, {steps} flat steps,"
+          f" {st.lane_steps} lane trials, wall={wall:.3f} s (profiled), "
+          f"device busy {busy:.3f} s, idle share {1.0 - busy / wall:.3f}")
+    for secs, n, key in rows[:12]:
+        print(f"  {100 * secs / wall:5.1f}% {1e3 * secs / steps:8.3f}"
+              f" ms/flat step x{n:<5d} {key[:90]}")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="all",
-                    help="comma list of device,build,kernels,main,obs,"
-                         "cross,timing (default: all)")
+                    help="comma list of device,build,kernels,main,batched,"
+                         "adaptive,obs,cross,timing (default: all)")
     ap.add_argument("--profile", action="store_true",
                     help="after the phases, profile one warm main-path fit "
-                         "(needs the main phase)")
+                         "and one batched path (needs the main phase)")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script",
@@ -459,7 +701,7 @@ def main(argv=None) -> int:
     name, count, smi = device_line(torch)
     phase("build")
     build_kernels(build)
-    errs, state, rows = {}, None, None
+    errs, state, rows, launches = {}, None, None, {}
     if run("kernels"):
         phase("kernels")
         check_kernels(torch, kman, ops, ref, dev)
@@ -467,6 +709,15 @@ def main(argv=None) -> int:
     if run("main"):
         phase("main")
         state = main_path(torch, mods, dev)
+        launches.update(state["launches"])
+    if run("batched") and state is not None:
+        phase("batched")
+        launches["fused_path_step"] = batched_path(
+            torch, mods, state)["launches"]
+        torch.cuda.empty_cache()
+    if run("adaptive"):
+        phase("adaptive")
+        launches.update(adaptive_paths(torch, mods, dev))
     if run("obs"):
         phase("obs")
         obs_fit(torch, mods, dev)
@@ -475,7 +726,7 @@ def main(argv=None) -> int:
         cross_check(torch, mods, dev)
     if run("timing") and state is not None and errs:
         phase("timing")
-        rows = timing(torch, kman, ops, ref, state, errs, smi)
+        rows = timing(torch, kman, ops, ref, state, errs, launches, smi)
     if args.profile and state is not None:
         phase("profile")
         profile_fit(torch, mods, state)

@@ -19,16 +19,35 @@ from .device import resolve_device
 from .estimator.config import SolverConfig
 
 
+def _leaf(v):
+    """A float for a scalar, a float64 numpy array for a lane vector."""
+    arr = np.array(v, np.float64)
+    return float(arr) if arr.ndim == 0 else arr
+
+
 def penalty_from_numpy(kind: str, lam1, lam2=0.0, shape=None,
                        weights=None) -> PenaltySpec:
-    """A validated :class:`PenaltySpec` from plain values (numpy scalars
-    or arrays are accepted; ``weights`` stays a float64 numpy matrix
-    until a solve moves it to its device)."""
+    """A validated :class:`PenaltySpec` from plain values.  Numpy scalars
+    and arrays are accepted, lane-batched ones too: a (B,) ``lam1``,
+    ``lam2`` or ``shape``, a shared (p, p) or per-lane (B, p, p)
+    ``weights`` (kept as float64 numpy until a solve moves them to its
+    device).  A lane-batched spec is validated lane by lane."""
     spec = PenaltySpec(
-        kind, float(np.asarray(lam1)), float(np.asarray(lam2)),
-        shape=None if shape is None else float(np.asarray(shape)),
+        kind, _leaf(lam1), _leaf(lam2),
+        shape=None if shape is None else _leaf(shape),
         weights=None if weights is None else np.array(weights, np.float64))
-    _get_def(kind).validate(spec)
+    batched = [leaf.shape[0] for leaf, nd in
+               zip(spec.leaves(), spec._expected_ndims())
+               if np.ndim(leaf) == nd + 1]
+    if not batched:
+        _get_def(kind).validate(spec)
+        return spec
+    b = batched[0]
+    if any(n != b for n in batched):
+        raise ValueError(f"lane-batched penalty leaves disagree on the "
+                         f"lane count: {batched}")
+    for i in range(b):
+        _get_def(kind).validate(spec.lane(i, b))
     return spec
 
 

@@ -1,8 +1,9 @@
 """Analytic cost model for HP-CONCORD (paper Lemmas 3.1-3.5) + auto-tuner.
 
-A copy of the parts of ``repro.core.costmodel`` that the single-device
-slice decides with: the variant tuner behind ``variant="auto"`` and the
-dense <-> block-sparse crossover behind ``sparse_matmul="auto"``.
+A copy of the parts of ``repro.core.costmodel`` that the port decides
+with: the variant tuner behind ``variant="auto"``, the dense <->
+block-sparse crossover behind ``sparse_matmul="auto"``, and the batched
+path engine's difficulty model and ``fit_path(mode="auto")`` decision.
 
     T = F*gamma + L*alpha + W*beta
 
@@ -11,7 +12,11 @@ The port's default machine is :data:`H100`, whose constants are NVIDIA's
 data-sheet figures for one H100 SXM card.  They are NOT measured on this
 system; a calibration run (``benchmarks/sparse_crossover.py`` once it is
 ported) replaces them.  The reference's TPU constants play no part in the
-port's decisions.
+port's decisions.  The path-scheduling constants (trials per iteration,
+the iteration power law, the gemm step-cost and pilot factors) are the
+reference's, copied unchanged so both packages schedule a grid alike;
+they are ratios the reference measured for itself on a CPU host, not
+measurements of the port.
 """
 from __future__ import annotations
 
@@ -202,3 +207,141 @@ def crossover_density(p: int, m: int, block_size: int,
     if ts1 <= 0.0:
         return 1.0
     return max(0.0, min(1.0, td / ts1))
+
+
+# ---------------------------------------------------------------------------
+# batched-vs-sequential path scheduling (the core.batch compact engine's
+# difficulty model and fit_path(mode="auto")'s decision procedure)
+# ---------------------------------------------------------------------------
+
+#: measured average line-search trials per outer iteration for each
+#: tau schedule (BENCH_path_batch shapes, identity cold start): "restart"
+#: re-rejects from tau_init every iteration, "greedy" grows the accepted
+#: tau by 1.3x and almost always accepts first try
+TAU_TRIALS_PER_ITER = {"restart": 2.3, "warm": 1.7, "greedy": 1.35}
+
+
+@dataclass(frozen=True)
+class PathIterModel:
+    """Power-law iteration predictor for a cold-started proximal-gradient
+    solve at penalty strength lam1:
+
+        iters(lam1) ~= base_iters * lam1 ** -exponent
+
+    Smaller lam1 means a denser estimate and a flatter objective, so
+    iteration counts grow as the penalty shrinks.  The constants are fit
+    to the BENCH_path_batch chain-scenario paths (p = 128..512,
+    tol = 1e-6); only the ORDERING and the rough totals matter — the
+    compact engine uses this to schedule lanes hardest-first and
+    ``choose_path_mode`` to pick an execution mode, neither of which
+    needs per-problem accuracy."""
+    base_iters: float = 11.0     # iters at lam1 = 1
+    exponent: float = 1.0
+
+
+def predict_path_iters(lam1, *, model: PathIterModel | None = None,
+                       max_iters: int = 500):
+    """Predicted outer-iteration counts for a lam1 grid (elementwise,
+    clipped to [1, max_iters]).  Monotone decreasing in lam1, so sorting
+    by the prediction is sorting hardest-first."""
+    import numpy as np
+
+    model = model or PathIterModel()
+    lam1 = np.asarray(lam1, np.float64)
+    pred = model.base_iters * np.power(np.maximum(lam1, 1e-12),
+                                       -model.exponent)
+    return np.clip(pred, 1.0, float(max(max_iters, 1)))
+
+
+#: measured per-lane-step wall-clock of the compact engine's gemm routes
+#: relative to the sequential XLA baseline on a one-core CPU host
+#: (BENCH_path_batch, p = 512 f64: host BLAS stepper ~10 ms/lane-step vs
+#: ~14.5 ms through XLA)
+GEMM_STEP_COST = {"xla": 1.0, "host": 0.70}
+
+#: measured flat-step reduction of warm_start="pilot" on the non-pilot
+#: lanes (cold 202 -> pilot-warmed 141 total ls trials on the
+#: BENCH_path_batch 8-point grid; the pilot lane itself runs cold)
+PILOT_WARM_FACTOR = 0.70
+
+
+def _ladder_tier(n: int) -> int:
+    cap = 1
+    while cap < n:
+        cap = 3 * cap // 2 if cap % 2 == 0 and 3 * cap // 2 >= n \
+            else cap * 2
+    return cap
+
+
+def _padded_compact_cost(steps, chunk: int) -> int:
+    """Padded lane-steps of the compact schedule: each segment of
+    ``chunk`` steps pays the capacity tier of its live-lane count, and
+    lanes only leave at segment boundaries."""
+    import numpy as np
+
+    remaining = np.sort(np.asarray(steps, np.int64))[::-1].copy()
+    padded = 0
+    while remaining.size:
+        tier = _ladder_tier(int(remaining.size))
+        dt = min(int(chunk), int(remaining.max()))
+        padded += tier * dt
+        remaining = remaining - dt
+        remaining = remaining[remaining > 0]
+    return padded
+
+
+def predict_batched_speedup(lam1_grid, *, tau_schedule: str = "restart",
+                            chunk: int = 32, max_iters: int = 500,
+                            gemm: str = "xla",
+                            warm_start: str | None = None,
+                            model: PathIterModel | None = None) -> float:
+    """Predicted wall-clock ratio sequential/compact-batched for a lam1
+    path on throughput-limited hardware (one device, cost proportional to
+    lane-steps executed).
+
+    Simulates the compact engine's segmented schedule on the predicted
+    per-lane flat-step counts (see :func:`_padded_compact_cost`), then
+    applies the engine's per-step cost factor (``gemm``,
+    :data:`GEMM_STEP_COST`) and the pilot warm-start step reduction
+    (``warm_start="pilot"``, :data:`PILOT_WARM_FACTOR`).  The sequential
+    baseline is the shipped default: cold XLA solves, plain sum of
+    per-lane steps.  >1 means batching is predicted to win; the
+    estimator's ``fit_path(mode="auto")`` thresholds this."""
+    import numpy as np
+
+    trials = TAU_TRIALS_PER_ITER.get(tau_schedule,
+                                     TAU_TRIALS_PER_ITER["restart"])
+    iters = predict_path_iters(lam1_grid, model=model, max_iters=max_iters)
+    steps = np.maximum(np.rint(iters * trials), 1.0).astype(np.int64)
+    seq = int(steps.sum())
+    step_cost = GEMM_STEP_COST.get(gemm, 1.0)
+    if warm_start == "pilot" and steps.size > 1:
+        # the median-difficulty pilot runs cold and alone; every other
+        # lane starts from its solution and converges in fewer steps
+        order = np.argsort(steps)
+        pilot = order[len(order) // 2]
+        rest = np.delete(steps, pilot)
+        rest = np.maximum(np.rint(rest * PILOT_WARM_FACTOR), 1.0)
+        padded = int(steps[pilot]) + _padded_compact_cost(rest, chunk)
+    else:
+        padded = _padded_compact_cost(steps, chunk)
+    return seq / (padded * step_cost) if padded else 1.0
+
+
+def choose_path_mode(lam1_grid, *, tau_schedule: str = "restart",
+                     chunk: int = 32, max_iters: int = 500,
+                     gemm: str = "xla", warm_start: str | None = None,
+                     threshold: float = 1.05) -> str:
+    """The ``fit_path(mode="auto")`` decision: "batched" when the
+    compact engine's predicted speedup clears ``threshold`` (a short or
+    uniformly-hard grid has too little compaction headroom to pay the
+    batched program's padding), else "sequential"."""
+    import numpy as np
+
+    grid = np.asarray(lam1_grid, np.float64)
+    if grid.size <= 1:
+        return "sequential"
+    speedup = predict_batched_speedup(
+        grid, tau_schedule=tau_schedule, chunk=chunk, max_iters=max_iters,
+        gemm=gemm, warm_start=warm_start)
+    return "batched" if speedup >= threshold else "sequential"

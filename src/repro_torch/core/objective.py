@@ -63,10 +63,12 @@ def gradient_from_w(omega: torch.Tensor, w: torch.Tensor,
 
     Built in place on one p x p buffer (plus the lam2 * Omega term) in
     the reference's association order: the diagonal correction joins the
-    symmetrized W before the ridge term is added."""
-    grad = w + w.T
+    symmetrized W before the ridge term is added.  Lane-stacked (C, p, p)
+    operands take a (C, 1, 1) ``lam2`` and transpose each lane."""
+    grad = w + w.mT
     grad.mul_(0.5)
-    grad.diagonal().sub_(1.0 / omega.diagonal())
+    grad.diagonal(dim1=-2, dim2=-1).sub_(
+        1.0 / omega.diagonal(dim1=-2, dim2=-1))
     grad += lam2 * omega
     return grad
 

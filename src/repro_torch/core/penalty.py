@@ -14,8 +14,12 @@ Built-in kinds, with the reference's semantics:
   ``scad``         Fan & Li's SCAD, shape ``a > 2`` (default 3.7)
   ``mcp``          Zhang's MCP, shape ``gamma > 1`` (default 3.0)
 
-``adaptive_weights`` and lane-batched parameters belong to the batched
-engine and come with that slice of the port.
+Lane-batched specs (the batched engine, ``core.batch``): any numeric
+field may carry a leading (B,) lane axis (a (B,) ``lam1`` or ``shape``, a
+(B, p, p) ``weights``); ``batch_axes`` says which do and ``lane(i, b)``
+picks one lane.  The prox then runs on lane-stacked (C, p, p) operands,
+with each (C,) parameter seen as a (C, 1, 1) view (:func:`lane_view`).
+``adaptive_weights`` builds the stage-2 weights of the adaptive lasso.
 """
 from __future__ import annotations
 
@@ -39,6 +43,15 @@ MCP_DEFAULT_GAMMA = 3.0
 WEIGHT_SYMMETRY_RTOL = 1e-6
 
 
+def lane_view(v, like: torch.Tensor):
+    """A per-lane (C,) tensor as a (C, 1, 1) view against a lane-stacked
+    (C, p, p) operand ``like``; scalars, 0-d tensors and full-shape
+    operands pass through unchanged."""
+    if isinstance(v, torch.Tensor) and v.ndim == 1 and like.ndim == 3:
+        return v.view(-1, 1, 1)
+    return v
+
+
 def _weights_like(spec, z):
     return torch.as_tensor(spec.weights, dtype=z.dtype, device=z.device)
 
@@ -51,22 +64,24 @@ def _weights_like(spec, z):
 # ---------------------------------------------------------------------------
 
 def _prox_l1(spec, z, tau):
-    return _soft(z, tau * spec.lam1)
+    return _soft(z, lane_view(tau, z) * lane_view(spec.lam1, z))
 
 
 def weighted_threshold(alpha, w: torch.Tensor) -> torch.Tensor:
     """alpha * w with inf weights forcing an inf threshold even at
     alpha == 0 (inf * 0 = nan)."""
-    return torch.where(torch.isinf(w), torch.full_like(w, math.inf),
-                       alpha * w)
+    thr = alpha * w
+    return torch.where(torch.isinf(w), torch.full_like(thr, math.inf), thr)
 
 
 def _prox_weighted_l1(spec, z, tau):
-    return _soft(z, weighted_threshold(tau * spec.lam1, _weights_like(spec, z)))
+    alpha = lane_view(tau, z) * lane_view(spec.lam1, z)
+    return _soft(z, weighted_threshold(alpha, _weights_like(spec, z)))
 
 
 def _prox_scad(spec, z, tau):
-    a, lam = spec.shape, spec.lam1
+    a, lam = lane_view(spec.shape, z), lane_view(spec.lam1, z)
+    tau = lane_view(tau, z)
     az = torch.abs(z)
     inner = _soft(z, tau * lam)
     mid = ((a - 1.0) * z - torch.sign(z) * (tau * a * lam)) / (a - 1.0 - tau)
@@ -75,7 +90,8 @@ def _prox_scad(spec, z, tau):
 
 
 def _prox_mcp(spec, z, tau):
-    gamma, lam = spec.shape, spec.lam1
+    gamma, lam = lane_view(spec.shape, z), lane_view(spec.lam1, z)
+    tau = lane_view(tau, z)
     az = torch.abs(z)
     shrunk = (gamma / (gamma - tau)) * _soft(z, tau * lam)
     return torch.where(az <= gamma * lam, shrunk, z)
@@ -121,8 +137,13 @@ def _value_mcp(spec, om):
 # validation (factories only)
 # ---------------------------------------------------------------------------
 
+def _is_lane_batched(v) -> bool:
+    """A leaf with a leading lane axis (checked per lane where used)."""
+    return getattr(v, "ndim", 0) != 0
+
+
 def _check_scalar(name: str, v) -> None:
-    if v is None:
+    if v is None or _is_lane_batched(v):
         return
     f = float(v)
     if not math.isfinite(f) or f < 0:
@@ -130,7 +151,7 @@ def _check_scalar(name: str, v) -> None:
 
 
 def _check_shape_param(kind: str, v, low: float) -> None:
-    if v is None:
+    if v is None or _is_lane_batched(v):
         return
     f = float(v)
     if not f > low:
@@ -306,25 +327,36 @@ class PenaltySpec:
     # -- unvalidated functional updates ---------------------------------
 
     def with_lam1(self, lam1) -> "PenaltySpec":
+        """Replace the strength (a scalar or a (B,) lane vector)."""
         return dataclasses.replace(self, lam1=lam1)
+
+    def with_weights(self, weights) -> "PenaltySpec":
+        return dataclasses.replace(self, weights=weights)
 
     # -- solver interface -----------------------------------------------
 
     @property
     def kernel_ok(self) -> bool:
-        """Whether the fused prox kernel implements this prox (the
-        soft-threshold family: scalar or weight-matrix thresholds)."""
+        """Whether the fused prox and path-step kernels implement this
+        prox (the soft-threshold family: scalar or weight-matrix
+        thresholds)."""
         return _get_def(self.kind).kernel
+
+    #: the reference's name for :attr:`kernel_ok`
+    pallas_ok = kernel_ok
 
     def prox(self, z: torch.Tensor, step, diag_mask=None) -> torch.Tensor:
         """Elementwise prox of ``step * penalty`` with the diagonal exempt.
 
-        ``diag_mask=None`` exempts the main diagonal by copying it from
-        ``z`` (no p x p identity is built); an explicit 0/1 mask is
-        blended as ``out * (1 - m) + z * m``, as in the reference."""
+        ``z`` is (p, p), or lane-stacked (C, p, p) with ``step`` and the
+        spec's per-lane fields (C,) tensors.  ``diag_mask=None`` exempts
+        the main diagonal of each matrix by copying it from ``z`` (no
+        p x p identity is built); an explicit 0/1 mask is blended as
+        ``out * (1 - m) + z * m``, as in the reference."""
         out = _get_def(self.kind).prox(self, z, step)
         if diag_mask is None:
-            out.diagonal().copy_(z.diagonal())
+            out.diagonal(dim1=-2, dim2=-1).copy_(
+                z.diagonal(dim1=-2, dim2=-1))
             return out
         return out * (1.0 - diag_mask) + z * diag_mask
 
@@ -333,17 +365,65 @@ class PenaltySpec:
         smooth lam2 ridge lives in g, not here)."""
         return _get_def(self.kind).value(self, omega)
 
+    # -- batching helpers -----------------------------------------------
+
+    def leaves(self) -> list:
+        """The numeric fields in the reference's ``tree_flatten`` order:
+        lam1, lam2, then shape and weights where present."""
+        out = [self.lam1, self.lam2]
+        if self.shape is not None:
+            out.append(self.shape)
+        if self.weights is not None:
+            out.append(self.weights)
+        return out
+
+    def replace_leaves(self, leaves) -> "PenaltySpec":
+        """The spec with its numeric fields replaced, in :meth:`leaves`
+        order (no validation)."""
+        it = iter(leaves)
+        lam1, lam2 = next(it), next(it)
+        shape = next(it) if self.shape is not None else None
+        weights = next(it) if self.weights is not None else None
+        return PenaltySpec(self.kind, lam1, lam2, shape, weights)
+
+    def _expected_ndims(self) -> list[int]:
+        """Per-leaf base ndim in :meth:`leaves` order (scalars 0, weights
+        2); a leaf with one extra leading axis of length B is a per-lane
+        parameter."""
+        dims = [0, 0]
+        if self.shape is not None:
+            dims.append(0)
+        if self.weights is not None:
+            dims.append(2)
+        return dims
+
+    def batch_axes(self, b: int) -> list:
+        """Per leaf, in :meth:`leaves` order: 0 for a leaf carrying a
+        leading (B,) lane axis, None for a leaf shared by all lanes."""
+        return [
+            0 if (getattr(leaf, "ndim", 0) == nd + 1
+                  and leaf.shape[0] == b) else None
+            for leaf, nd in zip(self.leaves(), self._expected_ndims())
+        ]
+
+    def lane(self, i: int, b: int) -> "PenaltySpec":
+        """The scalar spec of lane ``i`` of a (B,)-batched spec (shared
+        leaves pass through)."""
+        return self.replace_leaves([
+            leaf[i] if ax == 0 else leaf
+            for leaf, ax in zip(self.leaves(), self.batch_axes(b))])
+
     # -- misc ------------------------------------------------------------
 
     def label(self) -> str:
         """Canonical display/parse string: 'l1', 'scad:3.7', ..."""
-        if self.shape is not None:
+        if self.shape is not None and not _is_lane_batched(self.shape):
             return f"{self.kind}:{float(self.shape):g}"
         return self.kind
 
     def __repr__(self) -> str:        # compact, array-safe
         parts = [f"kind={self.kind!r}", f"lam1={self.lam1!r}"]
-        if float(self.lam2) != 0.0:
+        if _is_lane_batched(self.lam2) or float(self.lam2) != 0.0:
             parts.append(f"lam2={self.lam2!r}")
         if self.shape is not None:
             parts.append(f"shape={self.shape!r}")
@@ -432,6 +512,32 @@ def normalize_penalty(penalty, lam1=None, lam2=None) -> PenaltySpec:
         raise ValueError(
             "a PenaltySpec already carries lam1; pass one or the other")
     return as_penalty(penalty)
+
+
+def adaptive_weights(omega, eps: float = 1e-3,
+                     normalize: bool = True) -> np.ndarray:
+    """Stage-2 adaptive-lasso weights ``1 / (|omega_hat| + eps)`` (numpy
+    in, numpy out; a tensor is brought to the host).
+
+    ``omega_hat`` is symmetrized first (fit iterates are symmetric only to
+    solver tolerance, and weight validation rightly rejects asymmetry);
+    the diagonal weight is zeroed (it is unpenalized anyway).  With
+    ``normalize`` the off-diagonal weights are rescaled to mean 1 so a
+    stage-2 lam1 grid lives on the same scale as the stage-1 grid."""
+    om = np.abs(np.asarray(_as_numpy(omega), np.float64))
+    if om.ndim != 2 or om.shape[0] != om.shape[1]:
+        raise ValueError(f"omega must be square (p, p), got {om.shape}")
+    if not (eps > 0):
+        raise ValueError(f"eps must be > 0, got {eps}")
+    sym = 0.5 * (om + om.T)
+    w = 1.0 / (sym + eps)
+    np.fill_diagonal(w, 0.0)
+    if normalize:
+        n_off = om.shape[0] * (om.shape[0] - 1)
+        total = float(w.sum())
+        if total > 0:
+            w *= n_off / total
+    return w
 
 
 def penalty_value(spec: PenaltySpec, omega: torch.Tensor) -> float:

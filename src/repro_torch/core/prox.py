@@ -14,13 +14,15 @@ bundle, with the reference's op signatures:
 and the optional sparsity-aware trio ``prox_stats`` (prox + the block-
 occupancy mask of the candidate), ``mask_of`` and ``density_of``.
 
-Both loops are Python loops.  A trial keeps the reference's arithmetic
-(``z = omega - tau * grad`` as two ops, the same acceptance test), and
-the host learns what it must branch on with as few syncs as it can: the
-occupied-block count of the candidate before its product (sparse mode
-only), then the acceptance flag and the step norms in ONE ``tolist()``.
-There is one problem per call, so the reference's vmap lane-freezing
-selects are identities and are gone.
+Both loops are Python loops.  A dense trial is :func:`ls_trial`, the
+reference's factored trial (``z = omega - tau * grad`` as two ops, the
+same acceptance test), shared verbatim with the batched engine
+(``core.batch``), which runs it on lane-stacked (C, p, p) iterates with
+per-lane (C,) step sizes.  The host learns what it must branch on with
+as few syncs as it can: the occupied-block count of the candidate before
+its product (sparse mode only), then the acceptance flag and the step
+norms in ONE ``tolist()``.  There is one problem per call, so the
+reference's vmap lane-freezing selects are identities and are gone.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ from ..kernels import ops as kops
 from . import matops
 from .objective import dot, gradient_from_w, smooth_objective_cov, \
     smooth_objective_obs
-from .penalty import PenaltySpec, normalize_penalty
+from .penalty import PenaltySpec, lane_view, normalize_penalty
 
 
 class VariantOps(NamedTuple):
@@ -51,6 +53,9 @@ class VariantOps(NamedTuple):
 
 @dataclass(frozen=True)
 class ProxResult:
+    """One solve's result, in Python scalars; a batched solve
+    (``core.batch``) returns the same record with a leading (B,) axis on
+    every field, as tensors."""
     omega: torch.Tensor
     iters: int              # outer proximal-gradient iterations taken (s)
     ls_total: int           # total line-search trials (s*t)
@@ -109,6 +114,39 @@ def tau_start(schedule: str, step: int, tau_prev: float,
     return min(growth * tau_prev, tau_init)
 
 
+def tau_start_lanes(schedule: str, step: torch.Tensor,
+                    tau_prev: torch.Tensor, tau_init: float) -> torch.Tensor:
+    """:func:`tau_start` on per-lane (C,) tensors (``step`` the lanes'
+    outer-iteration counters, ``tau_prev`` their last trial step sizes),
+    on the lanes' device: the batched engine's form, with no host sync."""
+    if schedule == "restart":
+        return torch.full_like(tau_prev, tau_init)
+    growth = 2.0 if schedule == "warm" else GREEDY_TAU_GROWTH
+    return torch.where(step > 0,
+                       torch.clamp_max(growth * tau_prev, tau_init),
+                       torch.full_like(tau_prev,
+                                       tau_first(schedule, tau_init)))
+
+
+def ls_trial(ops: VariantOps, data, penalty, omega, grad, g_val, tau):
+    """One backtracking trial at step size ``tau`` (dense product path).
+
+    Returns ``(cand, aux_c, g_c, dot_dd, ok)``: the prox candidate, its
+    aux product and smooth objective, the squared step norm
+    ``<cand - omega, cand - omega>`` and the sufficient-decrease
+    acceptance.  ``tau`` is a float for one problem; on lane-stacked
+    (C, p, p) iterates it is a (C,) tensor and ``ops`` reduce per lane."""
+    z = omega - lane_view(tau, omega) * grad
+    cand = ops.prox(z, penalty, tau, data)
+    del z
+    aux_c = ops.aux_of(cand, data)
+    g_c = ops.g_of(cand, aux_c, data)
+    diff = cand - omega
+    dot_dd = ops.dot(diff, diff)
+    rhs = g_val + ops.dot(diff, grad) + dot_dd / (2.0 * tau)
+    return cand, aux_c, g_c, dot_dd, g_c <= rhs
+
+
 def prox_gradient(
     omega0: torch.Tensor,
     data,
@@ -151,22 +189,24 @@ def prox_gradient(
         while True:
             if trials:
                 tau *= 0.5
-            z = omega - tau * grad
             if sparse:
+                z = omega - tau * grad
                 cand, mask_c = ops.prox_stats(z, penalty, tau, data)
+                del z
                 aux_c = ops.aux_of(cand, data, mask_c)
+                g_c = ops.g_of(cand, aux_c, data)
+                diff = cand - omega
+                dot_dd = ops.dot(diff, diff)
+                rhs = g_val + ops.dot(diff, grad) + dot_dd / (2.0 * tau)
+                ok_t = g_c <= rhs
+                del diff
             else:
-                cand, mask_c = ops.prox(z, penalty, tau, data), None
-                aux_c = ops.aux_of(cand, data)
-            del z
-            g_c = ops.g_of(cand, aux_c, data)
-            diff = cand - omega
-            dot_dd = ops.dot(diff, diff)
-            rhs = g_val + ops.dot(diff, grad) + dot_dd / (2.0 * tau)
-            del diff
+                cand, aux_c, g_c, dot_dd, ok_t = ls_trial(
+                    ops, data, penalty, omega, grad, g_val, tau)
+                mask_c = None
             # the one host sync of the trial: acceptance + step norms
             ok, dd, nn = torch.stack([
-                (g_c <= rhs).to(dot_dd.dtype), dot_dd, norm_sq]).tolist()
+                ok_t.to(dot_dd.dtype), dot_dd, norm_sq]).tolist()
             trials += 1
             if ok or trials >= max_ls:
                 break

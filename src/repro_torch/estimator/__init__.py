@@ -10,11 +10,14 @@
     est.fit_cov(S, n_samples=n)     # -> est.omega_, est.report_
     path = est.fit_path(X, lam1_grid=[0.3, 0.2, 0.15])
     best = path.best_bic()
+    path = est.fit_path(X, lam1_grid=[0.3, 0.2, 0.15], mode="batched")
+    batch = fit_batch(s=S_stack, lam1=[0.2, 0.3], device="cpu")
 
 Runs on the CUDA card unless ``SolverConfig(device="cpu")``.
 """
 from ..core.penalty import (  # noqa: F401
     PenaltySpec,
+    adaptive_weights,
     as_penalty,
     parse_penalty,
     penalty_kinds,
@@ -28,21 +31,32 @@ from .backends import (  # noqa: F401
     reference_backend,
     register_backend,
 )
+from .batch import batch_reports, batched_path_reports, fit_batch  # noqa: F401
 from .config import SolverConfig  # noqa: F401
 from .estimator import ConcordEstimator, fit, fit_path  # noqa: F401
-from .report import FitReport, PathResult, pseudo_bic  # noqa: F401
+from .report import (  # noqa: F401
+    BatchReport,
+    FitReport,
+    PathResult,
+    pseudo_bic,
+)
 
 __all__ = [
+    "BatchReport",
     "ConcordEstimator",
     "FitReport",
     "PathResult",
     "PenaltySpec",
     "Problem",
     "SolverConfig",
+    "adaptive_weights",
     "as_penalty",
     "auto_backend",
     "available_backends",
+    "batch_reports",
+    "batched_path_reports",
     "fit",
+    "fit_batch",
     "fit_path",
     "get_backend",
     "parse_penalty",

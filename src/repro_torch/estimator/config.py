@@ -8,7 +8,10 @@ defaults, so a config carried over from the JAX package never runs a
 different solve than it asks for.
 
 ``use_pallas`` keeps its name as a knob; in the port it means "use the
-hand-written CUDA kernels" (the fused prox and its occupancy harvest).
+hand-written CUDA kernels" (the fused prox and its occupancy harvest, and
+the batched engine's fused path step).  ``batch_gemm`` keeps the
+reference's values: ``"xla"`` is the product on the solve's device,
+``"host"`` through ``np.matmul`` on a host copy.
 """
 from __future__ import annotations
 
@@ -36,11 +39,6 @@ OBS_MODES = ("off", "summary", "trace")
 LATER_SLICE_FIELDS = {
     "c_x": (None, "the distributed 1.5D slice (ROADMAP A8)"),
     "c_omega": (None, "the distributed 1.5D slice (ROADMAP A8)"),
-    "batch_schedule": ("compact", "the batched-engine slice (ROADMAP A7)"),
-    "batch_chunk": (32, "the batched-engine slice (ROADMAP A7)"),
-    "batch_max_lanes": (None, "the batched-engine slice (ROADMAP A7)"),
-    "batch_gemm": ("auto", "the batched-engine slice (ROADMAP A7)"),
-    "batch_warm_start": (None, "the batched-engine slice (ROADMAP A7)"),
     "obs": ("off", "the observability slice (ROADMAP A9)"),
 }
 
@@ -153,8 +151,8 @@ class SolverConfig:
             if v != default and not (name in ("c_x", "c_omega") and v == 1):
                 raise NotImplementedError(
                     f"SolverConfig.{name}={v!r} arrives with {later} of "
-                    f"the PyTorch port; this slice runs the single-device "
-                    f"solve")
+                    f"the PyTorch port; this slice runs single-device "
+                    f"solves")
         if self.backend == "distributed":
             raise NotImplementedError(
                 "backend='distributed' arrives with the distributed 1.5D "

@@ -7,14 +7,14 @@ Port of ``repro.estimator.estimator``:
     est.fit(X)                      # (n, p) observations
     est.fit_cov(S, n_samples=n)     # (p, p) sample covariance
     path = est.fit_path(X, lam1_grid=[...])        # warm-started path
+    path = est.fit_path(X, lam1_grid=[...], mode="batched")  # in lock step
     best = path.best_bic()                         # model selection
+    est.fit_batch(s=S_stack, lam1=[...])           # B stacked problems
 
 Inputs may be numpy arrays or tensors; they move to ``config.device``
 (the CUDA card unless ``device="cpu"``).  Streaming ``fit`` and
-``transform=`` (data slice), ``fit_gram`` (data slice), ``fit_batch`` and
-``fit_path(mode="batched"|"auto")`` (batched-engine slice) and
-``fit_path(adaptive=True)`` raise ``NotImplementedError`` naming the
-slice that brings them.
+``transform=`` and ``fit_gram`` (the data slice) raise
+``NotImplementedError`` naming that slice.
 """
 from __future__ import annotations
 
@@ -22,13 +22,18 @@ import dataclasses
 import math
 from typing import Iterable
 
-from ..core.penalty import PenaltySpec, as_penalty
+import numpy as np
+
+from ..core.costmodel import choose_path_mode
+from ..core.penalty import PenaltySpec, adaptive_weights, as_penalty
+from ..core.prox import resolve_tau_schedule
+from ..device import resolve_device
 from .backends import Problem, get_backend
+from .batch import batched_path_reports, fit_batch as _fit_batch
 from .config import SolverConfig
 from .report import FitReport, PathResult, pseudo_bic
 
 _DATA_SLICE = "the data slice (ROADMAP A6)"
-_BATCH_SLICE = "the batched-engine slice (ROADMAP A7)"
 
 
 def _later(what: str, where: str) -> NotImplementedError:
@@ -139,10 +144,50 @@ class ConcordEstimator:
     def fit_gram(self, gram, *, omega0=None) -> "ConcordEstimator":
         raise _later("fit_gram", _DATA_SLICE)
 
-    def fit_batch(self, *args, **kwargs):
-        raise _later("fit_batch", _BATCH_SLICE)
-
     # -- regularization path --------------------------------------------
+
+    def _resolve_path_mode(self, mode: str, grid: list[float]) -> str:
+        """``fit_path(mode="auto")``: the cost model's batched-vs-
+        sequential predictor with the engine knobs this config would run
+        (tau schedule, chunk, product route, pilot warm start)."""
+        if mode != "auto":
+            return mode
+        gemm = self.config.batch_gemm
+        if gemm == "auto":
+            # the batch layer's resolution, to the step-cost class
+            cpu = resolve_device(self.config.device).type == "cpu"
+            gemm = "host" if cpu else "xla"
+        return choose_path_mode(
+            grid,
+            tau_schedule=resolve_tau_schedule(
+                self.config.tau_schedule, self.config.warm_start_tau),
+            chunk=self.config.batch_chunk,
+            max_iters=self.config.max_iters,
+            gemm=gemm, warm_start=self.config.batch_warm_start)
+
+    def _run_path(self, problem: Problem, grid: list[float],
+                  spec: PenaltySpec, mode: str, warm_start: bool,
+                  score_bic: bool):
+        stats = None
+        if mode == "batched":
+            reports, _, stats = batched_path_reports(
+                problem, grid, self.config, penalty=spec)
+        else:
+            reports, omega0 = [], None
+            for lam1 in grid:
+                rep = self._solve(problem, spec.with_lam1(lam1),
+                                  omega0 if warm_start else None)
+                reports.append(rep)
+                omega0 = rep.omega
+        if score_bic:
+            reports = self._score(reports, problem)
+        return reports, stats
+
+    @staticmethod
+    def _score(reports, problem: Problem) -> list:
+        return [dataclasses.replace(
+            rep, bic=pseudo_bic(rep.omega, problem.s, problem.n))
+            for rep in reports]
 
     def fit_path(self, x=None, lam1_grid: Iterable[float] = (), *,
                  s=None, n_samples: int | None = None,
@@ -151,17 +196,26 @@ class ConcordEstimator:
                  mode: str = "sequential",
                  adaptive: bool = False,
                  adaptive_eps: float = 1e-3) -> PathResult:
-        """Fit a descending lam1 path, each point warm-started from the
-        previous solution (``warm_start``), with a pseudo-likelihood BIC
-        per point (``score_bic``) for ``PathResult.best_bic()``."""
+        """Fit a descending lam1 path with a pseudo-likelihood BIC per
+        point (``score_bic``) for ``PathResult.best_bic()``.
+
+        ``mode="sequential"`` solves point by point, each warm-started
+        from the previous solution (``warm_start``).  ``mode="batched"``
+        runs the whole grid in lock step (``core.batch``): every point
+        starts cold, and each equals its cold sequential solve.
+        ``mode="auto"`` asks the cost model (``choose_path_mode``).
+
+        ``adaptive=True`` runs the two-stage adaptive lasso: stage 1 is a
+        plain l1 path over the grid, then each point is refit with
+        ``weighted_l1`` weights ``1 / (|omega_hat| + adaptive_eps)`` from
+        stage 1's estimate at the same lam1.  In batched mode the
+        per-point weights ride as one (B, p, p) lane leaf.  Returns the
+        stage-2 path with ``adaptive=True`` and ``stage1`` attached."""
         if mode not in ("sequential", "batched", "auto"):
             raise ValueError(f"mode must be 'sequential', 'batched' or "
                              f"'auto', got {mode!r}")
-        if mode != "sequential":
-            raise _later(f"fit_path(mode={mode!r})", _BATCH_SLICE)
-        if adaptive:
-            raise _later("fit_path(adaptive=True)", _BATCH_SLICE)
         grid = _validate_grid(lam1_grid)
+        mode = self._resolve_path_mode(mode, grid)
         if score_bic and x is None and n_samples is None:
             raise ValueError(
                 "BIC scoring needs the sample count: pass n_samples "
@@ -171,17 +225,78 @@ class ConcordEstimator:
         if problem.s is None and (score_bic or self.config.variant != "obs"):
             problem = problem._replace(s=problem.cov())
         grid = sorted(grid, reverse=True)
-        reports, omega0 = [], None
-        for lam1 in grid:
-            rep = self._solve(problem, self.penalty.with_lam1(lam1),
-                              omega0 if warm_start else None)
-            if score_bic:
-                rep = dataclasses.replace(
-                    rep, bic=pseudo_bic(rep.omega, problem.s, problem.n))
-            reports.append(rep)
-            omega0 = rep.omega
-        self._finish(reports[-1])
-        return PathResult(reports=tuple(reports), warm_start=warm_start)
+        warm = warm_start and mode == "sequential"
+        spec1 = self.penalty
+        if adaptive and spec1.kind != "l1":
+            # stage 1 of the adaptive refit is always a plain l1 path
+            spec1 = PenaltySpec("l1", self.lam1, self.lam2)
+        reports, bstats = self._run_path(problem, grid, spec1, mode,
+                                         warm_start, score_bic)
+        stage1 = PathResult(reports=tuple(reports), warm_start=warm,
+                            mode=mode, batch_stats=bstats)
+        if not adaptive:
+            self._finish(reports[-1])
+            return stage1
+        weights = [adaptive_weights(rep.omega, eps=adaptive_eps)
+                   for rep in stage1.reports]
+        bstats2 = None
+        if mode == "batched":
+            spec2 = PenaltySpec("weighted_l1", grid[0], self.lam2,
+                                weights=np.stack(weights))
+            reports2, _, bstats2 = batched_path_reports(
+                problem, grid, self.config, penalty=spec2)
+        else:
+            reports2, omega0 = [], None
+            for lam1, w in zip(grid, weights):
+                spec2 = PenaltySpec("weighted_l1", lam1, self.lam2,
+                                    weights=w)
+                rep = self._solve(problem, spec2,
+                                  omega0 if warm_start else None)
+                reports2.append(rep)
+                omega0 = rep.omega
+        if score_bic:
+            reports2 = self._score(reports2, problem)
+        result = PathResult(reports=tuple(reports2), warm_start=warm,
+                            mode=mode, adaptive=True, stage1=stage1,
+                            batch_stats=bstats2)
+        self._finish(reports2[-1])
+        return result
+
+    # -- batched multi-problem solves -----------------------------------
+
+    def fit_batch(self, x=None, *, s=None, lam1=None, lam2=None,
+                  penalty=None, omega0=None):
+        """Solve stacked (B, ...) problems in lock step.
+
+        ``x``: (B, n, p) stacked observation matrices or ``s``: (B, p, p)
+        stacked covariances.  The batch runs the estimator's penalty
+        family; ``lam1``/``lam2`` override only the strengths (scalars or
+        length-B sequences).  ``penalty`` replaces the spec outright: a
+        string form (strength from lam1/lam2, defaulting to the
+        estimator's) or a spec whose numeric leaves may carry a (B,) lane
+        axis.  Returns a :class:`BatchReport`; the last problem's report
+        also lands on ``report_``/``omega_``."""
+        if penalty is None:
+            spec = self.penalty
+            if lam1 is not None:
+                spec = spec.with_lam1(np.asarray(lam1, np.float64))
+            if lam2 is not None:
+                spec = dataclasses.replace(
+                    spec, lam2=np.asarray(lam2, np.float64))
+        elif isinstance(penalty, str):
+            spec = as_penalty(penalty,
+                              lam1=self.lam1 if lam1 is None else lam1,
+                              lam2=self.lam2 if lam2 is None else lam2)
+        else:
+            if lam1 is not None or lam2 is not None:
+                raise ValueError(
+                    "a PenaltySpec already carries lam1/lam2; pass either "
+                    "the spec or the scalar overrides, not both")
+            spec = as_penalty(penalty)
+        result = _fit_batch(x, s=s, penalty=spec, omega0=omega0,
+                            config=self.config)
+        self._finish(result.reports[-1])
+        return result
 
 
 # ---------------------------------------------------------------------------
@@ -216,8 +331,12 @@ def fit_path(x=None, lam1_grid: Iterable[float] = (), *, s=None,
              penalty: PenaltySpec | str | None = None,
              n_samples: int | None = None,
              warm_start: bool = True, score_bic: bool = True,
+             mode: str = "sequential", adaptive: bool = False,
              config: SolverConfig | None = None, **knobs) -> PathResult:
-    """One-call warm-started regularization path."""
+    """One-call regularization path (sequential warm-started,
+    ``mode="batched"`` in lock step, or ``adaptive=True`` for the
+    two-stage adaptive lasso)."""
     est = _estimator(penalty, 1.0, lam2, config, knobs)
     return est.fit_path(x, lam1_grid, s=s, n_samples=n_samples,
-                        warm_start=warm_start, score_bic=score_bic)
+                        warm_start=warm_start, score_bic=score_bic,
+                        mode=mode, adaptive=adaptive)

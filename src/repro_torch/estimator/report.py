@@ -1,9 +1,9 @@
 """Fit results for the ``repro_torch.estimator`` facade.
 
 Port of ``repro.estimator.report`` (``FitReport``, ``PathResult``,
-``pseudo_bic``).  ``FitReport.omega`` is the estimate as a torch tensor on
-the device the solve ran on; every other field is a Python scalar.
-``BatchReport`` belongs to the batched-engine slice.
+``BatchReport``, ``pseudo_bic``).  ``FitReport.omega`` is the estimate as
+a torch tensor on the device the solve ran on; every other field is a
+Python scalar.
 
 ``converged`` is True only on a genuine ``delta < tol`` exit; ``stalled``
 is True when the line search exhausted ``max_ls`` trials without
@@ -80,11 +80,20 @@ def pseudo_bic(omega, s, n: int, *, tol: float = 1e-8) -> float:
 
 @dataclass(frozen=True)
 class PathResult:
-    """Result of a regularization path (descending lam1), run point by
-    point with warm starts (``mode="sequential"``)."""
+    """Result of a regularization path (descending lam1).
+
+    ``mode`` records how the grid ran: ``"sequential"`` (one solve per
+    point, optionally warm-started) or ``"batched"`` (the whole grid in
+    lock step, ``core.batch``).  ``fit_path(adaptive=True)`` returns the
+    STAGE-2 weighted path with ``adaptive=True`` and the stage-1 l1 path
+    as ``stage1``.  ``batch_stats`` (batched mode only) is the engine's
+    :class:`~repro_torch.core.batch.BatchRunStats`."""
     reports: tuple[FitReport, ...] = field(default_factory=tuple)
     warm_start: bool = True
     mode: str = "sequential"
+    adaptive: bool = False
+    stage1: "PathResult | None" = None
+    batch_stats: object | None = None
 
     def __post_init__(self):
         object.__setattr__(self, "reports", tuple(self.reports))
@@ -147,8 +156,71 @@ class PathResult:
 
     def summary(self) -> str:
         lines = [r.summary() for r in self.reports]
-        how = ("warm" if self.warm_start else "cold") + " starts"
+        how = ("batched" if self.mode == "batched"
+               else ("warm" if self.warm_start else "cold") + " starts")
+        if self.adaptive:
+            how += ", adaptive stage 2"
         lines.append(f"path total: {self.total_iters} outer iters, "
                      f"{self.total_ls} ls trials, {self.wall_time_s:.3f}s "
                      f"({how})")
+        if self.batch_stats is not None:
+            lines.append(self.batch_stats.summary())
+        return "\n".join(lines)
+
+
+@dataclass(frozen=True)
+class BatchReport:
+    """Result of one batched multi-problem solve (``fit_batch``).
+
+    ``reports`` holds one :class:`FitReport` per stacked problem, in input
+    order.  The batch ran in lock step, so only the aggregate wall time is
+    physical; each report carries its 1/B share.  ``stats`` is the
+    engine's :class:`~repro_torch.core.batch.BatchRunStats`."""
+    reports: tuple[FitReport, ...] = field(default_factory=tuple)
+    wall_time_s: float = 0.0    # end-to-end time of the one batched solve
+    stats: object | None = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "reports", tuple(self.reports))
+
+    @property
+    def n_problems(self) -> int:
+        return len(self.reports)
+
+    @property
+    def omegas(self) -> list:
+        return [r.omega for r in self.reports]
+
+    @property
+    def total_iters(self) -> int:
+        return int(sum(r.iters for r in self.reports))
+
+    @property
+    def all_converged(self) -> bool:
+        return all(r.converged for r in self.reports)
+
+    @property
+    def any_stalled(self) -> bool:
+        return any(r.stalled for r in self.reports)
+
+    def __len__(self) -> int:
+        return len(self.reports)
+
+    def __iter__(self):
+        return iter(self.reports)
+
+    def __getitem__(self, i):
+        return self.reports[i]
+
+    def summary(self) -> str:
+        lines = [r.summary() for r in self.reports]
+        lines.append(
+            f"batch total: {self.n_problems} problems, {self.total_iters} "
+            f"outer iters, {self.wall_time_s:.3f}s as one batched solve "
+            f"(converged {sum(r.converged for r in self.reports)}"
+            f"/{self.n_problems}"
+            + (f", stalled {sum(r.stalled for r in self.reports)}"
+               if self.any_stalled else "") + ")")
+        if self.stats is not None:
+            lines.append(self.stats.summary())
         return "\n".join(lines)

@@ -28,11 +28,13 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMMON_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                 "-Xptxas", "-v")
 
-#: per-source flags: the fused prox must not contract multiply-adds into
-#: FMAs, or its output would drift an ulp from the plain version
+#: per-source flags: the fused prox and the path step must not contract
+#: multiply-adds into FMAs, or their outputs would drift an ulp from the
+#: plain versions
 EXTRA_FLAGS = {
     "softthresh": ("-fmad=false",),
     "blocksparse_matmul": (),
+    "pathstep": ("-fmad=false",),
 }
 
 #: ``nvcc -Xptxas -v`` report of each library built in this process

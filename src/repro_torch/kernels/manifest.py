@@ -19,7 +19,6 @@ from .ref import dense_to_block_csr
 #: the reference's kernel entries that no port entry covers yet, with the
 #: slice of the port that brings each
 NOT_PORTED = {
-    "kernels.pathstep.fused_path_step": "the batched-engine slice (A7)",
     "kernels.flash_attention.flash_attention": "the LM-zoo slice (A12)",
 }
 
@@ -43,6 +42,27 @@ KERNEL_ENTRIES = (
             {"label": "prime-p", "m": 13, "n": 13, "block": (8, 8)},
             {"label": "weighted-inf-alpha0", "m": 24, "n": 24,
              "block": (16, 16), "weighted": True, "alpha": 0.0},
+        ),
+    },
+    {
+        "name": "fused_path_step",
+        "jax_entry": "kernels.pathstep.fused_path_step",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/pathstep.cu",
+        # `_kernel` (:106) and `_kernel_weighted` (:116): one CUDA kernel
+        # with a weight operand
+        "replaces": ("src/repro/kernels/pathstep.py:106",
+                     "src/repro/kernels/pathstep.py:116"),
+        # cand is bit-exact; the five per-lane stats differ by summation
+        # order (the nonzero count is exact in both)
+        "exact": ("cand",),
+        "rtol": {"float64": 1e-12, "float32": 1e-5},
+        "configs": (
+            {"label": "aligned", "c": 2, "p": 16, "block": 8},
+            {"label": "prime-p-full-tile", "c": 2, "p": 13, "block": 8},
+            {"label": "odd-divisor-edge", "c": 1, "p": 12, "block": 8},
+            {"label": "weighted-inf-alpha0", "c": 2, "p": 8, "block": 4,
+             "weighted": True, "zero_lam1_lane": True},
         ),
     },
     {
@@ -100,3 +120,27 @@ def blocksparse_problem(cfg, rng):
     vals, rows, cols = dense_to_block_csr(a, bs)
     b = rng.standard_normal((p, cfg["m"]))
     return a, vals, rows, cols, b
+
+
+def pathstep_problem(cfg, rng):
+    """(omega, w, tau, lam1, lam2, weights or None) for a path-step
+    config, drawn as the reference's ``_pathstep_problem`` draws them: a
+    lane-stacked omega with a safe positive diagonal, a random W, ~15% inf
+    weights, and lane 0's lam1 zeroed where the config asks (the inf
+    guard must still force zeros at tau * lam1 = 0)."""
+    c, p = cfg["c"], cfg["p"]
+    om = 0.1 * rng.standard_normal((c, p, p))
+    idx = np.arange(p)
+    om[:, idx, idx] = np.abs(om[:, idx, idx]) + 1.0
+    w = rng.standard_normal((c, p, p))
+    tau = 0.3 + 0.1 * np.arange(c)
+    lam1 = 0.05 + 0.02 * np.arange(c)
+    lam2 = np.full(c, 0.01)
+    weights = None
+    if cfg.get("weighted"):
+        wt = np.abs(rng.standard_normal((c, p, p))) + 0.1
+        wt[rng.random((c, p, p)) < 0.15] = np.inf
+        weights = wt
+        if cfg.get("zero_lam1_lane"):
+            lam1[0] = 0.0
+    return om, w, tau, lam1, lam2, weights

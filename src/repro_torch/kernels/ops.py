@@ -12,22 +12,37 @@ Nothing here catches a failed build or launch and falls back.
 one per launch and nowhere else, so a run can show that its main path
 went through the kernels (``chip_smoke.py`` zeroes it with
 :func:`reset_launches` before the path and reads it after).
+:data:`WEIGHTED_LAUNCHES` counts, of those, the launches with a weight
+operand (the reference's ``_kernel_weighted`` bodies).
 """
 from __future__ import annotations
 
 import torch
 
 from . import blocksparse_matmul as _bsmm
+from . import pathstep as _ps
 from . import ref
 from . import softthresh as _st
 
 #: kernel launches per kernel since the last reset
-LAUNCHES: dict[str, int] = {"fused_prox_stats": 0, "blocksparse_matmul": 0}
+LAUNCHES: dict[str, int] = {"fused_prox_stats": 0, "blocksparse_matmul": 0,
+                            "fused_path_step": 0}
+
+#: of those, launches with a weight operand, per kernel that takes one
+WEIGHTED_LAUNCHES: dict[str, int] = {"fused_prox_stats": 0,
+                                     "fused_path_step": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, WEIGHTED_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def _count(name: str, weights) -> None:
+    LAUNCHES[name] += 1
+    if weights is not None:
+        WEIGHTED_LAUNCHES[name] += 1
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -48,7 +63,20 @@ def fused_prox_stats(z, diag_mask, alpha, *, weights=None,
                                     block=block)
     res = _st.fused_prox_stats(z, diag_mask, alpha, weights=weights,
                                block=block)
-    LAUNCHES["fused_prox_stats"] += 1
+    _count("fused_prox_stats", weights)
+    return res
+
+
+def fused_path_step(omega, w, tau, lam1, lam2, *, weights=None,
+                    block=_ps.DEFAULT_BLOCK):
+    """(cand, stats) of one flat step for C stacked lanes; see
+    ``kernels.ref.fused_path_step``."""
+    if not _on_card(omega):
+        return ref.fused_path_step(omega, w, tau, lam1, lam2,
+                                   weights=weights)
+    res = _ps.fused_path_step(omega, w, tau, lam1, lam2, weights=weights,
+                              block=block)
+    _count("fused_path_step", weights)
     return res
 
 

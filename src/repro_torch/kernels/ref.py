@@ -95,6 +95,73 @@ def fused_prox_stats(z: torch.Tensor, diag_mask, alpha, *, weights=None,
 
 
 # ---------------------------------------------------------------------------
+# fused path step (pathstep)
+# ---------------------------------------------------------------------------
+
+#: stats columns of the path step: <diff, grad>, <diff, diff>, ||cand||^2,
+#: off-diagonal l1 of cand, nonzeros of cand
+PATH_STEP_STATS = 5
+
+
+def _lanes(v, c: int, like: torch.Tensor) -> torch.Tensor:
+    """A per-lane scalar (float, 0-d or (C,)) as a (C, 1, 1) tensor in
+    ``like``'s dtype and device."""
+    t = torch.as_tensor(v, dtype=like.dtype, device=like.device)
+    return t.expand(c).reshape(c, 1, 1)
+
+
+def fused_path_step(omega: torch.Tensor, w: torch.Tensor, tau, lam1, lam2,
+                    *, weights=None):
+    """One flat step of the batched path engine for C stacked lanes.
+
+    omega/w: (C, p, p) lane iterates and their products W = Omega S;
+    tau/lam1/lam2: per-lane scalars ((C,) or broadcast); ``weights``
+    ((C, p, p) or one shared (p, p)) switches to the threshold
+    ``tau * lam1 * w``, with ``w = inf`` forcing exact zeros even at
+    lam1 == 0.  Returns ``(cand, stats)``: the (C, p, p) prox candidates
+    and the (C, 5) per-lane sums ``[<diff, grad>, <diff, diff>,
+    ||cand||_F^2, l1_offdiag, nnz]`` with ``diff = cand - omega``.
+
+    The op order is the reference's (``repro.kernels.ref``): grad =
+    0.5 * (W + W^T) + lam2 * Omega, then -1/Omega on the diagonal (taken
+    on the diagonal only, which gives the same values), z = Omega -
+    tau * grad, the soft threshold off the diagonal and z on it."""
+    c = omega.shape[0]
+    tau_l = _lanes(tau, c, omega)
+    alpha = tau_l * _lanes(lam1, c, omega)
+    grad = w + w.mT
+    grad.mul_(0.5)
+    grad += _lanes(lam2, c, omega) * omega
+    grad.diagonal(dim1=-2, dim2=-1).sub_(
+        1.0 / omega.diagonal(dim1=-2, dim2=-1))
+    z = omega - tau_l * grad
+    if weights is None:
+        thr = alpha
+    else:
+        wt = torch.as_tensor(weights, dtype=omega.dtype, device=omega.device)
+        thr = (alpha * wt).masked_fill_(torch.isinf(wt), math.inf)
+    # sign(z) * max(|z| - thr, 0), each op rounded, on one buffer
+    cand = torch.abs(z).sub_(thr).clamp_min_(0.0).mul_(torch.sign(z))
+    del thr
+    cand.diagonal(dim1=-2, dim2=-1).copy_(z.diagonal(dim1=-2, dim2=-1))
+    del z
+    sd = stats_dtype(omega.dtype)
+    diff = cand - omega
+    red = lambda x: x.sum(dim=(-2, -1)).to(sd)   # noqa: E731
+    dg = red(diff * grad)
+    del grad
+    dd = red(diff * diff)
+    del diff
+    off = torch.abs(cand)
+    off.diagonal(dim1=-2, dim2=-1).zero_()
+    l1 = red(off)
+    del off
+    stats = torch.stack([dg, dd, red(cand * cand), l1,
+                         (cand != 0).sum(dim=(-2, -1)).to(sd)], dim=-1)
+    return cand, stats
+
+
+# ---------------------------------------------------------------------------
 # block-sparse x dense matmul (blocksparse_matmul)
 # ---------------------------------------------------------------------------
 

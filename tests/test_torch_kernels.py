@@ -98,6 +98,20 @@ def test_dense_to_block_csr_matches(cfg):
         np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("cfg", tman.entry("fused_path_step")["configs"],
+                         ids=lambda c: c["label"])
+def test_pathstep_problem_matches(cfg):
+    """The port's path-step problem builder, draw for draw, against the
+    reference's ``_pathstep_problem``."""
+    want = manifest._pathstep_problem(cfg, np.random.default_rng(11))
+    got = tman.pathstep_problem(cfg, np.random.default_rng(11))
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+        else:
+            np.testing.assert_array_equal(g, w)
+
+
 @pytest.mark.parametrize("name", [e["name"] for e in tman.KERNEL_ENTRIES])
 def test_port_manifest_mirrors_jax_manifest(name):
     """Each port entry names a real reference entry, copies its configs
@@ -182,7 +196,8 @@ def test_cpu_launches_are_not_counted():
     tops.fused_prox_stats(z, None, 0.1, block=(4, 4))
     tops.masked_matmul(z, z, torch.ones((2, 2), dtype=torch.int8),
                        block_size=4, capacity=4)
-    assert tops.LAUNCHES == {"fused_prox_stats": 0, "blocksparse_matmul": 0}
+    assert tops.LAUNCHES == {"fused_prox_stats": 0, "blocksparse_matmul": 0,
+                             "fused_path_step": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -214,3 +229,4 @@ def test_build_target_tracks_source_and_flags(monkeypatch):
     monkeypatch.setitem(tbuild.EXTRA_FLAGS, "softthresh", ())
     assert tbuild._target("softthresh") != a
     assert tbuild._target("blocksparse_matmul") != a
+    assert tbuild._target("pathstep") != a

@@ -19,6 +19,7 @@ from _torch_parity import assert_prox_stats, cuda  # noqa: F401
 
 SOFT = tman.entry("fused_prox_stats")
 BSR = tman.entry("blocksparse_matmul")
+STEP = tman.entry("fused_path_step")
 
 
 @pytest.mark.gpu
@@ -72,3 +73,55 @@ def test_blocksparse_kernel_row_revisit_raises_on_card(cuda):
     b = torch.ones((8, 4), dtype=torch.float64, device=cuda)
     with pytest.raises(ValueError, match="non-contiguously"):
         tops.blocksparse_matmul(vals, [0, 1, 0], [0, 1, 1], b)
+
+
+def _step_cases():
+    for cfg in STEP["configs"]:
+        for weighted in sorted({False, bool(cfg.get("weighted"))}):
+            for dt in ("float64", "float32"):
+                yield pytest.param(cfg, weighted, dt,
+                                   id=f"{cfg['label']}-w{int(weighted)}-{dt}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg,weighted,dt", list(_step_cases()))
+def test_path_step_kernel_matches_plain_on_card(cuda, cfg, weighted, dt):
+    """One launch per call; cand bit-exact against the plain version on
+    the same card inputs, the per-lane stats within the manifest's rtol
+    (the nonzero count exact)."""
+    om, w, tau, lam1, lam2, wts = tman.pathstep_problem(
+        {**cfg, "weighted": weighted}, np.random.default_rng(0))
+    tdt = getattr(torch, dt)
+    args = [torch.as_tensor(a, dtype=tdt, device=cuda)
+            for a in (om, w, tau, lam1, lam2)]
+    wt = None if wts is None else torch.as_tensor(wts, dtype=tdt,
+                                                  device=cuda)
+    tops.reset_launches()
+    cand, stats = tops.fused_path_step(*args, weights=wt,
+                                       block=cfg["block"])
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["fused_path_step"] == 1
+    want_c, want_s = tref.fused_path_step(*args, weights=wt)
+    assert cand.dtype == tdt and stats.dtype == tdt
+    assert torch.equal(cand, want_c)
+    tol = STEP["rtol"][dt]
+    torch.testing.assert_close(stats, want_s, rtol=tol, atol=tol)
+    assert torch.equal(stats[:, 4], want_s[:, 4])
+
+
+@pytest.mark.gpu
+def test_path_step_kernel_shared_weights_and_refusals_on_card(cuda):
+    om, w, tau, lam1, lam2, _ = tman.pathstep_problem(
+        {"c": 3, "p": 40}, np.random.default_rng(1))
+    args = [torch.as_tensor(a, device=cuda) for a in (om, w, tau, lam1,
+                                                      lam2)]
+    shared = torch.rand((40, 40), dtype=torch.float64, device=cuda) + 0.5
+    shared[2, 7] = shared[7, 2] = float("inf")
+    got = tops.fused_path_step(*args, weights=shared)
+    want = tref.fused_path_step(*args, weights=shared)
+    assert torch.equal(got[0], want[0])
+    with pytest.raises(ValueError, match="contiguous"):
+        tops.fused_path_step(args[0].transpose(1, 2), *args[1:])
+    with pytest.raises(TypeError):
+        tops.fused_path_step(args[0], args[1].float(), *args[2:])
+
