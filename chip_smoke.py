@@ -25,15 +25,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 the path step's weighted body) and sequential (stage 2 on
                 the fused prox's weighted body)
   7. obs        one Obs fit at p = 16384, n = 1200
-  8. cross      p = 2048: the kernel path against the dense plain path;
+  8. lm         the LM zoo's loss evaluation at h2o-danube-1.8b's full
+                width and depth (24 layers, d 2560, GQA 32/8, head_dim 80,
+                window 4096, vocab 32000), random weights from a seeded
+                ``torch.Generator``: ``lm.loss_fn`` on 3 batches of
+                B = 2, L = 8192 through the flash-attention kernel
+  9. cross      p = 2048: the kernel path against the dense plain path;
                 the batched path through the kernel, on the plain route,
-                and as sequential cold solves
-  9. timing     each kernel body at the main paths' inputs: CUDA-event
+                and as sequential cold solves; the LM's weights cut to 2
+                layers at B = 1, L = 8192: the flash route (the kernel)
+                against the "ref" route (the plain einsum path)
+ 10. timing     each kernel body at the main paths' inputs: CUDA-event
                 time, plain-version time, library time, and the bound
 
-``--profile`` adds a torch.profiler pass over one warm main-path fit and
-one batched path (device time by kernel, the card's idle share);
-``--phases`` runs a subset while iterating.
+The kernels phase also holds the flash kernel against its plain version
+at every manifest config (f32, bf16) and at the LM path's shape (B 2,
+Hq 32, Hkv 8, L 8192, D 80, causal, window 4096, bf16).
+
+``--profile`` adds a torch.profiler pass over one warm main-path fit, one
+batched path and one ``loss_fn`` at the lm shape (device time by kernel,
+the card's idle share); ``--phases`` runs a subset while iterating (e.g.
+``--phases kernels,lm``).
 
 The second-to-last line is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -56,12 +68,22 @@ SRC = ROOT / "src"
 #: H100 SXM data sheet: HBM3 bandwidth and peak rates (dense, no
 #: sparsity): float64 on the tensor cores, float32 outside them
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float64": 67e12, "float32": 67e12}
+PEAK_FLOPS = {"float64": 67e12, "float32": 67e12, "bfloat16": 989e12}
 
 P_MAIN, N_MAIN, N_OBS, P_CROSS, BLOCK = 16384, 8192, 1200, 2048, 128
 P_ADAPT, N_ADAPT = 4096, 4096
 LAM_PATH = [0.3, 0.2, 0.15]
 LANES = len(LAM_PATH)
+
+#: the LM slice: h2o-danube-1.8b at full width, loss on LM_BATCHES batches
+#: of (LM_B, LM_L) tokens; the cross-check cuts it to CROSS_LAYERS layers
+LM_ARCH, LM_B, LM_L, LM_BATCHES, CROSS_LAYERS = "h2o_danube_1p8b", 2, 8192, 3, 2
+#: the flash kernel's shape on that path: (B, Hq, Hkv, L, D, window)
+FLASH_MAIN = (LM_B, 32, 8, LM_L, 80, 4096)
+#: the main shape's tolerance beside rtol, in units of each output row's
+#: rms: rounding P to bf16 moves an output by ~1.7e-3 of its row's rms
+#: (sd), whether the row sees 2 keys or 4096
+FLASH_MAIN_ROW_TOL = 3e-2
 
 
 def phase(name: str):
@@ -267,6 +289,239 @@ def check_kernels_main_shape(torch, kman, ops, ref, dev) -> dict:
           f"path step {LANES}x{p}x{p}, both bodies, cand bit-exact")
     torch.cuda.empty_cache()
     return errs
+
+
+def flash_main_inputs(torch, dev, seed: int):
+    """q, k, v at the LM path's flash shape in bf16, laid out as the model
+    hands them over: (B, H, L, D) views of (B, L, H, D) projections."""
+    b, hq, hkv, n, d, _ = FLASH_MAIN
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for h in (hq, hkv, hkv):
+        t = torch.randn((b, n, h, d), generator=gen, device=dev,
+                        dtype=torch.float32).to(torch.bfloat16)
+        out.append(t.transpose(1, 2))
+    return out
+
+
+def flash_plain_grouped(torch, ref, q, k, v, **kw):
+    """The plain version one (batch, kv head) group at a time, so its
+    (L, L) float32 logits stay at one group's 4 heads (1.1 GB)."""
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    group = q.shape[1] // k.shape[1]
+    for b in range(q.shape[0]):
+        for g in range(k.shape[1]):
+            hs = slice(g * group, (g + 1) * group)
+            out[b:b + 1, hs] = ref.flash_attention(
+                q[b:b + 1, hs], k[b:b + 1, g:g + 1], v[b:b + 1, g:g + 1],
+                **kw)
+    return out
+
+
+def check_flash(torch, kman, ops, ref, dev) -> float:
+    """The flash kernel against its plain version at every manifest config
+    (f32 and bf16) and at the LM path's shape; returns the main shape's
+    max abs error."""
+    ent = kman.entry("flash_attention")
+    for cfg in ent["configs"]:
+        q, k, v, kw = kman.flash_problem(cfg, np.random.default_rng(0))
+        for dtype in (torch.float32, torch.bfloat16):
+            args = [torch.as_tensor(a, dtype=dtype, device=dev)
+                    for a in (q, k, v)]
+            got = ops.flash_attention(*args, **kw)
+            torch.cuda.synchronize()
+            want = ref.flash_attention(*args, **kw)
+            tol = ent["rtol"][_dt(dtype)]
+            check(torch.allclose(got.float(), want.float(), rtol=tol,
+                                 atol=tol),
+                  f"flash {cfg['label']} {dtype}: max abs err "
+                  f"{float((got.float() - want.float()).abs().max()):.3e}")
+    q, k, v = flash_main_inputs(torch, dev, seed=6)
+    kw = dict(causal=True, window=FLASH_MAIN[5], softcap=None)
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = flash_plain_grouped(torch, ref, q, k, v, **kw).float()
+    diff = (got.float() - want).abs()
+    err = float(diff.max())
+    # rtol: the manifest's bf16 one (an output ulp at large |out|); the
+    # second term scales with the row, as the error of rounding P does
+    tol = ent["rtol"]["bfloat16"]
+    rms = want.square().mean(-1, keepdim=True).sqrt()
+    limit = tol * want.abs() + FLASH_MAIN_ROW_TOL * rms
+    used = diff / limit
+    worst = int(used.argmax())
+    row = worst // q.shape[3] % q.shape[2]
+    # what a fixed atol of 1e-3 would have refused, and in which rows
+    beyond = diff > tol * want.abs() + 1e-3
+    rows_beyond = beyond.any(-1).nonzero()[:, 2]
+    last_row = int(rows_beyond.max()) if rows_beyond.numel() else -1
+    check(bool(torch.isfinite(got).all()), "flash main shape: non-finite")
+    check(bool((diff <= limit).all()),
+          f"flash at the main shape: max err {float(used.max()):.3f} of "
+          f"the limit (rtol {tol}, {FLASH_MAIN_ROW_TOL} x row rms) at row "
+          f"{row}, max abs err {err:.3e}")
+    print(f"flash attention: manifest configs agree (f32 at "
+          f"{ent['rtol']['float32']}, bf16 at {tol}); main shape "
+          f"{tuple(q.shape)} x kv {tuple(k.shape)} bf16 causal window "
+          f"{FLASH_MAIN[5]}: max abs err {err:.3e}; worst element "
+          f"{float(used.max()):.3f} of its limit (rtol {tol} + "
+          f"{FLASH_MAIN_ROW_TOL} x row rms) at row {row}; row rms median "
+          f"{float(rms.median()):.3e}; a fixed atol 1e-3 would refuse "
+          f"{int(beyond.sum())} values, all in rows <= {last_row}")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# the LM slice
+# ---------------------------------------------------------------------------
+
+def lm_batches(cfg, n: int, b: int, length: int, seed: int):
+    """``n`` (tokens, targets) pairs of (b, length) ids from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (n, b, length + 1))
+    return [(t[:, :-1], t[:, 1:]) for t in toks]
+
+
+def lm_path(torch, dev, ops) -> dict:
+    """``lm.loss_fn`` at h2o-danube-1.8b's full width and depth on
+    LM_BATCHES batches of (LM_B, LM_L) tokens, attention through the flash
+    kernel; launch counts zeroed before and read after."""
+    from repro_torch import configs
+    from repro_torch.models import lm, transformer
+    cfg = configs.get(LM_ARCH).with_(attention_impl="flash")
+    t0 = time.perf_counter()
+    model = transformer.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv}, head_dim {cfg.hd}, window "
+          f"{cfg.window}, vocab {cfg.vocab}: {n_params / 1e9:.3f}e9 "
+          f"{cfg.param_dtype} parameters drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(n_params == cfg.param_count() + 2 * cfg.n_layers * cfg.d_model
+          + cfg.d_model, "parameter count differs from the config's")
+    batches = [tuple(torch.as_tensor(a, device=dev) for a in bt)
+               for bt in lm_batches(cfg, LM_BATCHES, LM_B, LM_L, seed=0)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    losses, walls = [], []
+    for tokens, targets in batches:
+        t0 = time.perf_counter()
+        total, aux = lm.loss_fn(cfg, model, lm.Batch(tokens, targets))
+        loss = float(aux["loss"])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss)
+        check(float(total) == loss, "a decoder's total != its loss")
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    ln_v = float(np.log(cfg.vocab))
+    for i, (loss, wall) in enumerate(zip(losses, walls)):
+        print(f"lm batch {i}: loss {loss:.6f} (ln V = {ln_v:.6f}), wall "
+              f"{1e3 * wall:.1f} ms, {LM_B * LM_L / wall:.0f} tokens/s")
+    print(f"lm: {LM_BATCHES} loss evaluations of {LM_B} x {LM_L} tokens, "
+          f"peak {peak / 2**30:.2f} GiB, launches {launches}")
+    for loss in losses:
+        check(np.isfinite(loss) and abs(loss - ln_v) < 1.0,
+              f"loss {loss} is not finite within 1.0 of ln V")
+    want = LM_BATCHES * cfg.n_layers
+    check(launches["flash_attention"] == want,
+          f"flash launches {launches['flash_attention']} != {want}")
+    check(peak < 80e9, f"peak memory {peak / 1e9:.1f} GB >= 80 GB")
+    return {"cfg": cfg, "model": model, "batches": batches,
+            "launches": launches["flash_attention"]}
+
+
+def cross_check_lm(torch, ops, lm_state):
+    """The LM's weights cut to CROSS_LAYERS layers at B = 1, L = 8192 (the
+    window of 4096 bites): the loss and final hidden states through the
+    flash kernel against the plain einsum route ("ref") on the card."""
+    from repro_torch.models import lm, transformer
+    cfg0, model = lm_state["cfg"], lm_state["model"]
+    tree = model.tree()
+    tokens, targets = (t[:1] for t in lm_state["batches"][0])
+    out = {}
+    for impl in ("flash", "ref"):
+        cfg = cfg0.with_(n_layers=CROSS_LAYERS, attention_impl=impl)
+        cut = transformer.DecoderLM(cfg, {**tree, "blocks":
+                                          tree["blocks"][:CROSS_LAYERS]})
+        ops.reset_launches()
+        _, aux = lm.loss_fn(cfg, cut, lm.Batch(tokens, targets))
+        pc = lm.cast_params(cfg, cut)
+        hidden = transformer.forward(
+            cfg, pc, tokens, torch.arange(tokens.shape[1],
+                                          device=tokens.device))[0]
+        torch.cuda.synchronize()
+        out[impl] = (float(aux["loss"]), hidden.float(),
+                     ops.LAUNCHES["flash_attention"])
+        del pc
+    (lf, hf, nf), (lr, hr, nr) = out["flash"], out["ref"]
+    rel = float((hf - hr).abs().max() / hr.abs().max())
+    print(f"cross-check lm {CROSS_LAYERS} layers, 1 x {LM_L}: loss flash "
+          f"{lf:.6f} vs ref {lr:.6f} (|d| {abs(lf - lr):.2e}); hidden max "
+          f"|d| / max |h| = {rel:.3e}; flash launches {nf} vs {nr}")
+    check(nf == 2 * CROSS_LAYERS and nr == 0,
+          "cross lm: flash launches are not one per layer and call")
+    # bf16 compute: the routes round attention at different points (both
+    # round P to bf16 for P V: the ref route its normalised probabilities,
+    # the kernel its unnormalised ones, divided by the f32 sum after), a
+    # few bf16 ulps (2^-8 relative) over 2 layers
+    check(abs(lf - lr) <= 5e-3, "cross lm: losses differ beyond 5e-3")
+    check(rel <= 5e-2, "cross lm: hidden states differ beyond 5e-2")
+
+
+def flash_work(torch) -> tuple[int, int]:
+    """(visible (query, key) pairs per head, bytes of q, k, v and out) at
+    the LM path's flash shape, causal with its window: what this run's
+    masks need, not L^2."""
+    b, hq, hkv, n, d, window = FLASH_MAIN
+    pos = torch.arange(n, dtype=torch.int64)
+    pairs = int((pos - (pos - window + 1).clamp_min(0) + 1).sum())
+    nbytes = 2 * (2 * b * hq * n * d + 2 * b * hkv * n * d)
+    return pairs, nbytes
+
+
+def timing_flash(torch, ops, ref, dev) -> dict:
+    """The flash kernel at the LM path's shape: CUDA-event ms, the plain
+    version's ms (head group by head group), the bound, and
+    ``scaled_dot_product_attention`` with the same boolean mask and
+    ``enable_gqa=True`` as the library yardstick (timed here only; the
+    port never calls it)."""
+    b, hq, hkv, n, d, window = FLASH_MAIN
+    q, k, v = flash_main_inputs(torch, dev, seed=7)
+    kw = dict(causal=True, window=window, softcap=None)
+    ms = time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw), 5, 1)
+    plain = time_ms(torch, lambda: flash_plain_grouped(
+        torch, ref, q, k, v, **kw), 1, 1)
+    pos = torch.arange(n, device=dev)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                             - window)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = time_ms(torch, lambda: sdpa(q, k, v, attn_mask=mask,
+                                      scale=d ** -0.5, enable_gqa=True), 3, 1)
+    pairs, nbytes = flash_work(torch)
+    flops = 4.0 * b * hq * d * pairs
+    bnd, by = bound(nbytes, flops, "bfloat16")
+    print(f"flash work at {FLASH_MAIN}: {pairs} visible pairs per head, "
+          f"{flops:.3e} flops, {nbytes / 1e6:.1f} MB")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib}
+
+
+def profile_lm(torch, lm_state):
+    """Device time by kernel over one ``loss_fn`` at the lm shape, and the
+    card's idle share of its wall time."""
+    from repro_torch.models import lm
+    cfg, model = lm_state["cfg"], lm_state["model"]
+    tokens, targets = lm_state["batches"][0]
+    _, wall, busy, rows = _profile(
+        torch, lambda: lm.loss_fn(cfg, model, lm.Batch(tokens, targets)))
+    print(f"profile: loss_fn {LM_B} x {LM_L} wall={wall:.3f} s (profiled), "
+          f"device busy {busy:.3f} s, idle share {1.0 - busy / wall:.3f}")
+    for secs, n, key in rows[:15]:
+        print(f"  {100 * secs / wall:5.1f}% {1e3 * secs:8.2f} ms x{n:<5d} "
+              f"{key[:90]}")
 
 
 # ---------------------------------------------------------------------------
@@ -537,7 +792,7 @@ def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     return 1e3 * t_ops, "operations"
 
 
-def timing(torch, kman, ops, ref, state, errs, launches, smi) -> list[dict]:
+def timing(torch, ops, ref, state) -> dict:
     from repro_torch.core.objective import gradient_from_w
     omega, s = state["omega"], state["s"]
     p, bs = omega.shape[0], BLOCK
@@ -593,21 +848,28 @@ def timing(torch, kman, ops, ref, state, errs, launches, smi) -> list[dict]:
         measured[name] = {"ms": ms, "plain_ms": plain, "bound_ms": b,
                           "bound_by": by, "library_ms": None}
         del args, wts
+    return measured
+
+
+def kernel_rows(kman, measured, errs, launches, smi) -> list[dict]:
+    """The ``kernels`` JSON rows of every kernel body timed in this run."""
     print(f"timing on {smi}:")
-    for name, m in measured.items():
-        lib = ("" if m["library_ms"] is None
-               else f", library {m['library_ms']:.3f} ms")
-        print(f"  {name} f64: kernel {m['ms']:.3f} ms, plain "
-              f"{m['plain_ms']:.3f} ms{lib}, bound {m['bound_ms']:.3f} ms "
-              f"({m['bound_by']}), launches {launches.get(name, 0)}")
     rows = []
     for e in kman.KERNEL_ENTRIES:
         for body, site in enumerate(e["replaces"]):
             name = e["name"] + ("[weighted]" if body else "")
+            if name not in measured:
+                continue
+            m = measured[name]
+            lib = ("" if m["library_ms"] is None
+                   else f", library {m['library_ms']:.3f} ms")
+            print(f"  {name}: kernel {m['ms']:.3f} ms, plain "
+                  f"{m['plain_ms']:.3f} ms{lib}, bound {m['bound_ms']:.3f} "
+                  f"ms ({m['bound_by']}), launches {launches.get(name, 0)}")
             rows.append({"name": name, "route": e["route"],
                          "source": e["source"], "replaces": site,
                          "launches": launches.get(name, 0),
-                         "max_abs_err": errs[name], **measured[name]})
+                         "max_abs_err": errs[name], **m})
     return rows
 
 
@@ -670,11 +932,13 @@ def profile_fit(torch, mods, state):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="all",
-                    help="comma list of device,build,kernels,main,batched,"
-                         "adaptive,obs,cross,timing (default: all)")
+                    help="comma list of kernels,main,batched,adaptive,obs,"
+                         "lm,cross,timing (default: all; device and build "
+                         "always run)")
     ap.add_argument("--profile", action="store_true",
                     help="after the phases, profile one warm main-path fit "
-                         "and one batched path (needs the main phase)")
+                         "and one batched path (needs the main phase) and "
+                         "one loss_fn (needs the lm phase)")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script",
@@ -701,11 +965,13 @@ def main(argv=None) -> int:
     name, count, smi = device_line(torch)
     phase("build")
     build_kernels(build)
-    errs, state, rows, launches = {}, None, None, {}
+    errs, state, lm_state, launches, measured = {}, None, None, {}, {}
     if run("kernels"):
         phase("kernels")
         check_kernels(torch, kman, ops, ref, dev)
         errs = check_kernels_main_shape(torch, kman, ops, ref, dev)
+        errs["flash_attention"] = check_flash(torch, kman, ops, ref, dev)
+        torch.cuda.empty_cache()
     if run("main"):
         phase("main")
         state = main_path(torch, mods, dev)
@@ -721,16 +987,32 @@ def main(argv=None) -> int:
     if run("obs"):
         phase("obs")
         obs_fit(torch, mods, dev)
+        torch.cuda.empty_cache()
+    if run("lm"):
+        phase("lm")
+        lm_state = lm_path(torch, dev, ops)
+        launches["flash_attention"] = lm_state["launches"]
+        torch.cuda.empty_cache()
     if run("cross"):
         phase("cross")
         cross_check(torch, mods, dev)
-    if run("timing") and state is not None and errs:
+        if lm_state is not None:
+            cross_check_lm(torch, ops, lm_state)
+        torch.cuda.empty_cache()
+    if run("timing") and errs:
         phase("timing")
-        rows = timing(torch, kman, ops, ref, state, errs, launches, smi)
+        if state is not None:
+            measured.update(timing(torch, ops, ref, state))
+        measured["flash_attention"] = timing_flash(torch, ops, ref, dev)
+        torch.cuda.empty_cache()
     if args.profile and state is not None:
         phase("profile")
         profile_fit(torch, mods, state)
-    if rows is not None:
+    if args.profile and lm_state is not None:
+        phase("profile lm")
+        profile_lm(torch, lm_state)
+    if measured:
+        rows = kernel_rows(kman, measured, errs, launches, smi)
         print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}))

@@ -1,4 +1,5 @@
-"""Carry problems, penalties and configs into the port from plain data.
+"""Carry problems, penalties, configs and LM weights into the port from
+plain data.
 
 The port never imports the JAX package, so these helpers are duck-typed
 on numpy arrays, floats and dicts: a caller holding a ``repro`` object
@@ -70,3 +71,27 @@ def omega_from_numpy(arr, device=None,
     """A warm start (or any matrix) as a tensor on ``device``."""
     return torch.as_tensor(np.asarray(arr), dtype=dtype,
                            device=resolve_device(device))
+
+
+def lm_params_from_numpy(cfg, tree, device=None):
+    """The port's :class:`~repro_torch.models.transformer.DecoderLM` with
+    the weights of a reference parameter tree.
+
+    ``tree`` is the reference's ``{"embed": {...}, "final": {...},
+    "blocks": {name: (n_layers, ...)}}`` as nested dicts of numpy arrays
+    (``jax.tree.map(np.asarray, params)``); ``blocks`` is unstacked along
+    the layer axis.  The tensors keep ``cfg.param_dtype`` (float32 master
+    weights, as in the reference)."""
+    from .models.transformer import DecoderLM
+    dev = resolve_device(device)
+    dtype = getattr(torch, cfg.param_dtype)
+
+    def tensor(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    blocks = tree["blocks"]
+    return DecoderLM(cfg, {
+        "embed": {k: tensor(v) for k, v in tree["embed"].items()},
+        "final": {k: tensor(v) for k, v in tree["final"].items()},
+        "blocks": [{k: tensor(v[i]) for k, v in blocks.items()}
+                   for i in range(cfg.n_layers)]})

@@ -35,6 +35,7 @@ EXTRA_FLAGS = {
     "softthresh": ("-fmad=false",),
     "blocksparse_matmul": (),
     "pathstep": ("-fmad=false",),
+    "flash_attention": (),
 }
 
 #: ``nvcc -Xptxas -v`` report of each library built in this process

@@ -18,9 +18,7 @@ from .ref import dense_to_block_csr
 
 #: the reference's kernel entries that no port entry covers yet, with the
 #: slice of the port that brings each
-NOT_PORTED = {
-    "kernels.flash_attention.flash_attention": "the LM-zoo slice (A12)",
-}
+NOT_PORTED: dict[str, str] = {}
 
 KERNEL_ENTRIES = (
     {
@@ -85,6 +83,34 @@ KERNEL_ENTRIES = (
              "density": 0.7, "seed": 4},
         ),
     },
+    {
+        "name": "flash_attention",
+        "jax_entry": "kernels.flash_attention.flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": ("src/repro/kernels/flash_attention.py:34",),
+        # online softmax against the materialized one: float32 summation
+        # order (the reference's 2e-3).  In bfloat16 both sides see the
+        # same bf16 inputs; the kernel's tensor-core body also rounds the
+        # probabilities to bf16 for P V (2^-9 relative each), and the
+        # output is rounded once: at most ~2 bf16 ulps apart, 2^-6 =
+        # 1.6e-2 relative (atol the same, for outputs near zero)
+        "exact": (),
+        "rtol": {"float32": 2e-3, "bfloat16": 1.6e-2},
+        # the kernel's blocking is its own (64 x 64 tiles); block_q and
+        # block_k are the reference's and only label the configs
+        "configs": (
+            {"label": "causal-gqa", "B": 1, "Hq": 2, "Hkv": 1, "Lq": 32,
+             "Lkv": 32, "D": 16, "block_q": 16, "block_k": 16,
+             "causal": True},
+            {"label": "window-softcap-edge", "B": 1, "Hq": 2, "Hkv": 2,
+             "Lq": 40, "Lkv": 40, "D": 16, "block_q": 16, "block_k": 16,
+             "causal": False, "window": 16, "softcap": 10.0},
+            {"label": "decode-tail", "B": 1, "Hq": 2, "Hkv": 1, "Lq": 8,
+             "Lkv": 40, "D": 16, "block_q": 8, "block_k": 16,
+             "causal": True},
+        ),
+    },
 )
 
 
@@ -144,3 +170,18 @@ def pathstep_problem(cfg, rng):
         if cfg.get("zero_lam1_lane"):
             lam1[0] = 0.0
     return om, w, tau, lam1, lam2, weights
+
+
+def flash_problem(cfg, rng):
+    """(q, k, v, kwargs) for a flash-attention config, drawn as the
+    reference's ``_flash_fuzz`` draws them: standard normal q (B, Hq, Lq,
+    D), then k and v (B, Hkv, Lkv, D); kwargs are the config's causal,
+    window and softcap."""
+    B, Hq, Hkv = cfg["B"], cfg["Hq"], cfg["Hkv"]
+    Lq, Lkv, D = cfg["Lq"], cfg["Lkv"], cfg["D"]
+    q = rng.standard_normal((B, Hq, Lq, D))
+    k = rng.standard_normal((B, Hkv, Lkv, D))
+    v = rng.standard_normal((B, Hkv, Lkv, D))
+    kw = dict(causal=cfg.get("causal", True), window=cfg.get("window"),
+              softcap=cfg.get("softcap"))
+    return q, k, v, kw

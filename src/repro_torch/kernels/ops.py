@@ -20,13 +20,14 @@ from __future__ import annotations
 import torch
 
 from . import blocksparse_matmul as _bsmm
+from . import flash_attention as _fa
 from . import pathstep as _ps
 from . import ref
 from . import softthresh as _st
 
 #: kernel launches per kernel since the last reset
 LAUNCHES: dict[str, int] = {"fused_prox_stats": 0, "blocksparse_matmul": 0,
-                            "fused_path_step": 0}
+                            "fused_path_step": 0, "flash_attention": 0}
 
 #: of those, launches with a weight operand, per kernel that takes one
 WEIGHTED_LAUNCHES: dict[str, int] = {"fused_prox_stats": 0,
@@ -101,4 +102,18 @@ def masked_matmul(a, b, mask, *, block_size: int, capacity: int):
                                  capacity=capacity)
     out = _bsmm.masked_matmul(a, b, mask, block_size=block_size)
     LAUNCHES["blocksparse_matmul"] += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    softcap=None, scale=None):
+    """GQA attention with causal / sliding-window masks and softcap, by
+    online softmax; see ``kernels.ref.flash_attention``."""
+    if not _on_card(q):
+        _fa.validate(q, k, v, window)
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, scale=scale)
+    out = _fa.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=softcap, scale=scale)
+    LAUNCHES["flash_attention"] += 1
     return out

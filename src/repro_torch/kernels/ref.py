@@ -234,3 +234,53 @@ def masked_matmul(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor, *,
     out = torch.zeros((nbr, bs, m), dtype=prods.dtype, device=prods.device)
     out.index_add_(0, r_idx, prods)
     return out.reshape(nbr * bs, m)[:p]
+
+
+# ---------------------------------------------------------------------------
+# flash attention (flash_attention)
+# ---------------------------------------------------------------------------
+
+def attention(q, k, v, *, causal=True, window=None, softcap=None,
+              scale=None):
+    """Multi-head attention with GQA, causal/sliding-window masks and
+    logit soft-capping: the port of the reference's oracle.
+
+    q: (B, Hq, Lq, D); k, v: (B, Hkv, Lkv, D) with Hkv | Hq.  window:
+    attend to keys in (qpos - window, qpos], qpos aligned so the last
+    query sees the last key.  As in the reference, the default scale is
+    1/sqrt(D) rounded to q's dtype and the logits are taken in q's dtype;
+    the softmax runs in float32."""
+    B, Hq, Lq, D = q.shape
+    Hkv, Lkv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    kq = torch.repeat_interleave(k, group, dim=1)
+    vq = torch.repeat_interleave(v, group, dim=1)
+    if scale is None:
+        # a 0-d host tensor in q's dtype (no host-to-device copy)
+        scale = 1.0 / torch.sqrt(torch.tensor(float(D))).to(q.dtype)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, kq) * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    qpos = torch.arange(Lq, device=q.device)[:, None] + (Lkv - Lq)
+    kpos = torch.arange(Lkv, device=q.device)[None, :]
+    mask = torch.ones((Lq, Lkv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = torch.where(mask[None, None], logits, -1e30)
+    probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, vq)
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
+                    scale=None):
+    """The flash kernel's plain version: :func:`attention` on float32
+    upcasts of the inputs at the kernel's scale (D ** -0.5 unless given),
+    cast back to q's dtype.  That is the kernel's arithmetic (float32
+    logits, softmax and accumulation) in another summation order."""
+    D = q.shape[-1]
+    scale = float(D) ** -0.5 if scale is None else float(scale)
+    out = attention(q.float(), k.float(), v.float(), causal=causal,
+                    window=window, softcap=softcap, scale=scale)
+    return out.to(q.dtype)

@@ -1,0 +1,87 @@
+"""Loss evaluation of the LM zoo.
+
+Port of ``repro.models.lm``'s ``Batch``, ``cross_entropy``,
+``cast_params`` and ``loss_fn``: the cache-free forward of a batch and
+its mean next-token cross entropy.  The train step (gradients, AdamW,
+microbatching), prefill and decode with caches, and the sharding helpers
+belong to later slices.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import transformer as T
+from .config import ModelConfig
+
+
+class Batch(NamedTuple):
+    tokens: torch.Tensor               # (B, L) integer ids
+    targets: torch.Tensor              # (B, L) next-token labels
+    frames: torch.Tensor | None = None  # (B, enc_len, d) enc-dec stub input
+
+
+def cross_entropy(cfg: ModelConfig, params, hidden, targets):
+    """Mean next-token cross entropy; taken over sequence chunks of
+    ``cfg.loss_chunk`` positions when that divides L (and L is longer),
+    so only one chunk's (B, chunk, V) logits are live at a time."""
+    B, L, _ = hidden.shape
+
+    def xent(h, t):
+        logits = T.lm_head(cfg, params, h)
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, t[..., None].long())[..., 0]
+        return torch.sum(lse - picked)
+
+    if cfg.loss_chunk and L % cfg.loss_chunk == 0 and L > cfg.loss_chunk:
+        c = cfg.loss_chunk
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for i in range(L // c):
+            total = total + xent(hidden[:, i * c:(i + 1) * c],
+                                 targets[:, i * c:(i + 1) * c])
+    else:
+        total = xent(hidden, targets)
+    return total / (B * L)
+
+
+def cast_params(cfg: ModelConfig, params: T.DecoderLM) -> T.DecoderLM:
+    """The float32 master weights cast to the compute dtype once, before
+    the layer loop; a new model (the master stays as it is)."""
+    dt = getattr(torch, cfg.dtype)
+
+    def cast(t):
+        return t.to(dt) if t.dtype == torch.float32 else t
+
+    tree = params.tree()
+    return T.DecoderLM(cfg, {
+        "embed": {k: cast(v) for k, v in tree["embed"].items()},
+        "final": {k: cast(v) for k, v in tree["final"].items()},
+        "blocks": [{k: cast(v) for k, v in b.items()}
+                   for b in tree["blocks"]]})
+
+
+def loss_fn(cfg: ModelConfig, params: T.DecoderLM, batch: Batch):
+    """(total, {"loss", "aux_loss"}) of one batch, as the reference's
+    ``loss_fn``: total = loss + 0.01 * aux."""
+    _, L = batch.tokens.shape
+    positions = torch.arange(L, device=batch.tokens.device)
+    pc = cast_params(cfg, params)
+    hidden, _, aux = T.forward(cfg, pc, batch.tokens, positions)
+    loss = cross_entropy(cfg, pc, hidden, batch.targets)
+    total = loss + 0.01 * aux
+    return total, {"loss": loss, "aux_loss": aux}
+
+
+def make_train_step(cfg: ModelConfig, *args, **kwargs):
+    raise NotImplementedError("make_train_step belongs to the train-step "
+                              "slice (train/optim.py, train/loop.py)")
+
+
+def make_prefill(cfg: ModelConfig, max_len: int):
+    raise NotImplementedError("make_prefill belongs to the serving slice")
+
+
+def make_decode_step(cfg: ModelConfig):
+    raise NotImplementedError("make_decode_step belongs to the serving "
+                              "slice")

@@ -96,6 +96,42 @@ def test_entry_points_do_not_fall_back_to_the_cpu(no_cuda):
         convert.omega_from_numpy(s)
 
 
+def test_lm_slice_runs_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import math, torch\n"
+        "from repro_torch import configs\n"
+        "from repro_torch.models import lm, transformer\n"
+        "cfg = configs.get_smoke('h2o-danube-1.8b').with_(\n"
+        "    attention_impl='flash')\n"
+        "m = transformer.init_params(cfg, seed=0, device='cpu')\n"
+        "t = torch.randint(0, cfg.vocab, (1, 40))\n"
+        "total, aux = lm.loss_fn(cfg, m, lm.Batch(tokens=t, targets=t))\n"
+        "assert math.isfinite(float(total))\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO / "src")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_lm_entry_points_do_not_fall_back_to_the_cpu(no_cuda):
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    cfg = configs.get_smoke("h2o_danube_1p8b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        transformer.init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.lm_params_from_numpy(cfg, {"embed": {}, "final": {},
+                                           "blocks": {}})
+
+
 def test_chip_smoke_refuses_without_a_card_or_the_repo(tmp_path):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     proc = subprocess.run([sys.executable, str(SMOKE)], env=env, cwd=REPO,

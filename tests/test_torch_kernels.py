@@ -197,7 +197,7 @@ def test_cpu_launches_are_not_counted():
     tops.masked_matmul(z, z, torch.ones((2, 2), dtype=torch.int8),
                        block_size=4, capacity=4)
     assert tops.LAUNCHES == {"fused_prox_stats": 0, "blocksparse_matmul": 0,
-                             "fused_path_step": 0}
+                             "fused_path_step": 0, "flash_attention": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import manifest as tman
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -125,3 +126,73 @@ def test_path_step_kernel_shared_weights_and_refusals_on_card(cuda):
     with pytest.raises(TypeError):
         tops.fused_path_step(args[0], args[1].float(), *args[2:])
 
+
+
+FLASH = tman.entry("flash_attention")
+F32_BF16 = ("float32", "bfloat16")
+
+#: beyond the manifest: the head dims of the zoo (danube 80, qwen, gemma2
+#: and chameleon 128) at ragged lengths, a decode tail, a window without
+#: causal, a softcap and GQA 4:1
+FLASH_EXTRA = (
+    {"label": "danube-d80-ragged", "B": 2, "Hq": 8, "Hkv": 2, "Lq": 200,
+     "Lkv": 200, "D": 80, "causal": True, "window": 96},
+    {"label": "d128-decode-tail", "B": 1, "Hq": 4, "Hkv": 1, "Lq": 9,
+     "Lkv": 301, "D": 128, "causal": True},
+    {"label": "d128-window-no-causal", "B": 1, "Hq": 4, "Hkv": 4, "Lq": 130,
+     "Lkv": 130, "D": 128, "causal": False, "window": 70},
+    {"label": "d128-softcap-gqa", "B": 2, "Hq": 8, "Hkv": 2, "Lq": 77,
+     "Lkv": 77, "D": 128, "causal": True, "softcap": 50.0},
+    {"label": "d16-full", "B": 1, "Hq": 2, "Hkv": 2, "Lq": 65, "Lkv": 129,
+     "D": 16, "causal": False},
+)
+
+
+def _flash_cases():
+    for cfg in (*FLASH["configs"], *FLASH_EXTRA):
+        for dt in F32_BF16:
+            yield pytest.param(cfg, dt, id=f"{cfg['label']}-{dt}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg,dt", list(_flash_cases()))
+def test_flash_kernel_matches_plain_on_card(cuda, cfg, dt):
+    """One launch per call; the output in q's dtype within the manifest's
+    tolerance of the plain version on the same card inputs, for
+    contiguous inputs, for the (B, H, L, D) views of (B, L, H, D)
+    tensors that the model hands over, and for views one element into
+    their storage (not 16-byte aligned: the wrapper copies bf16 ones)."""
+    q, k, v, kw = tman.flash_problem(cfg, np.random.default_rng(0))
+    tdt = getattr(torch, dt)
+    args = [torch.as_tensor(a, dtype=tdt, device=cuda) for a in (q, k, v)]
+    want = tref.flash_attention(*args, **kw)
+    tol = FLASH["rtol"][dt]
+    views = [a.transpose(1, 2).contiguous().transpose(1, 2) for a in args]
+    offset = [torch.cat([a.new_zeros(1), a.flatten()])[1:].view(a.shape)
+              for a in args]
+    assert not any(tfa.aligned16(a) for a in offset)
+    for inputs in (args, views, offset):
+        tops.reset_launches()
+        got = tops.flash_attention(*inputs, **kw)
+        torch.cuda.synchronize()
+        assert tops.LAUNCHES["flash_attention"] == 1
+        assert got.dtype == tdt and got.shape == args[0].shape
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_refusals_on_card(cuda, monkeypatch):
+    q = torch.zeros((1, 2, 8, 16), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        tops.flash_attention(q[..., :12], q[..., :12], q[..., :12])
+    strided = torch.zeros((1, 2, 16, 8), device=cuda).transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        tops.flash_attention(strided, q, q)
+    with pytest.raises(TypeError):
+        tops.flash_attention(q.double(), q.double(), q.double())
+    # a launch the C side refuses surfaces as an exception, not a result
+    monkeypatch.setattr(tfa, "validate", lambda *a: None)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        tfa.flash_attention(q, q[:, :, :4], q[:, :, :4])
