@@ -36,7 +36,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 layers at B = 1, L = 8192: the flash route (the kernel)
                 against the "ref" route (the plain einsum path)
  10. timing     each kernel body at the main paths' inputs: CUDA-event
-                time, plain-version time, library time, and the bound
+                time, plain-version time, library time (kernel 2: the
+                dense product and PyTorch's f64 BSR product), and the
+                bound
 
 The kernels phase also holds the flash kernel against its plain version
 at every manifest config (f32, bf16) and at the LM path's shape (B 2,
@@ -830,7 +832,9 @@ def timing(torch, ops, ref, state) -> dict:
     b2, by2 = bound(nbytes, 2.0 * occ * bs * bs * p, "float64")
     measured["blocksparse_matmul"] = {"ms": k2, "plain_ms": k2_plain,
                                       "bound_ms": b2, "bound_by": by2,
-                                      "library_ms": lib2}
+                                      "library_ms": lib2,
+                                      "library_bsr_ms": bsr_library_ms(
+                                          torch, ops, omega, s, mask, bs)}
     # kernel 3 at the batched path's shape: C lanes of p x p, both bodies
     gen = torch.Generator(device=omega.device).manual_seed(5)
     c = LANES
@@ -851,6 +855,28 @@ def timing(torch, ops, ref, state) -> dict:
     return measured
 
 
+def bsr_library_ms(torch, ops, omega, s, mask, bs):
+    """The sparse yardstick of kernel 2: ``omega.to_sparse_bsr((bs, bs)) @
+    s`` (PyTorch's block-sparse product), the conversion outside the timed
+    window; timed here only, the port never calls it.  None, with
+    PyTorch's reason printed, where PyTorch refuses the product."""
+    try:
+        sp = omega.to_sparse_bsr((bs, bs))
+        got = sp @ s
+    except (RuntimeError, NotImplementedError) as exc:
+        print(f"library: PyTorch refuses the f64 BSR product on the card: "
+              f"{str(exc).splitlines()[0]}")
+        return None
+    diff = float((got - ops.masked_matmul(omega, s, mask, block_size=bs,
+                                          capacity=int(mask.sum())))
+                 .abs().max())
+    del got
+    ms = time_ms(torch, lambda: sp @ s, 3, 1)
+    print(f"library: f64 BSR product ({sp._nnz()} blocks of {bs}x{bs}) "
+          f"{ms:.3f} ms, max |d| from the kernel {diff:.3e}")
+    return ms
+
+
 def kernel_rows(kman, measured, errs, launches, smi) -> list[dict]:
     """The ``kernels`` JSON rows of every kernel body timed in this run."""
     print(f"timing on {smi}:")
@@ -863,6 +889,8 @@ def kernel_rows(kman, measured, errs, launches, smi) -> list[dict]:
             m = measured[name]
             lib = ("" if m["library_ms"] is None
                    else f", library {m['library_ms']:.3f} ms")
+            if m.get("library_bsr_ms") is not None:
+                lib += f", BSR library {m['library_bsr_ms']:.3f} ms"
             print(f"  {name}: kernel {m['ms']:.3f} ms, plain "
                   f"{m['plain_ms']:.3f} ms{lib}, bound {m['bound_ms']:.3f} "
                   f"ms ({m['bound_by']}), launches {launches.get(name, 0)}")

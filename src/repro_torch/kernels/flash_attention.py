@@ -9,9 +9,11 @@ max, denominator and accumulator, and an output in q's type.
 The kernel reads q, k and v by strides (the last dimension must be
 contiguous), so the (B, H, L, D) transposed views of (B, L, H, D)
 projections go in without a copy, and the output is allocated in q's
-layout.  The bf16 body loads 16 bytes at a time: a bf16 input whose
-pointer is not 16-byte aligned, or whose strides are not multiples of 8,
-is copied to a fresh contiguous tensor first.  This wrapper launches the kernel on CUDA tensors only;
+layout.  The bf16 body reads q, k and v through TMA tensor maps, which
+need 16-byte aligned pointers and strides: a bf16 input whose pointer is
+not 16-byte aligned, or whose strides are not multiples of 8, is copied
+to a fresh contiguous tensor first.  This wrapper launches the kernel on
+CUDA tensors only;
 ``kernels.ops`` routes CPU tensors to the plain version in
 ``kernels.ref``.
 """

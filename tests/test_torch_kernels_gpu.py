@@ -68,6 +68,68 @@ def test_blocksparse_kernel_matches_plain_on_card(cuda, cfg, dt):
         torch.testing.assert_close(g, at @ bt, rtol=tol, atol=tol)
 
 
+#: the f64 tensor-core body's tilings beyond the manifest: ragged M, K
+#: and N at bs 128 (zero fill of the 128 x 128 output tile and of the
+#: last k-slice), a fully occupied block-row between empty ones (the ring
+#: flowing over tile boundaries), the CSR entry at bs 128, a 16384-wide N
+#: (the L2 panel order over many column tiles), and odd leading dimensions
+#: (the 8-byte copy path)
+BSR_TC = (
+    {"label": "bs128-ragged-p300-n200", "p": 300, "n": 200, "bs": 128,
+     "density": 0.5},
+    {"label": "bs128-full-row-between-empty", "p": 640, "n": 256,
+     "bs": 128, "rows": "full-middle"},
+    {"label": "bs128-csr", "p": 512, "n": 192, "bs": 128, "density": 0.4,
+     "csr": True},
+    {"label": "bs128-n16384", "p": 256, "n": 16384, "bs": 128,
+     "density": 0.75},
+    {"label": "bs128-odd-p301-n77", "p": 301, "n": 77, "bs": 128,
+     "density": 0.6},
+)
+
+
+def _bsr_tc_problem(cfg, rng):
+    """(a, block mask, b) in float64 numpy for a BSR_TC config."""
+    p, bs = cfg["p"], cfg["bs"]
+    nb = -(-p // bs)
+    if cfg.get("rows") == "full-middle":
+        keep = np.zeros((nb, nb), bool)
+        keep[nb // 2] = True                      # one full block-row
+        keep[0, 0] = keep[-1, -1] = True
+    else:
+        keep = rng.random((nb, nb)) < cfg["density"]
+    full = np.repeat(np.repeat(keep, bs, 0), bs, 1)[:p, :p]
+    a = np.where(full, rng.standard_normal((p, p)), 0.0)
+    return a, keep, rng.standard_normal((p, cfg["n"]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", BSR_TC, ids=lambda c: c["label"])
+def test_blocksparse_tensor_core_tilings_on_card(cuda, cfg):
+    """The f64 body against its plain version and the dense product at
+    the manifest's f64 tolerance, one launch per call."""
+    a, keep, b = _bsr_tc_problem(cfg, np.random.default_rng(7))
+    tol = BSR["rtol"]["float64"]
+    at = torch.as_tensor(a, device=cuda)
+    bt = torch.as_tensor(b, device=cuda)
+    mask = torch.as_tensor(keep.astype(np.int8), device=cuda)
+    cap = max(1, int(keep.sum()))
+    tops.reset_launches()
+    if cfg.get("csr"):
+        vals, rows, cols = tref.dense_to_block_csr(a, cfg["bs"])
+        got = tops.blocksparse_matmul(torch.as_tensor(vals, device=cuda),
+                                      rows, cols, bt)
+    else:
+        got = tops.masked_matmul(at, bt, mask, block_size=cfg["bs"],
+                                 capacity=cap)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["blocksparse_matmul"] == 1
+    want = tref.masked_matmul(at, bt, mask, block_size=cfg["bs"],
+                              capacity=cap)
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    torch.testing.assert_close(got, at @ bt, rtol=tol, atol=tol)
+
+
 @pytest.mark.gpu
 def test_blocksparse_kernel_row_revisit_raises_on_card(cuda):
     vals = torch.ones((3, 4, 4), dtype=torch.float64, device=cuda)
@@ -145,6 +207,18 @@ FLASH_EXTRA = (
      "Lkv": 77, "D": 128, "causal": True, "softcap": 50.0},
     {"label": "d16-full", "B": 1, "Hq": 2, "Hkv": 2, "Lq": 65, "Lkv": 129,
      "D": 16, "causal": False},
+    # the wgmma body's tilings: 128-row q tiles and 128-key kv tiles at
+    # D 80 (64 at D 128), rows past L zero-filled by TMA
+    {"label": "d80-ragged-L333", "B": 1, "Hq": 4, "Hkv": 2, "Lq": 333,
+     "Lkv": 333, "D": 80, "causal": True},
+    {"label": "d80-window-lt-kv-tile", "B": 1, "Hq": 2, "Hkv": 1, "Lq": 300,
+     "Lkv": 300, "D": 80, "causal": True, "window": 48},
+    {"label": "d80-decode-lq1", "B": 2, "Hq": 4, "Hkv": 1, "Lq": 1,
+     "Lkv": 517, "D": 80, "causal": True, "window": 256},
+    {"label": "d128-decode-lq1", "B": 1, "Hq": 2, "Hkv": 2, "Lq": 1,
+     "Lkv": 200, "D": 128, "causal": True},
+    {"label": "d80-gqa4", "B": 2, "Hq": 8, "Hkv": 2, "Lq": 260, "Lkv": 260,
+     "D": 80, "causal": True, "window": 100},
 )
 
 
@@ -160,8 +234,9 @@ def test_flash_kernel_matches_plain_on_card(cuda, cfg, dt):
     """One launch per call; the output in q's dtype within the manifest's
     tolerance of the plain version on the same card inputs, for
     contiguous inputs, for the (B, H, L, D) views of (B, L, H, D)
-    tensors that the model hands over, and for views one element into
-    their storage (not 16-byte aligned: the wrapper copies bf16 ones)."""
+    tensors that the model hands over (GQA by head index on strided
+    views), and for views one element into their storage (not 16-byte
+    aligned: the wrapper copies bf16 ones)."""
     q, k, v, kw = tman.flash_problem(cfg, np.random.default_rng(0))
     tdt = getattr(torch, dt)
     args = [torch.as_tensor(a, dtype=tdt, device=cuda) for a in (q, k, v)]
