@@ -25,17 +25,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 the path step's weighted body) and sequential (stage 2 on
                 the fused prox's weighted body)
   7. obs        one Obs fit at p = 16384, n = 1200
-  8. lm         the LM zoo's loss evaluation at h2o-danube-1.8b's full
+  8. gram       the streaming data path at full size: the banded scenario
+                at p = 16384 (cond 10) built on the card, n = 65536 rows
+                streamed as float32 ``.npy`` shards into ``build/``, then
+                ``launch.gram prep --shards ... --transform standardize``
+                (the f64 Gram accumulated on the card), held against a
+                one-shot Gram of the same data within 1e-10 of max |S|;
+                ``launch.solve --from-gram`` (``--sparse-matmul on``:
+                kernel 2) and ``fit_gram`` with ``use_pallas=True``
+                (kernels 1 and 2), launch counts zeroed before each and
+                read after; the shards are deleted at the end.  Its rank
+                part runs ``compute_gram(transform="rank")`` at p = 4096,
+                n = 16384: at the main size the rank transform's scratch
+                would be 8.6 GB of disk and ~32 sweeps of the source
+  9. lm         the LM zoo's loss evaluation at h2o-danube-1.8b's full
                 width and depth (24 layers, d 2560, GQA 32/8, head_dim 80,
                 window 4096, vocab 32000), random weights from a seeded
                 ``torch.Generator``: ``lm.loss_fn`` on 3 batches of
                 B = 2, L = 8192 through the flash-attention kernel
-  9. cross      p = 2048: the kernel path against the dense plain path;
+ 10. cross      p = 2048: the kernel path against the dense plain path;
                 the batched path through the kernel, on the plain route,
                 and as sequential cold solves; the LM's weights cut to 2
                 layers at B = 1, L = 8192: the flash route (the kernel)
                 against the "ref" route (the plain einsum path)
- 10. timing     each kernel body at the main paths' inputs: CUDA-event
+ 11. timing     each kernel body at the main paths' inputs: CUDA-event
                 time, plain-version time, library time (kernel 2: the
                 dense product and PyTorch's f64 BSR product), and the
                 bound
@@ -45,9 +58,10 @@ at every manifest config (f32, bf16) and at the LM path's shape (B 2,
 Hq 32, Hkv 8, L 8192, D 80, causal, window 4096, bf16).
 
 ``--profile`` adds a torch.profiler pass over one warm main-path fit, one
-batched path and one ``loss_fn`` at the lm shape (device time by kernel,
-the card's idle share); ``--phases`` runs a subset while iterating (e.g.
-``--phases kernels,lm``).
+batched path, one prep's streaming pass at the gram phase's size and one
+``loss_fn`` at the lm shape (device time by kernel, the card's idle
+share); ``--phases`` runs a subset while iterating (e.g. ``--phases
+kernels,lm`` or ``--phases gram``).
 
 The second-to-last line is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -57,6 +71,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -76,6 +91,14 @@ P_MAIN, N_MAIN, N_OBS, P_CROSS, BLOCK = 16384, 8192, 1200, 2048, 128
 P_ADAPT, N_ADAPT = 4096, 4096
 LAM_PATH = [0.3, 0.2, 0.15]
 LANES = len(LAM_PATH)
+
+#: the gram phase: GRAM_FAMILY's scenario at P_GRAM, N_GRAM rows streamed
+#: through f32 shards into GRAM_DIR, standardized, solved at LAM_GRAM
+#: (final block density well under 0.25, so the sparse branch runs); its
+#: rank part at P_RANK x N_RANK
+GRAM_FAMILY, GRAM_COND, LAM_GRAM = "banded", 10.0, 0.3
+P_GRAM, N_GRAM, P_RANK, N_RANK = 16384, 65536, 4096, 16384
+GRAM_DIR = ROOT / "build" / "gram_phase"
 
 #: the LM slice: h2o-danube-1.8b at full width, loss on LM_BATCHES batches
 #: of (LM_B, LM_L) tokens; the cross-check cuts it to CROSS_LAYERS layers
@@ -715,6 +738,213 @@ def obs_fit(torch, mods, dev):
           "obs: the block-sparse kernel never ran")
 
 
+def one_shot_gram(torch, shard_dir: Path, n: int, p: int, dev):
+    """The standardized Gram of the shards' f32 data cast to f64, in one
+    product on the card: centered first, scaled after (the streamed
+    Gram applies the same transform algebraically to raw moments)."""
+    x = torch.empty((n, p), dtype=torch.float64, device=dev)
+    row = 0
+    for path in sorted(shard_dir.glob("*.npy")):
+        part = torch.from_numpy(np.load(path)).to(dev)
+        x[row:row + part.shape[0]] = part
+        row += part.shape[0]
+    check(row == n, f"the shards hold {row} rows, not {n}")
+    x -= x.mean(dim=0)
+    s = (x.T @ x).div_(n)
+    del x
+    sd = s.diagonal().sqrt()
+    sd = torch.where(sd < 1e-12, torch.ones_like(sd), sd)
+    return s.div_(sd[:, None]).div_(sd[None, :])
+
+
+def gram_path(torch, mods, dev, profile: bool) -> None:
+    """The streaming data path at full size: scenario -> f32 shards ->
+    ``launch.gram prep`` -> ``launch.solve --from-gram`` and ``fit_gram``;
+    then the rank transform at P_RANK x N_RANK."""
+    from repro_torch.core.costmodel import gram_chunk_rows
+    from repro_torch.data import (compute_gram, make_scenario, open_shards,
+                                  write_shards)
+    from repro_torch.data.shards import CallableSource
+    from repro_torch.launch import gram as gram_cli
+    from repro_torch.launch import solve as solve_cli
+    _, est_mod, _, ops = mods
+    shard_dir, art = GRAM_DIR / "shards", GRAM_DIR / "artifact"
+    shutil.rmtree(GRAM_DIR, ignore_errors=True)
+    walls, peaks = {}, {}
+
+    def timed(name, fn):
+        """Run one part: host wall (ends in a sync) and its own peak
+        device memory (``max_memory_allocated`` reset before it)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        peaks[name] = torch.cuda.max_memory_allocated()
+        return out
+
+    try:
+        sc = timed("scenario (weights, eigvalsh)", lambda: make_scenario(
+            GRAM_FAMILY, P_GRAM, seed=0, cond=GRAM_COND, device=dev))
+        timed("cholesky (alone)", lambda: torch.linalg.cholesky(sc.omega))
+        rows = gram_chunk_rows(P_GRAM)
+
+        def write():
+            src = sc.source(N_GRAM, chunk_rows=rows, seed=1)
+            for i, x in enumerate(src.chunks()):
+                write_shards(x.float(), shard_dir, rows_per_shard=rows,
+                             prefix=f"shard{i:03d}")
+        timed("shards (draws, solves, f32 .npy)", write)
+        shard_bytes = sum(f.stat().st_size for f in shard_dir.iterdir())
+        argv = ["prep", "--shards", str(shard_dir), "--transform",
+                "standardize", "--out", str(art)]
+        timed("prep (CLI)", lambda: gram_cli.main(argv))
+        meta = json.loads((art / gram_cli.META_NAME).read_text())
+        print(f"gram prep: n={meta['n']} p={meta['p']} {meta['n_chunks']} "
+              f"chunks of <= {meta['chunk_rows']} rows from "
+              f"{shard_bytes / 1e9:.2f} GB of {meta['source_dtype']} "
+              f"shards; stream {meta['wall_time_s']} s, "
+              f"{meta['rows_per_s']} rows/s; peak_bytes_streamed "
+              f"{meta['peak_bytes_streamed'] / 1e9:.2f} GB vs "
+              f"peak_bytes_dense {meta['peak_bytes_dense'] / 1e9:.2f} GB")
+        check(meta["n"] == N_GRAM and meta["p"] == P_GRAM
+              and meta["source_dtype"] == "float32", "prep metadata")
+        if profile:
+            profile_prep(torch, compute_gram, open_shards, shard_dir,
+                         meta["chunk_rows"], dev)
+        one = timed("one-shot Gram (check)", lambda: one_shot_gram(
+            torch, shard_dir, N_GRAM, P_GRAM, dev))
+        gram = gram_cli.load_gram(str(art), device=dev)
+        scale = float(one.abs().max())
+        err = float((gram.s - one).abs().max())
+        del one
+        print(f"streamed vs one-shot Gram: max |dS| {err:.3e}, max |S| "
+              f"{scale:.3e} ({err / scale:.3e} of it)")
+        check(err <= 1e-10 * scale, "the streamed Gram disagrees with the "
+              "one-shot Gram beyond 1e-10 of max |S|")
+        check(float((gram.s.diagonal() - 1).abs().max()) <= 1e-12,
+              "the standardized Gram has no unit diagonal")
+        del gram
+
+        ops.reset_launches()
+        rep_cli = timed("solve (CLI --from-gram)", lambda: solve_cli.main([
+            "--from-gram", str(art), "--lam1", str(LAM_GRAM), "--backend",
+            "reference", "--sparse-matmul", "on"]))
+        l_cli = dict(ops.LAUNCHES)
+        cfg = est_mod.SolverConfig(backend="reference", variant="cov",
+                                   use_pallas=True, sparse_matmul="on",
+                                   dtype="float64")
+        est = est_mod.ConcordEstimator(lam1=LAM_GRAM, lam2=0.05, config=cfg)
+        gram = gram_cli.load_gram(str(art), device=dev)
+        ops.reset_launches()
+        timed("solve (fit_gram)", lambda: est.fit_gram(gram))
+        l_fit = dict(ops.LAUNCHES)
+        rep = est.report_
+        print(f"launch.solve --from-gram: iters={rep_cli.iters} trials="
+              f"{rep_cli.ls_total} density={rep_cli.block_density:.4f} "
+              f"launches={l_cli}")
+        print(f"fit_gram (use_pallas): iters={rep.iters} trials="
+              f"{rep.ls_total} density={rep.block_density:.4f} "
+              f"launches={l_fit}; max |dOmega| vs the CLI's "
+              f"{float((rep.omega - rep_cli.omega).abs().max()):.3e}")
+        for name, r, launches in (("launch.solve", rep_cli, l_cli),
+                                  ("fit_gram", rep, l_fit)):
+            check(r.converged and not r.stalled, f"{name} did not converge")
+            check(r.block_density < 0.25,
+                  f"{name}: final block density {r.block_density} >= 0.25")
+            check(launches["blocksparse_matmul"] > 0,
+                  f"{name}: the block-sparse kernel never ran")
+            check(bool(torch.isfinite(r.omega).all()),
+                  f"{name}: non-finite estimate")
+        check(l_fit["fused_prox_stats"] == rep.ls_total,
+              "fit_gram: fused prox launches != line-search trials")
+        ppv, fdr = support_stats(torch, rep.omega, sc.omega)
+        print(f"gram phase: PPV={ppv:.4f} FDR={fdr:.4f} vs the scenario's "
+              f"Omega")
+        del gram, est, rep, rep_cli, sc
+        torch.cuda.empty_cache()
+
+        # the rank part, cut to P_RANK x N_RANK
+        sc = make_scenario(GRAM_FAMILY, P_RANK, seed=0, cond=GRAM_COND,
+                           device=dev)
+        src = sc.source(N_RANK, chunk_rows=4096, seed=1)
+
+        def distorted():
+            for c in src.chunks():
+                c = c.clone()
+                c[:, 0] = torch.exp(c[:, 0])
+                yield c
+        g0 = timed("rank Gram", lambda: compute_gram(
+            src, transform="rank", device=dev, scratch_dir=str(GRAM_DIR)))
+        g1 = compute_gram(CallableSource(distorted, p=P_RANK, n_rows=N_RANK),
+                          transform="rank", device=dev,
+                          scratch_dir=str(GRAM_DIR))
+        diag = float((g0.s.diagonal() - 1).abs().max())
+        moved = float((g1.s - g0.s).abs().max())
+        print(f"rank Gram p={P_RANK} n={N_RANK}: max |diag - 1| {diag:.3e}; "
+              f"exp() of column 0 moves it by {moved:.3e}")
+        check(diag <= 1e-10, "the rank Gram has no unit diagonal")
+        check(moved <= 1e-10, "the rank Gram moved under a monotone "
+              "distortion of one column")
+        for name, secs in walls.items():
+            print(f"gram part: {name} wall {secs:.2f} s, peak "
+                  f"{peaks[name] / 2**30:.1f} GiB (max_memory_allocated)")
+        print(f"gram phase peak {max(peaks.values()) / 2**30:.1f} GiB")
+    finally:
+        shutil.rmtree(GRAM_DIR, ignore_errors=True)
+
+
+def profile_prep(torch, compute_gram, open_shards, shard_dir, rows, dev):
+    """Device time by kernel over one prep's streaming pass (the f64 GEMM
+    slabs, the H2D copies, the casts and the Welford passes), and the
+    card's idle share of its wall time."""
+    _, wall, busy, rows_ = _profile(torch, lambda: compute_gram(
+        open_shards(str(shard_dir), chunk_rows=rows),
+        transform="standardize", device=dev))
+    print(f"profile: prep stream n={N_GRAM} p={P_GRAM} wall={wall:.3f} s "
+          f"(profiled), device busy {busy:.3f} s, idle share "
+          f"{1.0 - busy / wall:.3f}")
+    for secs, n, key in rows_[:12]:
+        print(f"  {100 * secs / wall:5.1f}% {1e3 * secs:9.2f} ms x{n:<5d} "
+              f"{key[:90]}")
+    # the host side alone: the shards' bytes read with plain buffered
+    # reads, and copied out of the memmap views the stream hands over
+    paths = sorted(shard_dir.glob("*.npy"))
+    nbytes = sum(p.stat().st_size for p in paths)
+    buf = bytearray(max(p.stat().st_size for p in paths))
+    t0 = time.perf_counter()
+    for path in paths:
+        with open(path, "rb", buffering=0) as f:
+            while f.readinto(memoryview(buf)[:len(buf)]):
+                pass
+    t_read = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for chunk in open_shards(str(shard_dir), chunk_rows=rows).chunks():
+        np.array(chunk)
+    t_copy = time.perf_counter() - t0
+    print(f"profile: host reads of the {nbytes / 1e9:.2f} GB of shards: "
+          f"readinto {t_read:.2f} s ({nbytes / t_read / 1e9:.2f} GB/s), "
+          f"memmap copy {t_copy:.2f} s ({nbytes / t_copy / 1e9:.2f} GB/s)")
+    # host time by function over one more streaming pass
+    import cProfile
+    import io
+    import pstats
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(lambda: compute_gram(open_shards(str(shard_dir),
+                                                  chunk_rows=rows),
+                                      transform="standardize", device=dev))
+    torch.cuda.synchronize()
+    out = io.StringIO()
+    pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(8)
+    print(f"profile: host time by function over one more pass "
+          f"({time.perf_counter() - t0:.2f} s):")
+    for line in out.getvalue().splitlines():
+        if line.strip() and line.lstrip()[0].isdigit():
+            print(f"  {line.strip()[:110]}")
+
+
 def cross_check(torch, mods, dev):
     graphs, est_mod, penalty, ops = mods
     omega0 = graphs.chain_omega(P_CROSS, dtype=np.float64)
@@ -961,12 +1191,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="all",
                     help="comma list of kernels,main,batched,adaptive,obs,"
-                         "lm,cross,timing (default: all; device and build "
-                         "always run)")
+                         "gram,lm,cross,timing (default: all; device and "
+                         "build always run)")
     ap.add_argument("--profile", action="store_true",
                     help="after the phases, profile one warm main-path fit "
                          "and one batched path (needs the main phase) and "
-                         "one loss_fn (needs the lm phase)")
+                         "one loss_fn (needs the lm phase); the gram phase "
+                         "profiles one prep's streaming pass")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script",
@@ -1015,6 +1246,10 @@ def main(argv=None) -> int:
     if run("obs"):
         phase("obs")
         obs_fit(torch, mods, dev)
+        torch.cuda.empty_cache()
+    if run("gram"):
+        phase("gram")
+        gram_path(torch, mods, dev, args.profile)
         torch.cuda.empty_cache()
     if run("lm"):
         phase("lm")

@@ -1,5 +1,5 @@
-"""Carry problems, penalties, configs and LM weights into the port from
-plain data.
+"""Carry problems, penalties, configs, streamed Grams and LM weights into
+the port from plain data.
 
 The port never imports the JAX package, so these helpers are duck-typed
 on numpy arrays, floats and dicts: a caller holding a ``repro`` object
@@ -95,3 +95,21 @@ def lm_params_from_numpy(cfg, tree, device=None):
         "final": {k: tensor(v) for k, v in tree["final"].items()},
         "blocks": [{k: tensor(v[i]) for k, v in blocks.items()}
                    for i in range(cfg.n_layers)]})
+
+
+def gram_from_numpy(result, device=None):
+    """The port's :class:`~repro_torch.data.GramResult` from a reference
+    ``GramResult`` (numpy ``s``, ``mean`` and ``var``; the scalars and
+    names as they are), with the arrays as float64 tensors on
+    ``device``, so both packages solve the same statistic."""
+    from .data.gram import GramResult
+    dev = resolve_device(device)
+
+    def tensor(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=dev)
+
+    return GramResult(
+        s=tensor(result.s), n=int(result.n), p=int(result.p),
+        transform=str(result.transform), mean=tensor(result.mean),
+        var=tensor(result.var), n_chunks=int(result.n_chunks),
+        source_dtype=str(result.source_dtype))

@@ -2,8 +2,9 @@
 
 A copy of the parts of ``repro.core.costmodel`` that the port decides
 with: the variant tuner behind ``variant="auto"``, the dense <->
-block-sparse crossover behind ``sparse_matmul="auto"``, and the batched
-path engine's difficulty model and ``fit_path(mode="auto")`` decision.
+block-sparse crossover behind ``sparse_matmul="auto"``, the streaming
+Gram's chunk-size guidance (``gram_chunk_rows``), and the batched path
+engine's difficulty model and ``fit_path(mode="auto")`` decision.
 
     T = F*gamma + L*alpha + W*beta
 
@@ -207,6 +208,40 @@ def crossover_density(p: int, m: int, block_size: int,
     if ts1 <= 0.0:
         return 1.0
     return max(0.0, min(1.0, td / ts1))
+
+
+def gram_chunk_rows(p: int, *, machine: Machine | None = None,
+                    budget_bytes: float | None = None,
+                    dtype_bytes: int = 8) -> int:
+    """Chunk-size guidance for the streaming Gram pipeline (``data.gram``),
+    as ``repro.core.costmodel.gram_chunk_rows`` computes it:
+
+      * memory — the f64 chunk (m·p·8 B) and one transform copy of it
+        must fit what the budget leaves after the (p, p) f64 accumulator
+        (default budget: 1/8 of the machine's device memory, leaving room
+        for the solve that follows; 10 GB on :data:`H100`, so p = 16384
+        gives 29,954 rows);
+      * efficiency — floor at 256 rows (below a few hundred rows the
+        panel product turns bandwidth-bound), cap at 2^20.
+
+    Raises when the (p, p) accumulator alone exhausts the budget: no
+    chunk size helps then, and the Gram must be sharded across devices
+    (``data.distributed_gram``, a later slice) or given a bigger budget.
+    """
+    if p < 1:
+        raise ValueError(f"p must be >= 1, got {p}")
+    machine = machine or H100
+    budget = budget_bytes if budget_bytes is not None \
+        else machine.hbm_bytes / 8.0
+    left = budget - float(p) * p * dtype_bytes
+    if left <= 0:
+        raise ValueError(
+            f"the (p, p) f64 accumulator alone ({p}^2 x {dtype_bytes} B = "
+            f"{p * p * dtype_bytes / 1e9:.1f} GB) exceeds the "
+            f"{budget / 1e9:.1f} GB budget; shard the Gram across devices "
+            f"(data.distributed_gram) or raise budget_bytes")
+    rows = int(left // (2 * p * dtype_bytes))
+    return max(256, min(rows, 1 << 20))
 
 
 # ---------------------------------------------------------------------------

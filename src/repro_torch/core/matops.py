@@ -16,8 +16,9 @@ Python branch: the count comes to the host once per product (one sync).
 On the card the sparse branch is the hand-written block-sparse kernel's
 mask entry (``kernels.ops.masked_matmul``); on the CPU it is the plain
 block-gather product.  The dense branch is ``a @ b``, which the reference
-also leaves to the library (XLA).  ``panel_gram`` belongs to the data
-slice of the port.
+also leaves to the library (XLA).  ``panel_gram``, the data side's
+blocked XᵀX, is a library product too, as in the reference (its dense
+``matmul``), accumulated in place into row slabs of the caller's output.
 """
 from __future__ import annotations
 
@@ -135,3 +136,27 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, mask=None,
     if cap is None:
         return a @ b
     return masked_matmul(a, b, mask, block_size=bs, capacity=cap)
+
+
+def panel_gram(x: torch.Tensor, *, panel: int = 512,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """Blocked XᵀX of an (n, p) row-block, by column panels: each product
+    is a bounded (panel, n) @ (n, p) slab added in place into rows
+    [lo, lo + panel) of ``out`` (``xx[lo:hi].addmm_(x[:, lo:hi].T, x)``),
+    so no second (p, p) buffer exists.  ``out=None`` starts from zeros
+    and returns the Gram; a given ``out`` (p, p) of x's dtype and device
+    is accumulated into and returned — the unit of work the streaming
+    Gram accumulator (``data.gram``) folds per chunk.  The product runs
+    in x's dtype: the accumulator casts its chunk to float64 first."""
+    if panel < 1:
+        raise ValueError(f"panel must be >= 1, got {panel}")
+    if x.ndim != 2:
+        raise ValueError(f"x must be 2-D (n, p), got shape {tuple(x.shape)}")
+    p = x.shape[1]
+    if out is None:
+        out = torch.zeros((p, p), dtype=x.dtype, device=x.device)
+    elif tuple(out.shape) != (p, p):
+        raise ValueError(f"out must be ({p}, {p}), got {tuple(out.shape)}")
+    for lo in range(0, p, panel):
+        out[lo:lo + panel].addmm_(x[:, lo:lo + panel].T, x)
+    return out

@@ -4,17 +4,19 @@ Port of ``repro.estimator.estimator``:
 
     est = ConcordEstimator(penalty=PenaltySpec.l1(0.3, 0.05),
                            config=SolverConfig(backend="reference"))
-    est.fit(X)                      # (n, p) observations
+    est.fit(X)                      # (n, p) observations — or ANY chunk
+                                    # stream (generator, shard paths, ...)
     est.fit_cov(S, n_samples=n)     # (p, p) sample covariance
+    est.fit_gram(gram_result)       # streamed Gram from repro_torch.data
     path = est.fit_path(X, lam1_grid=[...])        # warm-started path
     path = est.fit_path(X, lam1_grid=[...], mode="batched")  # in lock step
     best = path.best_bic()                         # model selection
     est.fit_batch(s=S_stack, lam1=[...])           # B stacked problems
 
 Inputs may be numpy arrays or tensors; they move to ``config.device``
-(the CUDA card unless ``device="cpu"``).  Streaming ``fit`` and
-``transform=`` and ``fit_gram`` (the data slice) raise
-``NotImplementedError`` naming that slice.
+(the CUDA card unless ``device="cpu"``).  Chunk streams, and arrays with
+``transform=`` set, are reduced to their float64 Gram on that device by
+``data.compute_gram`` and solved through the Cov variant.
 """
 from __future__ import annotations
 
@@ -27,24 +29,13 @@ import numpy as np
 from ..core.costmodel import choose_path_mode
 from ..core.penalty import PenaltySpec, adaptive_weights, as_penalty
 from ..core.prox import resolve_tau_schedule
+from ..data.gram import compute_gram
+from ..data.shards import is_streaming_input
 from ..device import resolve_device
 from .backends import Problem, get_backend
 from .batch import batched_path_reports, fit_batch as _fit_batch
 from .config import SolverConfig
 from .report import FitReport, PathResult, pseudo_bic
-
-_DATA_SLICE = "the data slice (ROADMAP A6)"
-
-
-def _later(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} arrives with {where} of the "
-                               f"PyTorch port")
-
-
-def _is_matrix(x) -> bool:
-    """An in-memory (n, p) matrix, as opposed to a chunk stream."""
-    return isinstance(x, (list, tuple)) or hasattr(x, "__array__")
-
 
 def _validate_grid(lam1_grid) -> list[float]:
     try:
@@ -125,13 +116,24 @@ class ConcordEstimator:
         self.n_iter_ = report.iters
         return self
 
+    def _gram(self, x, transform, chunk_rows):
+        return compute_gram(x, transform=transform or "none",
+                            chunk_rows=chunk_rows, device=self.config.device)
+
     def fit(self, x, *, omega0=None, transform: str | None = None,
             chunk_rows: int | None = None) -> "ConcordEstimator":
-        """Fit from an in-memory (n, p) observation matrix."""
-        if transform is not None or chunk_rows is not None \
-                or not _is_matrix(x):
-            raise _later("fit from a chunk stream or with transform=",
-                         _DATA_SLICE)
+        """Fit from observations (either variant works).
+
+        ``x`` may be an in-memory (n, p) matrix, OR any chunk stream the
+        data subsystem understands — a generator/iterator of row-blocks,
+        a ``ChunkSource``, shard file paths, or a zero-arg factory (see
+        ``repro_torch.data.shards``).  Streams (and arrays with
+        ``transform`` set) are reduced to their f64 Gram on the solve's
+        device by ``data.compute_gram`` without materializing X, then
+        solved through the Cov variant."""
+        if is_streaming_input(x) or transform is not None:
+            return self.fit_gram(self._gram(x, transform, chunk_rows),
+                                 omega0=omega0)
         problem = self._problem(x=x)
         return self._finish(self._solve(problem, self.penalty, omega0))
 
@@ -142,7 +144,22 @@ class ConcordEstimator:
         return self._finish(self._solve(problem, self.penalty, omega0))
 
     def fit_gram(self, gram, *, omega0=None) -> "ConcordEstimator":
-        raise _later("fit_gram", _DATA_SLICE)
+        """Fit from a streamed Gram (``data.compute_gram`` or a
+        ``launch.gram prep`` artifact through ``launch.gram.load_gram``).
+
+        Accepts a :class:`repro_torch.data.GramResult` or anything
+        exposing ``.s`` (the (p, p) Gram) and ``.n`` (rows streamed); a
+        tensor already on the solve's device is used where it is.
+        Validation (symmetry, finiteness) applies as in ``fit_cov``."""
+        s = getattr(gram, "s", None)
+        n = getattr(gram, "n", None)
+        if s is None or n is None:
+            raise TypeError(
+                f"fit_gram wants a GramResult-like object with .s and .n "
+                f"(got {type(gram).__name__}); for a plain covariance "
+                f"array use fit_cov(s, n_samples=...)")
+        problem = self._problem(s=s, n_samples=int(n))
+        return self._finish(self._solve(problem, self.penalty, omega0))
 
     # -- regularization path --------------------------------------------
 
@@ -195,9 +212,15 @@ class ConcordEstimator:
                  score_bic: bool = True,
                  mode: str = "sequential",
                  adaptive: bool = False,
-                 adaptive_eps: float = 1e-3) -> PathResult:
+                 adaptive_eps: float = 1e-3,
+                 transform: str | None = None,
+                 chunk_rows: int | None = None) -> PathResult:
         """Fit a descending lam1 path with a pseudo-likelihood BIC per
         point (``score_bic``) for ``PathResult.best_bic()``.
+
+        ``x`` may be a chunk stream, as in ``fit``: it (or an array with
+        ``transform`` set) is reduced to its Gram first, which then
+        stands for ``s`` and its row count for ``n_samples``.
 
         ``mode="sequential"`` solves point by point, each warm-started
         from the previous solution (``warm_start``).  ``mode="batched"``
@@ -216,6 +239,10 @@ class ConcordEstimator:
                              f"'auto', got {mode!r}")
         grid = _validate_grid(lam1_grid)
         mode = self._resolve_path_mode(mode, grid)
+        if x is not None and (is_streaming_input(x)
+                              or transform is not None):
+            gram = self._gram(x, transform, chunk_rows)
+            x, s, n_samples = None, gram.s, gram.n
         if score_bic and x is None and n_samples is None:
             raise ValueError(
                 "BIC scoring needs the sample count: pass n_samples "
@@ -314,13 +341,16 @@ def _estimator(penalty, lam1, lam2, config, knobs) -> ConcordEstimator:
 
 def fit(x=None, *, s=None, lam1: float | None = None, lam2: float = 0.0,
         penalty: PenaltySpec | str | None = None,
-        n_samples: int | None = None,
+        n_samples: int | None = None, transform: str | None = None,
+        chunk_rows: int | None = None,
         config: SolverConfig | None = None, **knobs) -> FitReport:
-    """One-call fit.  Extra keyword args are SolverConfig fields (e.g.
+    """One-call fit.  ``x`` may be a matrix or a chunk stream
+    (``transform``/``chunk_rows`` ride through to the streaming Gram
+    pipeline).  Extra keyword args are SolverConfig fields (e.g.
     ``backend="reference"``, ``device="cpu"``)."""
     est = _estimator(penalty, lam1, lam2, config, knobs)
     if x is not None:
-        est.fit(x)
+        est.fit(x, transform=transform, chunk_rows=chunk_rows)
     else:
         est.fit_cov(s, n_samples=n_samples)
     return est.report_
@@ -332,11 +362,14 @@ def fit_path(x=None, lam1_grid: Iterable[float] = (), *, s=None,
              n_samples: int | None = None,
              warm_start: bool = True, score_bic: bool = True,
              mode: str = "sequential", adaptive: bool = False,
+             transform: str | None = None, chunk_rows: int | None = None,
              config: SolverConfig | None = None, **knobs) -> PathResult:
     """One-call regularization path (sequential warm-started,
     ``mode="batched"`` in lock step, or ``adaptive=True`` for the
-    two-stage adaptive lasso)."""
+    two-stage adaptive lasso); ``x`` may be a chunk stream, as in
+    :func:`fit`."""
     est = _estimator(penalty, 1.0, lam2, config, knobs)
     return est.fit_path(x, lam1_grid, s=s, n_samples=n_samples,
                         warm_start=warm_start, score_bic=score_bic,
-                        mode=mode, adaptive=adaptive)
+                        mode=mode, adaptive=adaptive, transform=transform,
+                        chunk_rows=chunk_rows)

@@ -213,11 +213,14 @@ def test_later_slice_entry_points_raise(data):
     x, s = data
     est = test_.ConcordEstimator(
         lam1=0.3, config=test_.SolverConfig(device="cpu"))
-    for call in (lambda: est.fit(iter([x])),
-                 lambda: est.fit(x, transform="center"),
-                 lambda: est.fit_gram(object())):
-        with pytest.raises(NotImplementedError, match="slice"):
-            call()
+    # the streaming entry points run since the data slice
+    # (tests/test_torch_data.py); its multi-device twin is still a later
+    # slice's, and fit_gram refuses what is not a Gram, as the reference
+    from repro_torch.data import distributed_gram
+    with pytest.raises(NotImplementedError, match="slice"):
+        distributed_gram([x[:75], x[75:]])
+    with pytest.raises(TypeError, match="GramResult-like"):
+        est.fit_gram(object())
     with pytest.raises(ValueError, match="mode"):
         est.fit_path(x, [0.3], mode="fast")
     with pytest.raises(ValueError, match="lam1_grid"):

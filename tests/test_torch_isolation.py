@@ -96,6 +96,49 @@ def test_entry_points_do_not_fall_back_to_the_cpu(no_cuda):
         convert.omega_from_numpy(s)
 
 
+def test_data_and_cli_entry_points_do_not_fall_back_to_the_cpu(
+        no_cuda, tmp_path):
+    from repro_torch import data
+    from repro_torch.launch import gram, solve
+    x = np.random.default_rng(0).standard_normal((40, 6))
+    est = test_.ConcordEstimator(lam1=0.3)
+    for call in (lambda: data.compute_gram(x),
+                 lambda: data.make_scenario("banded", p=8),
+                 lambda: est.fit(iter([x])),
+                 lambda: est.fit(x, transform="rank"),
+                 lambda: test_.fit(x, lam1=0.3, transform="center"),
+                 lambda: solve.main(["--p", "8", "--n", "20"]),
+                 lambda: gram.main(["prep", "--scenario", "hub", "--p", "8",
+                                    "--n", "40", "--out", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_data_slice_runs_with_jax_blocked(tmp_path):
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "from repro_torch.launch import gram, solve\n"
+        f"art = {str(tmp_path / 'art')!r}\n"
+        "gram.main(['prep', '--scenario', 'banded', '--p', '24', '--n',\n"
+        "           '2000', '--chunk-rows', '300', '--out', art],\n"
+        "          device='cpu')\n"
+        "rep = solve.main(['--from-gram', art, '--lam1', '0.3',\n"
+        "                  '--backend', 'reference', '--sparse-matmul',\n"
+        "                  'on', '--sparse-block', '4'], device='cpu')\n"
+        "assert rep.converged\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO / "src")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
 def test_lm_slice_runs_with_jax_blocked():
     code = (
         "import sys\n"
