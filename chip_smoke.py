@@ -43,6 +43,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 window 4096, vocab 32000), random weights from a seeded
                 ``torch.Generator``: ``lm.loss_fn`` on 3 batches of
                 B = 2, L = 8192 through the flash-attention kernel
+  9b. dist      the 1.5D distributed solve (``backend="distributed"``):
+                (a) at world size 1 through NCCL on the main S (p = 16384,
+                Cov) and its X (Obs), held against ``backend="reference"``
+                (equal counts, equal kernel 1 and 2 launches, Omega within
+                1e-10 of max |Omega|), with host syncs per trial and peak
+                memory; ``torchrun --nproc-per-node 1 -m
+                repro_torch.launch.solve --backend distributed`` on a small
+                artifact; (b) P_DIST = 4 processes sharing the card over
+                gloo at p = 4096 on four grids, each held against the
+                single-device solve, each rank's kernels 1 and 2 held
+                against their plain versions on its own shard, the watched
+                wire bytes against ``comm_volume``, the gloo host copies
+  9c. pathmode  the step cost of ``fit_path``'s two modes at p = 16384 with
+                the pilot (``costmodel.CARD_STEP_COST``), and the mode
+                ``fit_path(mode="auto")`` picks on the card
  10. cross      p = 2048: the kernel path against the dense plain path;
                 the batched path through the kernel, on the plain route,
                 and as sequential cold solves; the LM's weights cut to 2
@@ -99,6 +114,15 @@ LANES = len(LAM_PATH)
 GRAM_FAMILY, GRAM_COND, LAM_GRAM = "banded", 10.0, 0.3
 P_GRAM, N_GRAM, P_RANK, N_RANK = 16384, 65536, 4096, 16384
 GRAM_DIR = ROOT / "build" / "gram_phase"
+
+#: the dist phase: (a) the main S at world size 1 through NCCL; (b) P_DIST
+#: ranks sharing the one card over gloo, at DIST_P x DIST_N, on DIST_GRIDS
+#: ((variant, c_x, c_omega)); a small artifact for the torchrun CLI at
+#: DIST_CLI_P x DIST_CLI_N
+P_DIST, DIST_P, DIST_N = 4, 4096, 4096
+DIST_GRIDS = (("cov", 1, 1), ("cov", 2, 2), ("obs", 2, 1), ("obs", 1, 4))
+DIST_CLI_P, DIST_CLI_N = 2048, 8192
+DIST_DIR = ROOT / "build" / "dist_phase"
 
 #: the LM slice: h2o-danube-1.8b at full width, loss on LM_BATCHES batches
 #: of (LM_B, LM_L) tokens; the cross-check cuts it to CROSS_LAYERS layers
@@ -999,6 +1023,487 @@ def cross_check(torch, mods, dev):
 
 
 # ---------------------------------------------------------------------------
+# the dist phase: the 1.5D distributed solve
+# ---------------------------------------------------------------------------
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def count_syncs(torch, fn):
+    """(fn(), device->host syncs it made), from CUDA's sync debug mode."""
+    import warnings
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def dist_solve_config(est_mod, backend: str, variant: str):
+    return est_mod.SolverConfig(backend=backend, variant=variant,
+                                use_pallas=True, sparse_matmul="on",
+                                dtype="float64")
+
+
+def dist_world1(torch, mods, dev, profile: bool) -> None:
+    """(a) The main S (Cov) and its X (Obs) at p = 16384 through
+    ``backend="distributed"`` on a one-rank NCCL group, each held against
+    ``backend="reference"`` on the card; with ``profile``, device time by
+    kernel of one warm distributed fit of each."""
+    from repro_torch.comm import Grid1p5D, comm_for, group
+    graphs, est_mod, penalty, ops = mods
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = graphs.sample_gaussian_torch(
+        graphs.chain_omega(P_MAIN, dtype=np.float64), N_MAIN, gen, dev)
+    s = (x.T @ x) / N_MAIN
+    group.init_process_group(dev, world_size=1, rank=0,
+                             init_method=f"tcp://localhost:{free_port()}")
+    try:
+        for variant, data in (("cov", dict(s=s, n_samples=N_MAIN)),
+                              ("obs", dict(x=x))):
+            runs = {}
+            for backend in ("reference", "distributed"):
+                est = est_mod.ConcordEstimator(
+                    penalty=penalty.PenaltySpec.l1(0.3, 0.05),
+                    config=dist_solve_config(est_mod, backend, variant))
+                fit = est.fit_cov if variant == "cov" else est.fit
+                args = (s,) if variant == "cov" else (x,)
+                kw = dict(n_samples=N_MAIN) if variant == "cov" else {}
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                rep = fit(*args, **kw).report_
+                first = time.perf_counter() - t0
+                launches = dict(ops.LAUNCHES)
+                peak = torch.cuda.max_memory_allocated()
+                t0 = time.perf_counter()
+                warm = fit(*args, **kw).report_
+                wall = time.perf_counter() - t0
+                check((warm.iters, warm.ls_total) == (rep.iters, rep.ls_total),
+                      f"dist {variant} {backend}: a second fit took other "
+                      f"counts")
+                _, syncs = count_syncs(torch, lambda: fit(*args, **kw))
+                runs[backend] = (rep, launches, wall, peak, syncs)
+                if profile and backend == "distributed":
+                    _, pw, busy, rows = _profile(
+                        torch, lambda: fit(*args, **kw))
+                    print(f"profile: distributed {variant} at world size 1 "
+                          f"wall={pw:.3f} s (profiled), device busy "
+                          f"{busy:.3f} s, idle share {1.0 - busy / pw:.3f}")
+                    for secs, cnt, key in rows[:12]:
+                        print(f"  {100 * secs / pw:5.1f}% "
+                              f"{1e3 * secs / rep.ls_total:7.3f} ms/trial "
+                              f"x{cnt:<5d} {key[:90]}")
+                print(f"dist world 1 {variant} {backend}: iters={rep.iters} "
+                      f"trials={rep.ls_total} first call {first:.3f} s, warm "
+                      f"{wall:.3f} s ({1e3 * warm.wall_time_s / rep.ls_total:.1f}"
+                      f" ms/trial) host syncs {syncs} ({syncs / rep.ls_total:.2f}"
+                      f" per trial) peak={peak / 2**30:.1f} GiB launches="
+                      f"{launches} density={rep.block_density:.4f}")
+            (a, la, *_), (b, lb, *_) = runs["reference"], runs["distributed"]
+            scale = float(a.omega.abs().max())
+            err = float((a.omega - b.omega).abs().max())
+            comm = comm_for(Grid1p5D(1, 1, 1), b.omega.device)
+            print(f"dist world 1 {variant}: max |dOmega| {err:.3e} of max "
+                  f"|Omega| {scale:.3e}; {b.backend} on {comm.backend}, "
+                  f"grid {b.n_devices}x({b.c_x},{b.c_omega}); collectives "
+                  f"through {comm.backend} so far {dict(comm.calls)}, host "
+                  f"copies {comm.host_copies}")
+            check(b.backend == "distributed" and comm.backend == "nccl",
+                  f"dist {variant}: not the distributed backend on NCCL")
+            check((a.iters, a.ls_total) == (b.iters, b.ls_total),
+                  f"dist {variant}: counts differ from the reference "
+                  f"backend's")
+            check(err <= 1e-10 * scale, f"dist {variant}: Omega differs "
+                  f"beyond 1e-10 of max |Omega|")
+            check(b.converged and not b.stalled, f"dist {variant}: no "
+                  f"convergence")
+            check(lb["fused_prox_stats"] == b.ls_total > 0
+                  and lb["blocksparse_matmul"] > 0,
+                  f"dist {variant}: kernels 1 and 2 did not run per trial")
+            check(la == lb, f"dist {variant}: launches {lb} differ from the "
+                  f"reference backend's {la}")
+            check(comm.host_copies == 0 and sum(comm.calls.values()) > 0,
+                  f"dist {variant}: no NCCL collective, or a host copy")
+    finally:
+        group.destroy_process_group()
+    del x, s
+    torch.cuda.empty_cache()
+
+
+def dist_cli(torch, mods, dev) -> None:
+    """``torchrun --nproc-per-node 1 -m repro_torch.launch.solve --backend
+    distributed`` on a small artifact this phase writes, against the same
+    CLI at ``--backend reference`` in this process."""
+    import re
+    import os
+    from repro_torch.launch import gram as gram_cli
+    from repro_torch.launch import solve as solve_cli
+    _, _, _, ops = mods
+    art = DIST_DIR / "artifact"
+    gram_cli.main(["prep", "--scenario", "banded", "--p", str(DIST_CLI_P),
+                   "--n", str(DIST_CLI_N), "--out", str(art)])
+    argv = ["--from-gram", str(art), "--lam1", "0.3", "--sparse-matmul",
+            "on"]
+    ops.reset_launches()
+    want = solve_cli.main(argv + ["--backend", "reference"])
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "repro_torch.launch.solve", *argv,
+           "--backend", "distributed"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=300, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    out = proc.stdout.strip().splitlines()
+    line = next((ln for ln in out if ln.startswith("[distributed/")), "")
+    print(f"torchrun CLI (exit {proc.returncode}, {wall:.1f} s with start-"
+          f"up): {line}")
+    check(proc.returncode == 0, f"torchrun CLI failed:\n{proc.stderr[-3000:]}")
+    m = re.search(r"iters=(\d+) ls=(\d+)", line)
+    check(m is not None and (int(m[1]), int(m[2])) == (want.iters,
+                                                       want.ls_total),
+          f"torchrun CLI counts differ from --backend reference's "
+          f"({want.iters}, {want.ls_total})")
+    print(f"launch.solve --backend reference: iters={want.iters} "
+          f"trials={want.ls_total}")
+
+
+def _dist_rank(rank, cfg, out_q):
+    """One of ``cfg["world"]`` ranks sharing ``cfg["device"]`` over gloo:
+    the distributed solves of ``cfg["grids"]`` on the X and S the parent
+    saved, each rank's kernels on its own shard, the wire bytes of one
+    product of each solve."""
+    import datetime
+    import traceback
+    sys.path.insert(0, str(SRC))
+    import torch
+    from repro_torch.comm import Grid1p5D, comm_for, group
+    from repro_torch.comm import matmul1p5d as mm
+    from repro_torch.comm import sparse1p5d as sp
+    from repro_torch.comm.group import set_collective_watcher
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import graphs, matops
+    from repro_torch.core.costmodel import comm_volume
+    from repro_torch.kernels import manifest as kman
+    from repro_torch.kernels import ops, ref
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        world, bs = cfg["world"], cfg["block"]
+        dev = group.init_process_group(
+            cfg["device"], backend="gloo", world_size=world, rank=rank,
+            init_method=f"file://{cfg['init_file']}",
+            timeout=datetime.timedelta(seconds=300))
+        data = torch.load(cfg["data"], map_location=dev)
+        x, s = data["x"], data["s"]
+        n, p = x.shape
+        pol = matops.MatmulPolicy("on", bs, 0.25)
+        out = []
+        for variant, cx, co in cfg["grids"]:
+            grid = Grid1p5D(world, cx, co)
+            comm = comm_for(grid, dev)
+            copies0 = comm.host_copies
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit = dist.fit_cov if variant == "cov" else dist.fit_obs
+            res = fit(s if variant == "cov" else x, 0.3, 0.05, grid=grid,
+                      use_pallas=True, sparse_matmul=pol)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(ops.LAUNCHES)
+            copies = comm.host_copies - copies0
+            want = torch.load(cfg[variant], map_location=dev)
+            err = float((res.omega - want["omega"]).abs().max())
+            scale = float(want["omega"].abs().max())
+            # kernels 1 and 2 on this rank's shard, against plain versions
+            layout = mm.SPEC_XCOL if variant == "cov" else mm.SPEC_OM
+            om = mm.shard(res.omega, comm, layout)
+            if variant == "cov":
+                blk, lo = p // grid.n_x, comm.block_x
+                dm = torch.zeros_like(om)
+                dm[lo * blk:(lo + 1) * blk].diagonal().fill_(1.0)
+                a = om.T.contiguous()
+                b = mm.shard(s, comm, mm.SPEC_XCOL)
+            else:
+                blk, lo = p // grid.n_om, comm.block_om
+                dm = torch.zeros_like(om)
+                dm[:, lo * blk:(lo + 1) * blk].diagonal().fill_(1.0)
+                bx = p // grid.n_x
+                a = om[:, :bx].contiguous()
+                b = mm.shard(x, comm, mm.SPEC_XCOL).T.contiguous()[:bx]
+            gen = torch.Generator(device=dev).manual_seed(rank)
+            z = om + 0.01 * torch.randn(om.shape, generator=gen,
+                                        dtype=om.dtype, device=dev)
+            err1 = compare_prox(torch, kman.entry("fused_prox_stats"), ops,
+                                ref, z, dm, 0.03, None, (bs, bs))
+            mask = matops.block_mask(a, bs)
+            occ = max(1, int((mask > 0).sum()))
+            got = ops.masked_matmul(a, b, mask, block_size=bs, capacity=occ)
+            torch.cuda.synchronize()
+            plain = ref.masked_matmul(a, b, mask, block_size=bs,
+                                      capacity=occ)
+            tol = kman.entry("blocksparse_matmul")["rtol"]["float64"]
+            err2 = float((got - plain).abs().max())
+            if not torch.allclose(got, plain, rtol=tol, atol=tol):
+                raise AssertionError(f"rank {rank} kernel 2 on its shard "
+                                     f"{tuple(a.shape)}: {err2:.3e}")
+            # the wire bytes of one product of this solve's schedule
+            events = []
+            prev = set_collective_watcher(
+                lambda prim, axes, nb: events.append(nb))
+            try:
+                m = matops.block_mask(om, bs)
+                if variant == "cov":
+                    sp.omega_s_local_sparse(om.T, m.T, b, comm,
+                                            canonical="xlike", policy=pol)
+                    vol = comm_volume(p, n, world, cx, co, flavor="omega_s",
+                                      canonical="xlike", masked=True,
+                                      block_size=bs)
+                else:
+                    xt = mm.shard(x, comm, mm.SPEC_XCOL).T
+                    sp.omega_xt_local_sparse(om, m, xt, comm, policy=pol)
+                    vol = comm_volume(p, n, world, cx, co, flavor="omega_xt")
+            finally:
+                set_collective_watcher(prev)
+            out.append(dict(
+                variant=variant, grid=(cx, co), iters=res.iters,
+                trials=res.ls_total, converged=res.converged,
+                stalled=res.stalled, err=err, scale=scale,
+                want=(want["iters"], want["ls_total"]), wall=wall,
+                launches=launches, host_copies=copies, err1=err1,
+                err2=err2, shard=tuple(om.shape), tile=(tuple(a.shape),
+                                                        tuple(b.shape)),
+                occupied=occ, bytes=str(sum(events)), volume=str(vol.total),
+                density=res.block_density))
+        out_q.put((rank, True, out))
+    except BaseException:
+        out_q.put((rank, False, traceback.format_exc()))
+        raise
+    finally:
+        group.destroy_process_group()
+
+
+def dist_problem(torch, graphs, dev):
+    """The (b) problem, drawn alike on every rank: X (DIST_N, DIST_P) and
+    its S, on ``dev``."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = graphs.sample_gaussian_torch(
+        graphs.chain_omega(DIST_P, dtype=np.float64), DIST_N, gen, dev)
+    return x, (x.T @ x) / DIST_N
+
+
+def dist_ranks(torch, mods, dev) -> None:
+    """(b) P_DIST processes on the one card over gloo: each grid's solve
+    against the single-device solve on the card."""
+    import multiprocessing as mp
+    import queue
+    graphs, est_mod, penalty, ops = mods
+    x, s = dist_problem(torch, graphs, dev)
+    cfg = dict(device=str(dev), world=P_DIST, block=BLOCK, grids=DIST_GRIDS,
+               init_file=str(DIST_DIR / "pg"), data=str(DIST_DIR / "xs.pt"))
+    torch.save({"x": x, "s": s}, cfg["data"])
+    for variant in ("cov", "obs"):
+        est = est_mod.ConcordEstimator(
+            penalty=penalty.PenaltySpec.l1(0.3, 0.05),
+            config=dist_solve_config(est_mod, "reference", variant))
+        rep = (est.fit_cov(s, n_samples=DIST_N) if variant == "cov"
+               else est.fit(x)).report_
+        cfg[variant] = str(DIST_DIR / f"ref_{variant}.pt")
+        torch.save({"omega": rep.omega, "iters": rep.iters,
+                    "ls_total": rep.ls_total}, cfg[variant])
+        print(f"dist P={P_DIST} single-device {variant}: iters={rep.iters} "
+              f"trials={rep.ls_total} wall={rep.wall_time_s:.3f} s")
+    del x, s
+    ctx = mp.get_context("spawn")
+    out_q = ctx.Queue()
+    procs = [ctx.Process(target=_dist_rank, args=(r, cfg, out_q))
+             for r in range(P_DIST)]
+    t0 = time.perf_counter()
+    for pr in procs:
+        pr.start()
+    results = {}
+    try:
+        while len(results) < P_DIST:
+            try:
+                rank, ok, val = out_q.get(timeout=600)
+            except queue.Empty:
+                fail("dist ranks: no result within 600 s")
+            check(ok, f"dist rank {rank} failed:\n{val}")
+            results[rank] = val
+    finally:
+        for pr in procs:
+            pr.join(timeout=60)
+            if pr.is_alive():
+                pr.terminate()
+                pr.join(timeout=30)
+    wall = time.perf_counter() - t0
+    check(all(pr.exitcode == 0 for pr in procs),
+          f"dist ranks exit codes {[pr.exitcode for pr in procs]}")
+    print(f"dist P={P_DIST}: {P_DIST} gloo ranks on one card, "
+          f"{len(DIST_GRIDS)} solves in {wall:.1f} s (process start "
+          f"included)")
+    for i, (variant, cx, co) in enumerate(DIST_GRIDS):
+        rows = [results[r][i] for r in range(P_DIST)]
+        r0 = rows[0]
+        print(f"dist P={P_DIST} {variant} (c_x={cx}, c_omega={co}): iters="
+              f"{r0['iters']} trials={r0['trials']} vs single-device "
+              f"{r0['want']}; max |dOmega| {max(r['err'] for r in rows):.3e}"
+              f" (max |Omega| {r0['scale']:.3e}); wall per rank "
+              f"{max(r['wall'] for r in rows):.2f} s; density "
+              f"{r0['density']:.4f}")
+        for r, row in enumerate(rows):
+            print(f"  rank {r}: shard {row['shard']} launches "
+                  f"{row['launches']} host copies {row['host_copies']}; "
+                  f"kernel 1 on its shard out max |d| {row['err1']:.1e}, "
+                  f"kernel 2 {row['tile'][0]}@{row['tile'][1]} at "
+                  f"{row['occupied']} blocks max |d| {row['err2']:.2e}; "
+                  f"one product's wire bytes {row['bytes']} vs comm_volume "
+                  f"{row['volume']}")
+        for row in rows:
+            check((row["iters"], row["trials"]) == tuple(row["want"]),
+                  f"dist {variant} ({cx},{co}): counts differ from the "
+                  f"single-device solve")
+            check(row["converged"] and not row["stalled"],
+                  f"dist {variant} ({cx},{co}): no convergence")
+            check(row["err"] <= 1e-10 * max(1.0, row["scale"]),
+                  f"dist {variant} ({cx},{co}): Omega differs beyond 1e-10")
+            check(row["launches"]["fused_prox_stats"] == row["trials"],
+                  f"dist {variant} ({cx},{co}): kernel 1 launches != trials")
+            check(row["launches"]["blocksparse_matmul"] > 0,
+                  f"dist {variant} ({cx},{co}): kernel 2 never ran")
+            check(row["bytes"] == row["volume"],
+                  f"dist {variant} ({cx},{co}): wire bytes != comm_volume")
+
+
+def dist_kernel_times(torch, ops, ref, dev) -> None:
+    """Kernels 1 and 2 at the shapes this slice gives them, timed alone on
+    the card: kernel 1 on a rank's panel with its off-origin diagonal
+    mask (world size 1: the whole 16384^2 matrix; P = 4: a (4096, 1024)
+    Cov panel), kernel 2 on a ring round's tile (1024, 4096) @
+    (4096, 1024) at ~3% occupied blocks."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    f64 = dict(dtype=torch.float64, device=dev)
+    for (m, n), lo in (((P_MAIN, P_MAIN), 0), ((DIST_P, DIST_P // P_DIST),
+                                               DIST_P // P_DIST)):
+        z = 0.1 * torch.randn((m, n), generator=gen, **f64)
+        dm = torch.zeros_like(z)
+        dm[lo:lo + n].diagonal().fill_(1.0)
+        z[lo:lo + n].diagonal().add_(1.0)
+        gm, gn = -(-m // BLOCK), -(-n // BLOCK)
+        ms = time_ms(torch, lambda: ops.fused_prox_stats(
+            z, dm, 0.03, block=(BLOCK, BLOCK)), 20)
+        plain = time_ms(torch, lambda: ref.fused_prox_stats(
+            z, dm, 0.03, block=(BLOCK, BLOCK)), 3, 1)
+        b, by = bound(3 * m * n * 8 + gm * gn * 5 * 8, 10.0 * m * n,
+                      "float64")
+        print(f"dist kernel 1 at {m}x{n}, explicit diagonal mask at row "
+              f"{lo}: {ms:.3f} ms, plain {plain:.3f} ms, bound {b:.3f} ms "
+              f"({by})")
+        del z, dm
+    m, k = DIST_P // P_DIST, DIST_P
+    keep = torch.rand((m // BLOCK, k // BLOCK), generator=gen,
+                      device=dev) < 0.03
+    mask = keep.to(torch.int8)
+    a = torch.randn((m, k), generator=gen, **f64)
+    a *= keep.repeat_interleave(BLOCK, 0).repeat_interleave(BLOCK, 1)
+    b = torch.randn((k, m), generator=gen, **f64)
+    occ = max(1, int(keep.sum()))
+    ms = time_ms(torch, lambda: ops.masked_matmul(
+        a, b, mask, block_size=BLOCK, capacity=occ), 20)
+    plain = time_ms(torch, lambda: ref.masked_matmul(
+        a, b, mask, block_size=BLOCK, capacity=occ), 3, 1)
+    lib = time_ms(torch, lambda: a @ b, 5, 1)
+    rows_b = int(keep.any(dim=0).sum())
+    bnd, by = bound(occ * BLOCK * BLOCK * 8 + rows_b * BLOCK * m * 8
+                    + mask.numel() + m * m * 8,
+                    2.0 * occ * BLOCK * BLOCK * m, "float64")
+    print(f"dist kernel 2 at ({m}, {k}) @ ({k}, {m}), {occ} of "
+          f"{mask.numel()} blocks: {ms:.3f} ms, plain {plain:.3f} ms, dense "
+          f"torch.matmul {lib:.3f} ms, bound {bnd:.3f} ms ({by})")
+
+
+def dist_path(torch, mods, dev, profile: bool) -> None:
+    from repro_torch.kernels import ref
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    try:
+        dist_world1(torch, mods, dev, profile)
+        dist_cli(torch, mods, dev)
+        dist_ranks(torch, mods, dev)
+        dist_kernel_times(torch, mods[3], ref, dev)
+    finally:
+        shutil.rmtree(DIST_DIR, ignore_errors=True)
+
+
+def path_mode_costs(torch, mods, state) -> None:
+    """The step cost of ``fit_path``'s modes at p = 16384 on the main S:
+    a sequential trial (cold points, kernel 2 with sparse on; dense with
+    it off, one point) against a lane trial of the batched engine with
+    the pilot warm start; then the mode ``fit_path(mode="auto")`` picks
+    on the card with the committed ``CARD_STEP_COST``."""
+    from repro_torch.core.costmodel import CARD_STEP_COST, choose_path_mode
+    _, est_mod, penalty, ops = mods
+    s = state["s"]
+    pen = penalty.PenaltySpec.l1(0.3, 0.05)
+
+    def est(**kw):
+        return est_mod.ConcordEstimator(penalty=pen, config=batched_config(
+            est_mod, **kw))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    seq, w_seq = timed(lambda: est(sparse_matmul="on").fit_path(
+        s=s, lam1_grid=LAM_PATH, n_samples=N_MAIN, warm_start=False,
+        score_bic=False))
+    dense, w_dense = timed(lambda: est(sparse_matmul="off").fit_cov(
+        s, n_samples=N_MAIN).report_)
+    bat, w_bat = timed(lambda: est(batch_warm_start="pilot").fit_path(
+        s=s, lam1_grid=LAM_PATH, n_samples=N_MAIN, mode="batched",
+        score_bic=False))
+    lane = w_bat / bat.batch_stats.lane_steps
+    t_seq, t_dense = w_seq / seq.total_ls, w_dense / dense.ls_total
+    print(f"pathmode: sequential cold, sparse on: {seq.total_ls} trials "
+          f"{w_seq:.3f} s ({1e3 * t_seq:.2f} ms/trial); sequential dense "
+          f"(lam1 0.3): {dense.ls_total} trials {w_dense:.3f} s "
+          f"({1e3 * t_dense:.2f} ms/trial); batched with the pilot: "
+          f"{bat.batch_stats.lane_steps} lane trials in "
+          f"{len(bat.batch_stats.capacities)} flat steps {w_bat:.3f} s "
+          f"({1e3 * lane:.2f} ms/lane trial)")
+    print(f"pathmode: measured step cost blocksparse {lane / t_seq:.3f}, "
+          f"dense {lane / t_dense:.3f}; committed CARD_STEP_COST "
+          f"{CARD_STEP_COST}")
+    grid = sorted(LAM_PATH, reverse=True)
+    auto = est(sparse_matmul="on", batch_warm_start="pilot")
+    picked = auto._resolve_path_mode(
+        "auto", grid, est_mod.Problem.from_data(s=s, n_samples=N_MAIN,
+                                                device=s.device))
+    cpu = choose_path_mode(grid, gemm="xla", warm_start="pilot")
+    print(f"pathmode: fit_path(mode='auto') on the card picks {picked!r} "
+          f"(the reference's CPU-host class would pick {cpu!r}); "
+          f"sequential {w_seq:.2f} s vs batched {w_bat:.2f} s")
+    check(picked == "sequential", "fit_path(mode='auto') on the card did "
+          "not pick sequential with sparse on")
+    for r in (*seq, *bat):
+        check(r.converged and not r.stalled, f"pathmode lam1={r.lam1} "
+              f"failed")
+
+
+# ---------------------------------------------------------------------------
 # phase 7: timing
 # ---------------------------------------------------------------------------
 
@@ -1191,8 +1696,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="all",
                     help="comma list of kernels,main,batched,adaptive,obs,"
-                         "gram,lm,cross,timing (default: all; device and "
-                         "build always run)")
+                         "gram,lm,dist,pathmode,cross,timing (default: "
+                         "all; device and build always run; pathmode "
+                         "needs main)")
     ap.add_argument("--profile", action="store_true",
                     help="after the phases, profile one warm main-path fit "
                          "and one batched path (needs the main phase) and "
@@ -1255,6 +1761,14 @@ def main(argv=None) -> int:
         phase("lm")
         lm_state = lm_path(torch, dev, ops)
         launches["flash_attention"] = lm_state["launches"]
+        torch.cuda.empty_cache()
+    if run("dist"):
+        phase("dist")
+        dist_path(torch, mods, dev, args.profile)
+        torch.cuda.empty_cache()
+    if run("pathmode") and state is not None:
+        phase("pathmode")
+        path_mode_costs(torch, mods, state)
         torch.cuda.empty_cache()
     if run("cross"):
         phase("cross")

@@ -3,8 +3,9 @@
 A copy of the parts of ``repro.core.costmodel`` that the port decides
 with: the variant tuner behind ``variant="auto"``, the dense <->
 block-sparse crossover behind ``sparse_matmul="auto"``, the streaming
-Gram's chunk-size guidance (``gram_chunk_rows``), and the batched path
-engine's difficulty model and ``fit_path(mode="auto")`` decision.
+Gram's chunk-size guidance (``gram_chunk_rows``), the batched path
+engine's difficulty model and ``fit_path(mode="auto")`` decision, and
+the exact communication volume of the 1.5D products (``comm_volume``).
 
     T = F*gamma + L*alpha + W*beta
 
@@ -17,12 +18,15 @@ port's decisions.  The path-scheduling constants (trials per iteration,
 the iteration power law, the gemm step-cost and pilot factors) are the
 reference's, copied unchanged so both packages schedule a grid alike;
 they are ratios the reference measured for itself on a CPU host, not
-measurements of the port.
+measurements of the port.  The one exception is :data:`CARD_STEP_COST`,
+the step costs measured on the H100, with which ``fit_path(mode="auto")``
+decides on a CUDA device.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from fractions import Fraction
 from typing import Iterable
 
 
@@ -118,6 +122,14 @@ def obs_costs(shape: ProblemShape, P: int, c_x: int, c_omega: int,
     cb.t_latency = L * m.alpha
     cb.t_bandwidth = W * m.beta
     return cb
+
+
+def cov_is_cheaper(shape: ProblemShape) -> bool:
+    """Lemma 3.1 crossover: Cov wins iff d/p < (n/(p-n)) * (1/t)."""
+    p, n, d, t = shape.p, shape.n, shape.d, shape.t
+    if n >= p:
+        return True
+    return (d / p) < (n / (p - n)) / t
 
 
 def _divisors(P: int) -> list[int]:
@@ -294,6 +306,19 @@ def predict_path_iters(lam1, *, model: PathIterModel | None = None,
 #: ~14.5 ms through XLA)
 GEMM_STEP_COST = {"xla": 1.0, "host": 0.70}
 
+#: the same ratio measured on the H100 (NVIDIA H100 80GB HBM3, 700 W;
+#: ``chip_smoke.py`` phase ``pathmode``, p = 16384, PERF.md section 5:
+#: 168.3 ms per batched lane trial with the pilot, 22.34 ms per
+#: sequential trial through kernel 2, 174.8 ms per dense one):
+#: one lane trial of the batched engine over one sequential trial, by
+#: the sequential product route.  The batched engine multiplies every
+#: lane densely (the reference's design), while a sequential trial with
+#: a block-sparse policy routes W = Omega S through kernel 2 once the
+#: iterate is sparse ("blocksparse"); without one it is dense too
+#: ("dense").  ``fit_path(mode="auto")`` on a CUDA device prices the
+#: modes with this class, never with the CPU-host ratios above.
+CARD_STEP_COST = {"dense": 0.963, "blocksparse": 7.533}
+
 #: measured flat-step reduction of warm_start="pilot" on the non-pilot
 #: lanes (cold 202 -> pilot-warmed 141 total ls trials on the
 #: BENCH_path_batch 8-point grid; the pilot lane itself runs cold)
@@ -329,7 +354,8 @@ def predict_batched_speedup(lam1_grid, *, tau_schedule: str = "restart",
                             chunk: int = 32, max_iters: int = 500,
                             gemm: str = "xla",
                             warm_start: str | None = None,
-                            model: PathIterModel | None = None) -> float:
+                            model: PathIterModel | None = None,
+                            step_cost: float | None = None) -> float:
     """Predicted wall-clock ratio sequential/compact-batched for a lam1
     path on throughput-limited hardware (one device, cost proportional to
     lane-steps executed).
@@ -341,7 +367,9 @@ def predict_batched_speedup(lam1_grid, *, tau_schedule: str = "restart",
     (``warm_start="pilot"``, :data:`PILOT_WARM_FACTOR`).  The sequential
     baseline is the shipped default: cold XLA solves, plain sum of
     per-lane steps.  >1 means batching is predicted to win; the
-    estimator's ``fit_path(mode="auto")`` thresholds this."""
+    estimator's ``fit_path(mode="auto")`` thresholds this.  ``step_cost``
+    (a :data:`CARD_STEP_COST` entry) replaces the ``gemm`` class's
+    factor."""
     import numpy as np
 
     trials = TAU_TRIALS_PER_ITER.get(tau_schedule,
@@ -349,7 +377,8 @@ def predict_batched_speedup(lam1_grid, *, tau_schedule: str = "restart",
     iters = predict_path_iters(lam1_grid, model=model, max_iters=max_iters)
     steps = np.maximum(np.rint(iters * trials), 1.0).astype(np.int64)
     seq = int(steps.sum())
-    step_cost = GEMM_STEP_COST.get(gemm, 1.0)
+    if step_cost is None:
+        step_cost = GEMM_STEP_COST.get(gemm, 1.0)
     if warm_start == "pilot" and steps.size > 1:
         # the median-difficulty pilot runs cold and alone; every other
         # lane starts from its solution and converges in fewer steps
@@ -366,7 +395,8 @@ def predict_batched_speedup(lam1_grid, *, tau_schedule: str = "restart",
 def choose_path_mode(lam1_grid, *, tau_schedule: str = "restart",
                      chunk: int = 32, max_iters: int = 500,
                      gemm: str = "xla", warm_start: str | None = None,
-                     threshold: float = 1.05) -> str:
+                     threshold: float = 1.05,
+                     step_cost: float | None = None) -> str:
     """The ``fit_path(mode="auto")`` decision: "batched" when the
     compact engine's predicted speedup clears ``threshold`` (a short or
     uniformly-hard grid has too little compaction headroom to pay the
@@ -378,5 +408,174 @@ def choose_path_mode(lam1_grid, *, tau_schedule: str = "restart",
         return "sequential"
     speedup = predict_batched_speedup(
         grid, tau_schedule=tau_schedule, chunk=chunk, max_iters=max_iters,
-        gemm=gemm, warm_start=warm_start)
+        gemm=gemm, warm_start=warm_start, step_cost=step_cost)
     return "batched" if speedup >= threshold else "sequential"
+
+
+# ---------------------------------------------------------------------------
+# exact communication-volume accounting
+# ---------------------------------------------------------------------------
+# Where Lemmas 3.4/3.5 above model asymptotic words moved as float cost
+# terms, this layer is EXACT: per-processor bytes-on-wire along the
+# critical path of one invocation, as `fractions.Fraction`s, so the bytes
+# that ``comm.group``'s wrappers announce while a product runs can be
+# held equal to these formulas with == instead of a tolerance.
+#
+# Conventions (one per collective primitive, extent E = product of the
+# bound grid-axis sizes):
+#   ppermute      payload bytes once — ZERO if the permutation table is
+#                 the identity (no pair moves)
+#   psum/pmin/..  bandwidth-optimal all-reduce: 2 (E-1)/E * payload
+#   all_gather    ring gather: (E-1) * payload(input shard)
+#   all_to_all / reduce_scatter / psum_scatter: (E-1)/E * payload
+# E <= 1 is always zero bytes.
+
+#: wire width of the dtypes the schedules ship
+DTYPE_BYTES = {
+    "float64": 8, "float32": 4, "bfloat16": 2, "float16": 2,
+    "int64": 8, "int32": 4, "int16": 2, "int8": 1, "uint8": 1,
+    "bool": 1,
+}
+
+_REDUCE_PRIMS = frozenset({"psum", "pmin", "pmax", "psum_invariant"})
+_GATHER_PRIMS = frozenset({"all_gather", "all_gather_invariant"})
+_SCATTER_PRIMS = frozenset({"all_to_all", "reduce_scatter", "psum_scatter"})
+
+
+def collective_wire_bytes(prim: str, payload_bytes, extent,
+                          *, moves: bool = True) -> Fraction:
+    """Per-processor critical-path bytes of ONE collective invocation."""
+    b = Fraction(payload_bytes)
+    if extent is None or extent <= 1:
+        return Fraction(0)
+    if prim in ("ppermute", "pbroadcast"):
+        return b if moves else Fraction(0)
+    if prim in _REDUCE_PRIMS:
+        return Fraction(2 * (extent - 1), extent) * b
+    if prim in _GATHER_PRIMS:
+        return (extent - 1) * b
+    if prim in _SCATTER_PRIMS:
+        return Fraction(extent - 1, extent) * b
+    raise ValueError(f"no wire-byte convention for primitive {prim!r}")
+
+
+@dataclass(frozen=True)
+class CommVolume:
+    """Exact per-processor bytes of one 1.5D product invocation."""
+    flavor: str
+    rounds: int              # ring length (Alg. 4 rotation rounds)
+    ring_bytes: Fraction     # stagger + per-round shift ppermutes
+    finish_bytes: Fraction   # team all_gather (gather) / psum (reduce)
+
+    @property
+    def total(self) -> Fraction:
+        return self.ring_bytes + self.finish_bytes
+
+
+def _perm_moves(perm) -> int:
+    """1 if the ppermute actually puts bytes on a wire, else 0."""
+    return int(any(s != d for s, d in perm))
+
+
+def comm_volume(p: int, n: int, n_devices: int, c_x: int, c_omega: int, *,
+                flavor: str, dtype: str = "float64",
+                canonical: str | None = None, masked: bool = False,
+                block_size: int | None = None) -> CommVolume:
+    """Exact bytes-on-wire of one 1.5D matmul (paper Algorithm 4).
+
+    ``flavor`` is one of the four ring products of ``comm.matmul1p5d``:
+
+      * ``"xtx"``      gather flavor, S = X^T X        (Cov line 2)
+      * ``"omega_s"``  gather flavor, W = Omega S      (Cov; ``canonical``
+                       "omegalike" standalone / "xlike" inside the driver;
+                       ``masked`` adds the rotating int8 occupancy mask)
+      * ``"y_x"``      gather flavor, Z = Y X          (Obs line 4)
+      * ``"omega_xt"`` reduce flavor, Y = Omega X^T    (Obs lines 2/10;
+                       ``masked`` adds NOTHING — the mask is fixed and
+                       sliced locally, it never rides the ring)
+
+    Stagger/shift movement is decided by constructing the very same
+    permutation tables the schedule uses (``comm.grid.Grid1p5D``) and
+    asking whether any pair moves: the closed-form identity conditions
+    are full of corner cases (e.g. the xtx stagger IS the identity at
+    c_x = P even though c_x > 1).
+    """
+    from ..comm.grid import Grid1p5D  # lazy: core stays importable alone
+
+    g = Grid1p5D(n_devices, c_x, c_omega)
+    w = DTYPE_BYTES[dtype]
+    n_x, n_om = g.n_x, g.n_om
+    blk_x, blk_om = p // n_x, p // n_om
+    if masked and flavor in ("xtx", "y_x"):
+        raise ValueError(f"flavor {flavor!r} has no masked variant")
+    if masked and not block_size:
+        raise ValueError("masked volume needs the mask block_size")
+
+    if flavor == "omega_xt":
+        rounds = n_x // c_omega
+        ring_moves = (_perm_moves(g.stagger_perm("xlike", "omega", n_x))
+                      + rounds * _perm_moves(g.shift_perm("omega", c_omega)))
+        ring = Fraction(ring_moves * blk_x * n * w)
+        finish = collective_wire_bytes("psum", blk_om * n * w, c_omega)
+        return CommVolume(flavor, rounds, ring, finish)
+
+    # gather flavors: (ring ordering, fixed-operand replication c_F,
+    # rotating block count n_R, canonical layout, rotating payload,
+    # gathered tile (rows, cols), team-layer extent)
+    if flavor == "xtx":
+        ring_name, c_f, n_r, canon = "x", c_x, n_x, "xlike"
+        payload, tile, team = blk_x * n, (blk_x, blk_x), c_x
+    elif flavor == "omega_s":
+        canon = canonical or "omegalike"
+        n_r = n_om if canon == "omegalike" else n_x
+        blk_r = p // n_r
+        ring_name, c_f = "x", c_x
+        payload, tile, team = blk_r * p, (blk_r, blk_x), c_x
+    elif flavor == "y_x":
+        ring_name, c_f, n_r, canon = "omega", c_omega, n_x, "xlike"
+        payload, tile, team = n * blk_x, (blk_om, blk_x), c_omega
+    else:
+        raise ValueError(f"unknown flavor {flavor!r}")
+
+    rounds = max(1, n_r // c_f)
+    moves = (_perm_moves(g.stagger_perm(canon, ring_name, n_r))
+             + rounds * _perm_moves(g.shift_perm(ring_name, c_f)))
+    ring = Fraction(moves * payload * w)
+    if masked:   # the occupancy mask rides the same stagger + shifts
+        rows, cols = (p // n_r) // block_size, p // block_size
+        ring += Fraction(moves * rows * cols * DTYPE_BYTES["int8"])
+    finish = collective_wire_bytes(
+        "all_gather", rounds * tile[0] * tile[1] * w, team)
+    return CommVolume(flavor, rounds, ring, finish)
+
+
+def ring_allreduce_int8_volume(size: int, extent: int) -> Fraction:
+    """Exact bytes of the reference's ``comm.collectives.ring_allreduce_int8``
+    (not ported yet) on a float64 input of ``size`` elements over a ring
+    of ``extent`` devices.
+
+    (extent-1) reduce-scatter rounds each ship one int8 chunk plus its
+    f64 scale scalar; the finishing all_gather ships the REDUCED chunk at
+    full f64 — int8 compression buys its 8x only on the reduce-scatter
+    phase, which is the phase that repeats.
+    """
+    if extent <= 1:
+        return Fraction(0)
+    pad = (-size) % extent
+    chunk = (size + pad) // extent
+    rs = (extent - 1) * (chunk * DTYPE_BYTES["int8"] + DTYPE_BYTES["float64"])
+    ag = collective_wire_bytes(
+        "all_gather", chunk * DTYPE_BYTES["float64"], extent)
+    return Fraction(rs) + ag
+
+
+def compressed_psum_volume(size: int, extent: int, *,
+                           method: str = "bf16") -> Fraction:
+    """Exact bytes of the reference's ``comm.collectives.compressed_psum``
+    (not ported yet): one bandwidth-optimal all-reduce of ``size``
+    elements at the method's wire width (bf16 = 2 bytes; the int8 method
+    psums the DEQUANTIZED float32 values — its 1-byte wire only exists in
+    the explicit ring)."""
+    wire = {"bf16": DTYPE_BYTES["bfloat16"], "int8": DTYPE_BYTES["float32"],
+            "none": DTYPE_BYTES["float64"]}[method]
+    return collective_wire_bytes("psum", size * wire, extent)

@@ -13,7 +13,7 @@ memory, plus the synthetic worlds to exercise it:
               nonparanormal transform — bounded two-pass)
   gram        ``GramAccumulator`` (chunked, f64 on the device, Welford
               one-pass stats), ``compute_gram`` front door
-              (``distributed_gram`` belongs to the distributed slice)
+              and ``distributed_gram``, its multi-process twin
   scenarios   5 graph families as (Ω_true, seeded chunked sampler)
               pairs with exact controlled condition number
 

@@ -30,14 +30,15 @@ Mechanics:
     an (n, w) float64 panel on the device, a (n·p·8)-byte on-disk scratch
     memmap, then one streaming Gram pass over the scratch.
 
-:func:`distributed_gram`, the multi-device twin, belongs to the
-distributed slice (ROADMAP A8) and raises here.
+:func:`distributed_gram`, the multi-process twin, folds each rank's own
+rows and reduces the raw moments over the process group in one
+all-reduce (``comm.group``).
 """
 from __future__ import annotations
 
 import os
 import tempfile
-from typing import NamedTuple, Sequence
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -369,13 +370,59 @@ def compute_gram(data, *, transform: str | Transform = "none",
     return acc.finalize()
 
 
-def distributed_gram(per_host_data: Sequence, *,
-                     transform: str | Transform = "none",
+def distributed_gram(data, *, transform: str | Transform = "none",
                      chunk_rows: int | None = None,
-                     panel: int = DEFAULT_PANEL) -> GramResult:
-    """Multi-device streaming Gram (one all-reduce of the per-device
-    moments): arrives with the distributed slice (ROADMAP A8)."""
-    raise NotImplementedError(
-        "distributed_gram arrives with the distributed slice (ROADMAP A8) "
-        "of the PyTorch port; reduce one stream with compute_gram, or "
-        "merge per-stream GramAccumulators with merge()")
+                     panel: int = DEFAULT_PANEL, device=None) -> GramResult:
+    """Multi-process streaming Gram, called on every rank of the process
+    group: ``data`` is THIS rank's chunk input (anything
+    ``shards.as_source`` takes).  Each rank folds its own rows into a
+    partial accumulator on ``device`` (no communication), then ONE
+    all-reduce of the raw-moment images (sum XᵀX, sum x,
+    sum (x-μ)² + nμ², n, chunks) yields the global moments — O(p²) per
+    rank, independent of n — and every rank returns the same Gram.  A
+    two-integer all-reduce first checks that every rank saw the same p.
+    At world size 1 it is the one rank's :func:`compute_gram`.
+
+    The rank transform is order-based across ALL ranks' rows and cannot
+    be reduced this way; it raises, as in the reference."""
+    from ..comm.grid import AXES, Grid1p5D
+    from ..comm.group import comm_for, world_size
+
+    dev = resolve_device(device)
+    tf = get_transform(transform)
+    if tf.two_pass:
+        raise ValueError(
+            f"transform {tf.name!r} is order-based across all hosts' rows "
+            f"and cannot be psum-reduced; rank-transform the consolidated "
+            f"stream via rank_gram instead")
+    source = as_source(data, chunk_rows=chunk_rows)
+    acc = GramAccumulator(source.p, transform=tf, panel=panel, device=dev)
+    for chunk in source.chunks():
+        acc.update(chunk)
+    if acc.n == 0:
+        raise ValueError("this rank's source holds no rows")
+    if world_size() == 1:
+        return acc.finalize()
+    comm = comm_for(Grid1p5D(world_size(), 1, 1), dev)
+    p = acc.p
+    seen = comm.pmin(torch.tensor([p, -p], device=dev), AXES).tolist()
+    if seen != [p, -p]:
+        raise ValueError(f"ranks saw inconsistent column counts "
+                         f"{seen[0]}..{-seen[1]}")
+    # raw-moment images: Welford state -> all-reducible sums (exact in
+    # f64; the one lossy step is this final merge, as in any reduction)
+    n_l = float(acc.n)
+    raw = comm.psum(torch.cat([
+        acc._xx.reshape(-1), acc._mean * n_l,
+        acc._m2 + acc._mean ** 2 * n_l,
+        torch.tensor([n_l, acc.n_chunks], dtype=torch.float64,
+                     device=dev)]), AXES)
+    n, n_chunks = (int(round(v)) for v in raw[-2:].tolist())
+    xx = raw[:p * p].reshape(p, p)
+    mean = raw[p * p:p * p + p] / n
+    var = torch.clamp_min(raw[p * p + p:p * p + 2 * p] / n - mean ** 2, 0.0)
+    st = StreamStats(n=n, mean=mean, var=var, xx=xx)
+    s = _symmetrize_(tf.finalize_gram(st).to(torch.float64))
+    return GramResult(
+        s=s, n=n, p=p, transform=tf.name, mean=mean, var=var,
+        n_chunks=n_chunks, source_dtype=acc.source_dtype or "float64")

@@ -23,10 +23,3 @@ def resolve_device(device=None) -> torch.device:
             "repro_torch runs on a CUDA card by default and none is "
             "available; pass device='cpu' to run on the host explicitly")
     return dev
-
-
-def device_count(device: torch.device) -> int:
-    """Devices of ``device``'s type visible to this process."""
-    if device.type == "cuda":
-        return torch.cuda.device_count()
-    return 1

@@ -13,7 +13,10 @@
     path = est.fit_path(X, lam1_grid=[0.3, 0.2, 0.15], mode="batched")
     batch = fit_batch(s=S_stack, lam1=[0.2, 0.3], device="cpu")
 
-Runs on the CUDA card unless ``SolverConfig(device="cpu")``.
+Runs on the CUDA card unless ``SolverConfig(device="cpu")``.  Under a
+process group (``repro_torch.comm.init_process_group``, or torchrun),
+``backend="distributed"`` and ``"auto"`` solve on the 1.5D grid of its
+ranks: every rank calls the same fits with the same data.
 """
 from ..core.penalty import (  # noqa: F401
     PenaltySpec,
@@ -27,6 +30,7 @@ from .backends import (  # noqa: F401
     Problem,
     auto_backend,
     available_backends,
+    distributed_backend,
     get_backend,
     reference_backend,
     register_backend,
@@ -55,6 +59,7 @@ __all__ = [
     "available_backends",
     "batch_reports",
     "batched_path_reports",
+    "distributed_backend",
     "fit",
     "fit_batch",
     "fit_path",

@@ -4,13 +4,16 @@ Port of ``repro.estimator.backends``.  A backend is a callable
 
     backend(problem, penalty, config, omega0=None) -> FitReport
 
-registered under a name.  This slice ships two:
+registered under a name.  Three ship:
 
-  ``reference``  the single-device solve (``core.prox.solve_reference``)
-                 on the configured device;
-  ``auto``       consults the cost model (``core.costmodel.tune``) for the
-                 variant, then runs ``reference`` on one device.  More
-                 than one device needs the distributed slice and raises.
+  ``reference``    the single-device solve (``core.prox.solve_reference``)
+                   on the configured device;
+  ``distributed``  the 1.5D solve (``core.distributed``) over the process
+                   group's ranks, called on every rank (one process
+                   outside a group: the reference's one-device mesh);
+  ``auto``         consults the cost model for the variant and the
+                   replication factors, then runs ``reference`` at world
+                   size 1 and ``distributed`` above it.
 
 The problem's data, the iterates and every reduction stay on the device;
 only scalars come to the host.
@@ -23,10 +26,15 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..comm.grid import Grid1p5D
+from ..comm.group import world_size
+from ..core import distributed as dist
 from ..core import matops, prox
-from ..core.costmodel import ProblemShape, crossover_density, tune
+from ..core.costmodel import (H100, ProblemShape, crossover_density,
+                              enumerate_configs, tune)
+from ..core.distributed import estimate_density
 from ..core.penalty import PenaltySpec, as_penalty, penalty_value
-from ..device import device_count, resolve_device
+from ..device import resolve_device
 from .config import SolverConfig
 from .report import FitReport
 
@@ -145,12 +153,6 @@ def _cast(arr: torch.Tensor, config: SolverConfig) -> torch.Tensor:
     return arr.to(getattr(torch, config.dtype))
 
 
-def estimate_density(p: int, n: int, lam1: float) -> float:
-    """Crude prior for d (avg nnz/row of the iterates) used by the tuner
-    before any fit exists (``repro.core.distributed.estimate_density``)."""
-    return float(min(p, max(2.0, 0.05 * p / max(lam1, 1e-2))))
-
-
 def observed_nnz_per_row(omega: torch.Tensor) -> float:
     """Average nonzeros per row of an iterate (the cost model's ``d``)."""
     om = torch.as_tensor(omega)
@@ -193,6 +195,19 @@ def _variant_candidates(problem: Problem, config: SolverConfig) -> tuple:
     return ("cov", "obs") if problem.x is not None else ("cov",)
 
 
+def _check_grid(variant: str, c_x: int, c_omega: int,
+                n_devices: int) -> tuple[str, int, int]:
+    if variant == "cov" and c_x != c_omega:
+        raise ValueError(
+            f"Cov keeps Omega in the X-like layout, so c_x must equal "
+            f"c_omega (got c_x={c_x}, c_omega={c_omega})")
+    if c_x * c_omega > n_devices or n_devices % (c_x * c_omega):
+        raise ValueError(
+            f"replication c_x*c_omega={c_x * c_omega} must divide "
+            f"n_devices={n_devices} (got c_x={c_x}, c_omega={c_omega})")
+    return variant, c_x, c_omega
+
+
 def _resolve_variant_only(problem: Problem, lam1: float,
                           config: SolverConfig, omega0=None) -> str:
     """Variant for the single-device engine (replication moot)."""
@@ -203,8 +218,47 @@ def _resolve_variant_only(problem: Problem, lam1: float,
     return best.variant
 
 
-def _report(res: prox.ProxResult, *, lam1, lam2, wall, backend, variant,
-            config: SolverConfig, penalty: PenaltySpec) -> FitReport:
+def _resolve_variant(problem: Problem, lam1: float, config: SolverConfig,
+                     n_devices: int, omega0=None) -> tuple[str, int, int]:
+    """Pin down (variant, c_x, c_omega) for a distributed solve.
+
+    User-pinned values are validated (raising on an infeasible grid, never
+    silently overridden); anything left open is chosen by the cost model
+    (the port's H100 constants), enumerating only combinations consistent
+    with the pins and with the layout constraints (Cov needs c_x ==
+    c_omega; the product must divide the process count)."""
+    if config.variant != "auto" and config.c_x and config.c_omega:
+        return _check_grid(config.variant, config.c_x, config.c_omega,
+                           n_devices)
+    variants = _variant_candidates(problem, config)
+    if n_devices == 1:
+        if config.variant != "auto":
+            return _check_grid(config.variant, config.c_x or 1,
+                               config.c_omega or 1, n_devices)
+        best = tune(_problem_shape(problem, lam1, omega0), 1, H100,
+                    variants)
+        return _check_grid(best.variant, config.c_x or 1,
+                           config.c_omega or 1, n_devices)
+    cands = [
+        cb for cb in enumerate_configs(_problem_shape(problem, lam1, omega0),
+                                       n_devices, H100, variants)
+        if (config.c_x is None or cb.c_x == config.c_x)
+        and (config.c_omega is None or cb.c_omega == config.c_omega)
+        and n_devices % (cb.c_x * cb.c_omega) == 0
+        and (cb.variant != "cov" or cb.c_x == cb.c_omega)
+    ]
+    if not cands:
+        raise ValueError(
+            f"no feasible (variant, c_x, c_omega) for n_devices={n_devices} "
+            f"with variant={config.variant!r} c_x={config.c_x} "
+            f"c_omega={config.c_omega}")
+    best = min(cands, key=lambda cb: cb.total)
+    return _check_grid(best.variant, best.c_x, best.c_omega, n_devices)
+
+
+def _report(res, *, lam1, lam2, wall, backend, variant,
+            config: SolverConfig, penalty: PenaltySpec, c_x: int = 1,
+            c_omega: int = 1, n_devices: int = 1) -> FitReport:
     """The report of one solve.  The nnz and block-occupancy scan of the
     estimate runs on its device; only scalars come back."""
     om = res.omega
@@ -225,6 +279,7 @@ def _report(res: prox.ProxResult, *, lam1, lam2, wall, backend, variant,
         penalty=penalty.label(),
         wall_time_s=float(wall),
         backend=backend, variant=variant,
+        c_x=int(c_x), c_omega=int(c_omega), n_devices=int(n_devices),
         nnz_per_row=max(1.0, nnz / p),
         block_density=n_occ / occ.numel(),
         sparse_matmul=config.sparse_matmul,
@@ -250,41 +305,73 @@ def reference_backend(problem: Problem, penalty, config: SolverConfig,
         data = _cast(problem.x, config)
     policy = _matmul_policy(
         config, problem.p, problem.p if variant == "cov" else problem.n)
-    if data.device.type == "cuda":
-        # a float32 solve keeps full float32 products (no TF32)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.cuda.synchronize(data.device)
-    t0 = time.perf_counter()
-    res = prox.solve_reference(
+    res, wall = _timed(lambda: prox.solve_reference(
         data, penalty=spec, omega0=omega0, variant=variant,
         tol=config.tol, max_iters=config.max_iters, max_ls=config.max_ls,
         warm_start_tau=config.warm_start_tau,
         tau_schedule=config.tau_schedule, sparse_matmul=policy,
-        use_kernels=config.use_pallas)
-    if data.device.type == "cuda":
-        torch.cuda.synchronize(data.device)
-    wall = time.perf_counter() - t0
+        use_kernels=config.use_pallas), data.device)
     return _report(res, lam1=lam1, lam2=float(spec.lam2), wall=wall,
                    backend="reference", variant=variant, config=config,
                    penalty=spec)
 
 
+def _timed(fn, device: torch.device):
+    """``fn()`` and its host wall, ending in a device sync on the card."""
+    if device.type == "cuda":
+        # a float32 solve keeps full float32 products (no TF32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    res = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return res, time.perf_counter() - t0
+
+
+def distributed_backend(problem: Problem, penalty, config: SolverConfig,
+                        omega0=None) -> FitReport:
+    """1.5D solve over the process group's ranks (``config.n_devices``,
+    by default the world size), called on every rank; each rank gets the
+    whole estimate."""
+    spec = as_penalty(penalty)
+    lam1 = float(spec.lam1)
+    n_dev = config.n_devices or world_size()
+    variant, c_x, c_omega = _resolve_variant(problem, lam1, config, n_dev,
+                                             omega0)
+    grid = Grid1p5D(n_dev, c_x, c_omega)
+    if variant != "cov" and problem.x is None:
+        raise ValueError("Obs variant requires the data matrix x")
+    policy = _matmul_policy(
+        config, problem.p, problem.p if variant == "cov" else problem.n)
+    data = _cast(problem.cov() if variant == "cov" else problem.x, config)
+    fit = dist.fit_cov if variant == "cov" else dist.fit_obs
+    res, wall = _timed(lambda: fit(
+        data, penalty=spec, grid=grid, tol=config.tol,
+        max_iters=config.max_iters, max_ls=config.max_ls,
+        warm_start_tau=config.warm_start_tau, use_pallas=config.use_pallas,
+        omega0=omega0, sparse_matmul=policy), data.device)
+    return _report(res, lam1=lam1, lam2=float(spec.lam2), wall=wall,
+                   backend="distributed", variant=res.variant,
+                   config=config, penalty=spec, c_x=grid.c_x,
+                   c_omega=grid.c_omega, n_devices=n_dev)
+
+
 def auto_backend(problem: Problem, penalty, config: SolverConfig,
                  omega0=None) -> FitReport:
-    """Cost-model dispatch: resolve the variant with ``costmodel.tune``,
-    then run the reference engine on one device."""
+    """Cost-model dispatch (the paper's decision procedure): resolve the
+    variant and replication with the cost model, then run the reference
+    engine at world size 1 or the distributed engine above it."""
     spec = as_penalty(penalty)
-    dev = problem.s.device if problem.s is not None else problem.x.device
-    n_dev = config.n_devices or device_count(dev)
-    if n_dev > 1:
-        raise NotImplementedError(
-            f"distributed backend: later slice (ROADMAP A8); auto saw "
-            f"{n_dev} devices — pass n_devices=1 to run on one")
-    variant = _resolve_variant_only(problem, float(spec.lam1), config,
-                                    omega0)
-    return reference_backend(problem, spec, config.replace(variant=variant),
-                             omega0)
+    n_dev = config.n_devices or world_size()
+    variant, c_x, c_omega = _resolve_variant(
+        problem, float(spec.lam1), config, n_dev, omega0)
+    pinned = config.replace(variant=variant, c_x=c_x, c_omega=c_omega)
+    if n_dev == 1:
+        return reference_backend(problem, spec, pinned, omega0)
+    return distributed_backend(problem, spec, pinned, omega0)
 
 
 register_backend("reference", reference_backend)
+register_backend("distributed", distributed_backend)
 register_backend("auto", auto_backend)

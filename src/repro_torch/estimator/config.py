@@ -1,11 +1,11 @@
 """Solver configuration for the ``repro_torch.estimator`` facade.
 
 Port of ``repro.estimator.config``: the same frozen, validated
-``SolverConfig`` with the same field names, plus ``device``.  Fields that
-belong to later slices of the port are validated as in the reference and
-raise ``NotImplementedError`` naming their slice when set away from their
-defaults, so a config carried over from the JAX package never runs a
-different solve than it asks for.
+``SolverConfig`` with the same field names, plus ``device``.  ``obs``,
+which belongs to a later slice of the port, is validated as in the
+reference and raises ``NotImplementedError`` naming its slice when set
+away from its default, so a config carried over from the JAX package
+never runs a different solve than it asks for.
 
 ``use_pallas`` keeps its name as a knob; in the port it means "use the
 hand-written CUDA kernels" (the fused prox and its occupancy harvest, and
@@ -37,8 +37,6 @@ OBS_MODES = ("off", "summary", "trace")
 
 #: fields of later slices: name -> (default, the slice that brings them)
 LATER_SLICE_FIELDS = {
-    "c_x": (None, "the distributed 1.5D slice (ROADMAP A8)"),
-    "c_omega": (None, "the distributed 1.5D slice (ROADMAP A8)"),
     "obs": ("off", "the observability slice (ROADMAP A9)"),
 }
 
@@ -48,8 +46,11 @@ class SolverConfig:
     """Every knob of a CONCORD solve, in one place (see
     ``repro.estimator.config.SolverConfig`` for each field).
 
-    device   where the solve runs: ``None`` (the CUDA card; raises if
-             there is none), ``"cuda"``, ``"cuda:1"`` or ``"cpu"``.
+    device     where the solve runs: ``None`` (the CUDA card; raises if
+               there is none), ``"cuda"``, ``"cuda:1"`` or ``"cpu"``; under
+               a process group, this rank's device.
+    n_devices  processes of the 1.5D grid; ``None`` is the process
+               group's world size (1 outside one).
     """
     backend: str = "auto"
     variant: str = "auto"
@@ -144,19 +145,12 @@ class SolverConfig:
         if self.device is not None and not isinstance(self.device, str):
             raise ValueError(f"device must be a string or None, got "
                              f"{self.device!r}")
-        # the reference allows c_x = c_omega = 1 explicitly: that is the
-        # single-device grid this slice runs
         for name, (default, later) in LATER_SLICE_FIELDS.items():
             v = getattr(self, name)
-            if v != default and not (name in ("c_x", "c_omega") and v == 1):
+            if v != default:
                 raise NotImplementedError(
                     f"SolverConfig.{name}={v!r} arrives with {later} of "
-                    f"the PyTorch port; this slice runs single-device "
-                    f"solves")
-        if self.backend == "distributed":
-            raise NotImplementedError(
-                "backend='distributed' arrives with the distributed 1.5D "
-                "slice (ROADMAP A8) of the PyTorch port")
+                    f"the PyTorch port")
 
     def replace(self, **changes) -> "SolverConfig":
         """Functional update (frozen dataclass)."""

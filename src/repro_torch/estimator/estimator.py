@@ -17,6 +17,12 @@ Inputs may be numpy arrays or tensors; they move to ``config.device``
 (the CUDA card unless ``device="cpu"``).  Chunk streams, and arrays with
 ``transform=`` set, are reduced to their float64 Gram on that device by
 ``data.compute_gram`` and solved through the Cov variant.
+
+``fit_path(mode="auto")`` prices the batched and sequential modes with
+the step cost of the device the path runs on: the reference's CPU-host
+ratios on the CPU, the H100's measured ratios on a CUDA device, where a
+sequential trial through the block-sparse kernel is several times
+cheaper than a dense batched lane trial (``_resolve_path_mode``).
 """
 from __future__ import annotations
 
@@ -26,13 +32,13 @@ from typing import Iterable
 
 import numpy as np
 
-from ..core.costmodel import choose_path_mode
+from ..core.costmodel import CARD_STEP_COST, choose_path_mode
 from ..core.penalty import PenaltySpec, adaptive_weights, as_penalty
 from ..core.prox import resolve_tau_schedule
 from ..data.gram import compute_gram
 from ..data.shards import is_streaming_input
 from ..device import resolve_device
-from .backends import Problem, get_backend
+from .backends import Problem, _matmul_policy, get_backend
 from .batch import batched_path_reports, fit_batch as _fit_batch
 from .config import SolverConfig
 from .report import FitReport, PathResult, pseudo_bic
@@ -163,24 +169,43 @@ class ConcordEstimator:
 
     # -- regularization path --------------------------------------------
 
-    def _resolve_path_mode(self, mode: str, grid: list[float]) -> str:
+    def _resolve_path_mode(self, mode: str, grid: list[float],
+                           problem: Problem) -> str:
         """``fit_path(mode="auto")``: the cost model's batched-vs-
         sequential predictor with the engine knobs this config would run
-        (tau schedule, chunk, product route, pilot warm start)."""
+        (tau schedule, chunk, pilot warm start) and the step cost of the
+        device it runs on.
+
+        The rule: on the CPU a batched lane step costs what the batch
+        layer's product route costs on the reference's host
+        (``GEMM_STEP_COST``: ``"host"`` for ``batch_gemm="auto"``).  On a
+        CUDA device it costs what the H100 measured
+        (``CARD_STEP_COST``), by the route a SEQUENTIAL trial takes: with
+        a block-sparse policy (``sparse_matmul`` on, or auto with a
+        positive crossover) the sequential product is kernel 2 while
+        the batched engine stays dense, so a batched lane trial costs
+        several sequential trials ("blocksparse"); without one both are
+        dense ("dense")."""
         if mode != "auto":
             return mode
         gemm = self.config.batch_gemm
+        dev = resolve_device(self.config.device)
         if gemm == "auto":
             # the batch layer's resolution, to the step-cost class
-            cpu = resolve_device(self.config.device).type == "cpu"
-            gemm = "host" if cpu else "xla"
+            gemm = "host" if dev.type == "cpu" else "xla"
+        step_cost = None
+        if dev.type == "cuda":
+            m = problem.n if self.config.variant == "obs" else problem.p
+            sparse = _matmul_policy(self.config, problem.p, m) is not None
+            step_cost = CARD_STEP_COST["blocksparse" if sparse else "dense"]
         return choose_path_mode(
             grid,
             tau_schedule=resolve_tau_schedule(
                 self.config.tau_schedule, self.config.warm_start_tau),
             chunk=self.config.batch_chunk,
             max_iters=self.config.max_iters,
-            gemm=gemm, warm_start=self.config.batch_warm_start)
+            gemm=gemm, warm_start=self.config.batch_warm_start,
+            step_cost=step_cost)
 
     def _run_path(self, problem: Problem, grid: list[float],
                   spec: PenaltySpec, mode: str, warm_start: bool,
@@ -238,7 +263,6 @@ class ConcordEstimator:
             raise ValueError(f"mode must be 'sequential', 'batched' or "
                              f"'auto', got {mode!r}")
         grid = _validate_grid(lam1_grid)
-        mode = self._resolve_path_mode(mode, grid)
         if x is not None and (is_streaming_input(x)
                               or transform is not None):
             gram = self._gram(x, transform, chunk_rows)
@@ -251,6 +275,7 @@ class ConcordEstimator:
         # form the covariance once for the whole path
         if problem.s is None and (score_bic or self.config.variant != "obs"):
             problem = problem._replace(s=problem.cov())
+        mode = self._resolve_path_mode(mode, grid, problem)
         grid = sorted(grid, reverse=True)
         warm = warm_start and mode == "sequential"
         spec1 = self.penalty

@@ -6,13 +6,19 @@
       --p 200 --n 400 --lam1 0.15 --backend auto
 
 The cost model (paper Lemmas 3.1-3.5, the port's H100 constants) prints
-its choice of variant and replication factors for P devices; P is the
-visible card count capped at 1, because this slice solves on one device.
-``--backend distributed`` and replication factors above 1 belong to the
-distributed slice (ROADMAP A8) and raise.  ``--path`` runs a lam1 path
-and reports the BIC-best point; ``--path-mode batched`` runs the grid in
-lock step; ``--penalty`` swaps the prox operator; ``--sparse-matmul on``
-routes the Omega-side product through the block-sparse kernel.
+its choice of variant and replication factors for P processes: the
+process group's world size, 1 outside one.  Started under torchrun the
+CLI joins the group itself (NCCL on the card), one rank per process, and
+``--backend distributed`` (or ``auto`` at P > 1) solves on the 1.5D grid
+of the ranks, with ``--cx`` / ``--comega`` pinning the replication:
+
+  torchrun --nproc-per-node 1 -m repro_torch.launch.solve \
+      --from-gram build/gram_art --lam1 0.3 --backend distributed
+
+Only rank 0 prints.  ``--path`` runs a lam1 path and reports the
+BIC-best point; ``--path-mode batched`` runs the grid in lock step;
+``--penalty`` swaps the prox operator; ``--sparse-matmul on`` routes the
+Omega-side product through the block-sparse kernel.
 
 ``--from-gram DIR`` solves straight from a ``launch.gram prep`` artifact
 (S.npy + metadata, written by either package) — the raw observations
@@ -21,19 +27,29 @@ never enter this process:
   PYTHONPATH=src python -m repro_torch.launch.solve --from-gram \\
       results/gram_sf --lam1 0.15
 
-``main(argv, device="cpu")`` solves on the host.
+``main(argv, device="cpu")`` solves on the host, inside a gloo group
+when the caller has joined one.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
+import torch.distributed as dist
 
+from ..comm import group
 from ..core import graphs
 from ..core.costmodel import H100, ProblemShape, tune
 from ..device import resolve_device
 from ..estimator import ConcordEstimator, SolverConfig
 from ..estimator.backends import NNZ_TOL, estimate_density
+
+
+def _log(*args) -> None:
+    """Print on rank 0 only."""
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(*args)
 
 
 def _avg_degree(omega: torch.Tensor) -> float:
@@ -66,9 +82,9 @@ def _fit(est, args, **data):
     else:
         path = est.fit_path(data["x"], lam1_grid=grid, mode=args.path_mode,
                             adaptive=args.adaptive)
-    print(path.summary())
+    _log(path.summary())
     chosen = path.best_bic()
-    print(f"BIC-best lam1={chosen.lam1:g} (bic={chosen.bic:.1f})")
+    _log(f"BIC-best lam1={chosen.lam1:g} (bic={chosen.bic:.1f})")
     return chosen
 
 
@@ -78,11 +94,11 @@ def _solve_from_gram(args, config):
 
     gram = load_gram(args.from_gram, device=config.device)
     est = ConcordEstimator(lam1=args.lam1, lam2=args.lam2, config=config)
-    print(f"[gram] {gram.transform} Gram: n={gram.n} p={gram.p} "
-          f"({gram.n_chunks} chunks, source dtype {gram.source_dtype})")
+    _log(f"[gram] {gram.transform} Gram: n={gram.n} p={gram.p} "
+         f"({gram.n_chunks} chunks, source dtype {gram.source_dtype})")
     rep = _fit(est, args, gram=gram)
-    print(rep.summary())
-    print(f"avg degree {_avg_degree(rep.omega):.2f}")
+    _log(rep.summary())
+    _log(f"avg degree {_avg_degree(rep.omega):.2f}")
     return rep
 
 
@@ -139,32 +155,40 @@ def main(argv=None, *, device=None):
 
     if args.adaptive and not args.path:
         ap.error("--adaptive needs --path (it refits a lam1 grid)")
-    dev = resolve_device(device)
-    # a distributed backend or replication factor raises here, naming its
-    # slice, before any data is made or read
+    resolve_device(device)
     config = _config(args, device, "cov" if args.from_gram else args.variant)
+    joined = "WORLD_SIZE" in os.environ and not dist.is_initialized()
+    if joined:
+        group.init_process_group(device)
+    try:
+        return _main(args, config)
+    finally:
+        if joined:
+            group.destroy_process_group()
 
+
+def _main(args, config):
     if args.from_gram:
         return _solve_from_gram(args, config)
 
     prob = graphs.make_problem(args.graph, args.p, args.n, seed=args.seed)
-    P = min(torch.cuda.device_count(), 1) if dev.type == "cuda" else 1
+    P = group.world_size()
     shape = ProblemShape(p=args.p, n=args.n,
                          d=estimate_density(args.p, args.n, args.lam1))
     best = tune(shape, P, H100)
-    print(f"[costmodel] P={P}: best variant={best.variant} "
-          f"c_x={best.c_x} c_omega={best.c_omega} "
-          f"T_model={best.total:.3e}s "
-          f"(compute {best.t_compute:.2e} / latency {best.t_latency:.2e} "
-          f"/ bandwidth {best.t_bandwidth:.2e})")
+    _log(f"[costmodel] P={P}: best variant={best.variant} "
+         f"c_x={best.c_x} c_omega={best.c_omega} "
+         f"T_model={best.total:.3e}s "
+         f"(compute {best.t_compute:.2e} / latency {best.t_latency:.2e} "
+         f"/ bandwidth {best.t_bandwidth:.2e})")
 
     est = ConcordEstimator(lam1=args.lam1, lam2=args.lam2, config=config)
     rep = _fit(est, args, x=prob.x)
     est_omega = rep.omega.cpu().numpy()
     ppv, fdr = graphs.ppv_fdr(est_omega, prob.omega0)
-    print(rep.summary())
-    print(f"PPV {ppv:.3f}  FDR {fdr:.3f}  "
-          f"avg degree {graphs.avg_degree(est_omega):.2f}")
+    _log(rep.summary())
+    _log(f"PPV {ppv:.3f}  FDR {fdr:.3f}  "
+         f"avg degree {graphs.avg_degree(est_omega):.2f}")
     return rep
 
 

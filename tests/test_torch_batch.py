@@ -335,6 +335,37 @@ def test_cost_model_path_decision_matches(kw):
         tcost.predict_batched_speedup(grid)
 
 
+@pytest.mark.parametrize("sparse", ["on", "off"])
+def test_path_mode_on_the_card_uses_the_card_step_cost(sparse, monkeypatch):
+    """``fit_path(mode="auto")`` with the pilot on chip_smoke's grid: the
+    CPU classes pick what the reference picks; on a CUDA device the H100
+    class picks "sequential" when the sequential trial goes through the
+    block-sparse kernel (and prices a dense one like a batched lane)."""
+    import importlib
+    grid = [0.3, 0.2, 0.15]
+    for gemm in ("xla", "host"):
+        assert tcost.choose_path_mode(grid, gemm=gemm, warm_start="pilot") \
+            == jcost.choose_path_mode(grid, gemm=gemm, warm_start="pilot")
+    # the fault: the reference's class predicts batched 1.23x faster
+    assert tcost.predict_batched_speedup(grid, warm_start="pilot") == \
+        jcost.predict_batched_speedup(grid, warm_start="pilot") > 1.2
+    s = np.eye(16) + 0.1
+    cfg = test_.SolverConfig(sparse_matmul=sparse, sparse_block=4,
+                             batch_warm_start="pilot", device="cpu")
+    est = test_.ConcordEstimator(lam1=0.3, config=cfg)
+    problem = test_.Problem.from_data(s=s, n_samples=50, device="cpu")
+    assert est._resolve_path_mode("auto", grid, problem) == \
+        jcost.choose_path_mode(grid, gemm="host", warm_start="pilot")
+    mod = importlib.import_module("repro_torch.estimator.estimator")
+    monkeypatch.setattr(mod, "resolve_device",
+                        lambda device=None: torch.device("cuda"))
+    route = "blocksparse" if sparse == "on" else "dense"
+    want = tcost.choose_path_mode(grid, warm_start="pilot",
+                                  step_cost=tcost.CARD_STEP_COST[route])
+    assert est._resolve_path_mode("auto", grid, problem) == want
+    assert want == ("sequential" if sparse == "on" else "batched")
+
+
 def test_adaptive_weights_match(x64):
     rng = np.random.default_rng(2)
     om = rng.standard_normal((12, 12)) * (rng.random((12, 12)) < 0.3)

@@ -533,8 +533,17 @@ def test_gram_chunk_rows_default_machine_and_refusals():
 
 
 def test_distributed_gram_raises_naming_its_slice(x_data):
-    with pytest.raises(NotImplementedError, match="A8"):
-        tdata.distributed_gram([x_data[:450], x_data[450:]])
+    """Outside a process group the multi-process Gram is the one rank's
+    streamed Gram; the rank transform raises, as in the reference (the
+    4-rank reduction: tests/test_torch_distributed.py)."""
+    parts = [x_data[:450], x_data[450:]]
+    got = tdata.distributed_gram(parts, transform="standardize",
+                                 device="cpu")
+    want = tdata.compute_gram(x_data, transform="standardize", device="cpu")
+    np.testing.assert_allclose(got.s.numpy(), want.s.numpy(), rtol=0,
+                               atol=1e-12)
+    with pytest.raises(ValueError, match="order-based"):
+        tdata.distributed_gram(parts, transform="rank", device="cpu")
 
 
 def test_data_entry_points_need_a_card_unless_cpu(monkeypatch, x_data):

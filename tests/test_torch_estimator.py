@@ -189,9 +189,15 @@ def test_config_defaults_and_validation_match():
     ("backend", "distributed"),
 ])
 def test_later_slice_knobs_raise(field, value):
-    jest.SolverConfig(**{field: value})          # valid in the reference
-    with pytest.raises(NotImplementedError, match="slice"):
-        test_.SolverConfig(**{field: value})
+    """A knob of a later slice (obs) raises naming it; the distributed
+    slice's knobs have landed and are taken as the reference takes them."""
+    want = jest.SolverConfig(**{field: value})   # valid in the reference
+    if field == "obs":
+        with pytest.raises(NotImplementedError, match="slice"):
+            test_.SolverConfig(**{field: value})
+    else:
+        got = test_.SolverConfig(**{field: value})
+        assert getattr(got, field) == getattr(want, field) == value
 
 
 @pytest.mark.parametrize("field,value", [
@@ -214,11 +220,15 @@ def test_later_slice_entry_points_raise(data):
     est = test_.ConcordEstimator(
         lam1=0.3, config=test_.SolverConfig(device="cpu"))
     # the streaming entry points run since the data slice
-    # (tests/test_torch_data.py); its multi-device twin is still a later
-    # slice's, and fit_gram refuses what is not a Gram, as the reference
-    from repro_torch.data import distributed_gram
-    with pytest.raises(NotImplementedError, match="slice"):
-        distributed_gram([x[:75], x[75:]])
+    # (tests/test_torch_data.py); their multi-process twin runs since the
+    # distributed slice (one process here: the plain Gram of its rows),
+    # and fit_gram refuses what is not a Gram, as the reference
+    from repro_torch.data import compute_gram, distributed_gram
+    got = distributed_gram([x[:75], x[75:]], device="cpu")
+    want = compute_gram(x, device="cpu")
+    assert (got.n, got.p, got.n_chunks) == (150, x.shape[1], 2)
+    np.testing.assert_allclose(got.s.numpy(), want.s.numpy(), rtol=0,
+                               atol=1e-12)
     with pytest.raises(TypeError, match="GramResult-like"):
         est.fit_gram(object())
     with pytest.raises(ValueError, match="mode"):
@@ -228,10 +238,12 @@ def test_later_slice_entry_points_raise(data):
 
 
 def test_auto_backend_refuses_several_devices(data):
+    """Two devices without a process group of two: the distributed
+    backend that auto picks has no ranks to run on, and says so."""
     _, s = data
     est = test_.ConcordEstimator(lam1=0.3, config=test_.SolverConfig(
         backend="auto", n_devices=2, device="cpu"))
-    with pytest.raises(NotImplementedError, match="distributed backend"):
+    with pytest.raises(ValueError, match="process group"):
         est.fit_cov(s, n_samples=150)
 
 
@@ -257,9 +269,11 @@ def test_estimator_lam_setters_and_registry(data):
     est.lam1 = 0.2
     est.lam2 = 0.01
     assert (est.penalty.lam1, est.penalty.lam2) == (0.2, 0.01)
-    assert test_.available_backends() == ["auto", "reference"]
+    assert test_.available_backends() == ["auto", "distributed",
+                                          "reference"]
+    assert test_.get_backend("distributed") is test_.distributed_backend
     with pytest.raises(ValueError, match="unknown backend"):
-        test_.get_backend("distributed")
+        test_.get_backend("nccl")
     with pytest.raises(ValueError, match="already registered"):
         test_.register_backend("reference", test_.reference_backend)
     with pytest.raises(TypeError):

@@ -164,6 +164,62 @@ def test_lm_slice_runs_with_jax_blocked():
     assert proc.stdout.strip().endswith("ok")
 
 
+def test_distributed_solve_runs_with_jax_blocked(tmp_path):
+    """Two processes joined the way torchrun joins them (WORLD_SIZE,
+    RANK, env://) run ``launch.solve --backend distributed`` with JAX and
+    the JAX package blocked, and agree."""
+    import socket
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from repro_torch.launch import gram, solve\n"
+        f"art = {str(tmp_path / 'art')!r}\n"
+        "rep = solve.main(['--from-gram', art, '--lam1', '0.3',\n"
+        "                  '--backend', 'distributed', '--sparse-matmul',\n"
+        "                  'on', '--sparse-block', '4'], device='cpu')\n"
+        "assert rep.converged and rep.n_devices == 2, rep\n"
+        "assert not torch.distributed.is_initialized()\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok', rep.iters, rep.ls_total, float(rep.omega.sum()))\n")
+    from repro_torch.launch import gram
+    gram.main(["prep", "--scenario", "banded", "--p", "24", "--n", "2000",
+               "--out", str(tmp_path / "art")], device="cpu")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, PYTHONPATH=str(REPO / "src"), WORLD_SIZE="2",
+                   RANK=str(rank), LOCAL_RANK=str(rank),
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    outs = [pr.communicate(timeout=300) for pr in procs]
+    for pr, (out, err) in zip(procs, outs):
+        assert pr.returncode == 0, err[-3000:]
+    lines = [out.strip().splitlines()[-1] for out, _ in outs]
+    assert lines[0].startswith("ok") and lines[0] == lines[1]
+
+
+def test_init_process_group_does_not_pick_gloo_on_its_own(no_cuda):
+    """No device and no card: the CUDA default raises, as every entry
+    point does; gloo is chosen only by asking for the CPU."""
+    import torch.distributed as dist
+    from repro_torch.comm import group
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        group.init_process_group(world_size=1, rank=0,
+                                 init_method="tcp://localhost:1")
+    with pytest.raises(ValueError, match="NCCL"):
+        group.init_process_group("cpu", backend="nccl", world_size=1,
+                                 rank=0, init_method="tcp://localhost:1")
+    assert not dist.is_initialized()
+
+
 def test_lm_entry_points_do_not_fall_back_to_the_cpu(no_cuda):
     from repro_torch import configs
     from repro_torch.models import transformer

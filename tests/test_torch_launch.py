@@ -3,7 +3,8 @@
 float64: ``prep`` artifacts cross between the packages in both
 directions (S within 1e-10, the same metadata keys, the same Omega
 within 1e-10 at ``--backend reference``), the synthetic solve path, and
-the refusals (the distributed backend, no card)."""
+the distributed backend at world size 1 and the refusals (an
+infeasible grid, no card)."""
 import json
 import os
 import subprocess
@@ -161,9 +162,28 @@ def test_synthetic_solve_runs_the_port_facade(capsys):
 
 @pytest.mark.parametrize("argv", [["--backend", "distributed"],
                                   ["--cx", "2"], ["--comega", "2"]])
-def test_distributed_choices_raise_naming_their_slice(argv):
-    with pytest.raises(NotImplementedError, match="A8"):
-        _solve("port", *argv)
+def test_distributed_choices_raise_naming_their_slice(argv, x64,
+                                                     tmp_path):
+    """At world size 1 ``--backend distributed`` solves on the
+    one-process grid, as the reference does on one device (from an f64
+    Gram artifact: f32 counts are never compared across packages); a
+    replication factor above 1 is the reference's infeasible-grid error,
+    word for word."""
+    art = tmp_path / "art"
+    _prep("port", art, *SCENARIO)
+    argv = [*argv, "--from-gram", str(art), "--lam1", "0.2",
+            "--max-iters", "150"]
+    try:
+        want = _solve("reference", *argv)
+    except ValueError as exc:
+        with pytest.raises(ValueError) as got:
+            _solve("port", *argv)
+        assert str(got.value) == str(exc)
+        return
+    rep = _solve("port", *argv)
+    _assert_same_fit(want, rep)
+    assert (rep.backend, rep.n_devices, rep.c_x, rep.c_omega) == \
+        (want.backend, want.n_devices, want.c_x, want.c_omega)
 
 
 def test_cli_entry_points_need_a_card_unless_cpu(monkeypatch, tmp_path):
