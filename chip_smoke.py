@@ -55,7 +55,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 single-device solve, each rank's kernels 1 and 2 held
                 against their plain versions on its own shard, the watched
                 wire bytes against ``comm_volume``, the gloo host copies
-  9c. pathmode  the step cost of ``fit_path``'s two modes at p = 16384 with
+  9c. telemetry observability on the main cell: ``fit_cov`` warm at obs
+                off / summary / trace (Omega bit-identical, equal counts and
+                kernel 1 / 2 launches; walls and overheads; the span tree
+                and the ``repro_solve_*`` counters), a 3-point traced
+                ``fit_path`` exported as a Chrome trace and read back by
+                ``python -m repro_torch.obs.cli print`` / ``export``; the
+                dense distributed solve at obs trace, reconciled row by row
+                against ``comm_volume``: world size 1 through NCCL (Cov on
+                S, Obs on X, n = 8192), P_DIST gloo ranks at p = 2048 on
+                Cov (4,2,2) and Obs (4,1,2), and ``torchrun
+                --nproc-per-node 1 -m repro_torch.obs.cli reconcile``
+  9d. serve     ``launch.serve --workload concord --requests 16 --batch 4
+                --p 4096 --n 1200 --obs summary`` (a multi-subject queue,
+                one resting-state run of 1200 frames per subject on a
+                4096-region parcellation): 16 reports in request order, 4
+                groups of (4, 1200, 4096), max_gap < 5e-3, the three latency
+                histograms counting 16; req/s, latency p50 / p99, peak
+  9e. pathmode  the step cost of ``fit_path``'s two modes at p = 16384 with
                 the pilot (``costmodel.CARD_STEP_COST``), and the mode
                 ``fit_path(mode="auto")`` picks on the card
  10. cross      p = 2048: the kernel path against the dense plain path;
@@ -73,9 +90,9 @@ at every manifest config (f32, bf16) and at the LM path's shape (B 2,
 Hq 32, Hkv 8, L 8192, D 80, causal, window 4096, bf16).
 
 ``--profile`` adds a torch.profiler pass over one warm main-path fit, one
-batched path, one prep's streaming pass at the gram phase's size and one
-``loss_fn`` at the lm shape (device time by kernel, the card's idle
-share); ``--phases`` runs a subset while iterating (e.g. ``--phases
+batched path, one prep's streaming pass at the gram phase's size, one
+``loss_fn`` at the lm shape and one serve group against its requests one
+by one (device time by kernel, the card's idle share); ``--phases`` runs a subset while iterating (e.g. ``--phases
 kernels,lm`` or ``--phases gram``).
 
 The second-to-last line is the ``kernels`` JSON object; the last line is
@@ -86,10 +103,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import shutil
 import subprocess
 import sys
 import time
+from fractions import Fraction
 from pathlib import Path
 
 import numpy as np
@@ -123,6 +142,21 @@ P_DIST, DIST_P, DIST_N = 4, 4096, 4096
 DIST_GRIDS = (("cov", 1, 1), ("cov", 2, 2), ("obs", 2, 1), ("obs", 1, 4))
 DIST_CLI_P, DIST_CLI_N = 2048, 8192
 DIST_DIR = ROOT / "build" / "dist_phase"
+
+#: the telemetry phase: the main cell's fit at every obs level, a traced
+#: path exported to TELE_DIR; the dense distributed reconciliation at
+#: world size 1 (NCCL) on the main S and X, and on P_DIST gloo ranks at
+#: TELE_P x TELE_N on TELE_GRIDS
+TELE_P, TELE_N = 2048, 4096
+TELE_GRIDS = (("cov", 2, 2), ("obs", 1, 2))
+TELE_DIR = ROOT / "build" / "telemetry_phase"
+
+#: the serve phase: a multi-subject queue, one resting-state run per
+#: subject at 1200 frames (HCP's) on a 4096-region parcellation
+SERVE_REQUESTS, SERVE_BATCH, SERVE_P, SERVE_N = 16, 4, 4096, 1200
+SERVE_ARGV = ["--workload", "concord", "--requests", str(SERVE_REQUESTS),
+              "--batch", str(SERVE_BATCH), "--p", str(SERVE_P), "--n",
+              str(SERVE_N), "--obs", "summary"]
 
 #: the LM slice: h2o-danube-1.8b at full width, loss on LM_BATCHES batches
 #: of (LM_B, LM_L) tokens; the cross-check cuts it to CROSS_LAYERS layers
@@ -586,6 +620,13 @@ def support_stats(torch, est, truth, tol=1e-8):
     return ppv, 1.0 - ppv
 
 
+def main_cell_config(est_mod, **kw):
+    """The main cell's solver: Cov, f64, kernels 1 and 2."""
+    return est_mod.SolverConfig(backend="reference", variant="cov",
+                                use_pallas=True, sparse_matmul="on",
+                                dtype="float64", **kw)
+
+
 def main_path(torch, mods, dev) -> dict:
     graphs, est_mod, penalty, ops = mods
     omega0 = graphs.chain_omega(P_MAIN, dtype=np.float64)
@@ -598,11 +639,8 @@ def main_path(torch, mods, dev) -> dict:
     print(f"sampled X ({N_MAIN}x{P_MAIN}) and S on the card in "
           f"{time.perf_counter() - t0:.1f} s")
     truth = torch.as_tensor(omega0, device=dev)
-    cfg = est_mod.SolverConfig(backend="reference", variant="cov",
-                               use_pallas=True, sparse_matmul="on",
-                               dtype="float64")
     est = est_mod.ConcordEstimator(penalty=penalty.PenaltySpec.l1(0.3, 0.05),
-                                   config=cfg)
+                                   config=main_cell_config(est_mod))
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -1145,7 +1183,6 @@ def dist_cli(torch, mods, dev) -> None:
     distributed`` on a small artifact this phase writes, against the same
     CLI at ``--backend reference`` in this process."""
     import re
-    import os
     from repro_torch.launch import gram as gram_cli
     from repro_torch.launch import solve as solve_cli
     _, _, _, ops = mods
@@ -1293,20 +1330,51 @@ def _dist_rank(rank, cfg, out_q):
         group.destroy_process_group()
 
 
-def dist_problem(torch, graphs, dev):
-    """The (b) problem, drawn alike on every rank: X (DIST_N, DIST_P) and
-    its S, on ``dev``."""
+def dist_problem(torch, graphs, dev, p: int = DIST_P, n: int = DIST_N):
+    """The (b) problem, drawn alike on every rank: X (n, p) of the chain
+    graph and its S, on ``dev``."""
     gen = torch.Generator(device=dev).manual_seed(5)
     x = graphs.sample_gaussian_torch(
-        graphs.chain_omega(DIST_P, dtype=np.float64), DIST_N, gen, dev)
-    return x, (x.T @ x) / DIST_N
+        graphs.chain_omega(p, dtype=np.float64), n, gen, dev)
+    return x, (x.T @ x) / n
+
+
+def spawn_ranks(target, cfg: dict, what: str) -> dict:
+    """``target(rank, cfg, out_q)`` in ``cfg["world"]`` spawned processes
+    sharing the card; their results by rank.  A rank that fails, or
+    none that answers within 600 s, fails the phase; every process is
+    joined (or terminated) before this returns."""
+    import multiprocessing as mp
+    import queue
+    ctx = mp.get_context("spawn")
+    out_q = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(r, cfg, out_q))
+             for r in range(cfg["world"])]
+    for pr in procs:
+        pr.start()
+    results = {}
+    try:
+        while len(results) < len(procs):
+            try:
+                rank, ok, val = out_q.get(timeout=600)
+            except queue.Empty:
+                fail(f"{what} ranks: no result within 600 s")
+            check(ok, f"{what} rank {rank} failed:\n{val}")
+            results[rank] = val
+    finally:
+        for pr in procs:
+            pr.join(timeout=60)
+            if pr.is_alive():
+                pr.terminate()
+                pr.join(timeout=30)
+    check(all(pr.exitcode == 0 for pr in procs),
+          f"{what} ranks exit codes {[pr.exitcode for pr in procs]}")
+    return results
 
 
 def dist_ranks(torch, mods, dev) -> None:
     """(b) P_DIST processes on the one card over gloo: each grid's solve
     against the single-device solve on the card."""
-    import multiprocessing as mp
-    import queue
     graphs, est_mod, penalty, ops = mods
     x, s = dist_problem(torch, graphs, dev)
     cfg = dict(device=str(dev), world=P_DIST, block=BLOCK, grids=DIST_GRIDS,
@@ -1324,31 +1392,9 @@ def dist_ranks(torch, mods, dev) -> None:
         print(f"dist P={P_DIST} single-device {variant}: iters={rep.iters} "
               f"trials={rep.ls_total} wall={rep.wall_time_s:.3f} s")
     del x, s
-    ctx = mp.get_context("spawn")
-    out_q = ctx.Queue()
-    procs = [ctx.Process(target=_dist_rank, args=(r, cfg, out_q))
-             for r in range(P_DIST)]
     t0 = time.perf_counter()
-    for pr in procs:
-        pr.start()
-    results = {}
-    try:
-        while len(results) < P_DIST:
-            try:
-                rank, ok, val = out_q.get(timeout=600)
-            except queue.Empty:
-                fail("dist ranks: no result within 600 s")
-            check(ok, f"dist rank {rank} failed:\n{val}")
-            results[rank] = val
-    finally:
-        for pr in procs:
-            pr.join(timeout=60)
-            if pr.is_alive():
-                pr.terminate()
-                pr.join(timeout=30)
+    results = spawn_ranks(_dist_rank, cfg, "dist")
     wall = time.perf_counter() - t0
-    check(all(pr.exitcode == 0 for pr in procs),
-          f"dist ranks exit codes {[pr.exitcode for pr in procs]}")
     print(f"dist P={P_DIST}: {P_DIST} gloo ranks on one card, "
           f"{len(DIST_GRIDS)} solves in {wall:.1f} s (process start "
           f"included)")
@@ -1443,6 +1489,374 @@ def dist_path(torch, mods, dev, profile: bool) -> None:
         dist_kernel_times(torch, mods[3], ref, dev)
     finally:
         shutil.rmtree(DIST_DIR, ignore_errors=True)
+
+
+def span_tree(spans) -> list[str]:
+    """One line per span or event, indented by nesting (containment)."""
+    lines, stack = [], []
+    for s in sorted(spans, key=lambda s: (s.t_start, -s.duration)):
+        while stack and s.t_start >= stack[-1].t_start + stack[-1].duration:
+            stack.pop()
+        args = " ".join(f"{k}={v}" for k, v in sorted(s.args.items()))
+        lines.append(f"  {'  ' * len(stack)}{s.name} {1e3 * s.duration:.3f}"
+                     f" ms {args}")
+        if s.phase == "span":
+            stack.append(s)
+    return lines
+
+
+def telemetry_levels(torch, mods, state) -> None:
+    """The main cell's ``fit_cov`` at obs off / summary / trace, warm, in
+    the order off, summary, trace, trace, summary, off: the estimate bit
+    for bit, the counts and kernel launches equal at every level; walls
+    and overheads; the span tree and the solve counters."""
+    from repro_torch.obs import metrics, trace
+    _, est_mod, penalty, ops = mods
+    s = state["s"]
+    tracer, reg = trace.get_tracer(), metrics.get_registry()
+
+    def fit(level):
+        est = est_mod.ConcordEstimator(
+            penalty=penalty.PenaltySpec.l1(0.3, 0.05),
+            config=main_cell_config(est_mod, obs=level))
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        rep = est.fit_cov(s, n_samples=N_MAIN).report_
+        return rep, time.perf_counter() - t0, dict(ops.LAUNCHES)
+
+    base, _, base_launches = fit("off")         # warm-up and the baseline
+    tracer.clear()
+    reg.clear()
+    walls = {"off": [], "summary": [], "trace": []}
+    tele = None
+    for level in ("off", "summary", "trace", "trace", "summary", "off"):
+        rep, wall, launches = fit(level)
+        err = float((rep.omega - base.omega).abs().max())
+        walls[level].append(wall)
+        print(f"telemetry obs={level}: iters={rep.iters} trials="
+              f"{rep.ls_total} wall {wall:.4f} s (solve {rep.wall_time_s:.4f}"
+              f" s) max |dOmega| {err} launches {launches}")
+        check(err == 0.0, f"obs={level}: the estimate moved ({err})")
+        check((rep.iters, rep.ls_total, rep.converged) == (
+            base.iters, base.ls_total, base.converged),
+            f"obs={level}: counts differ from obs=off")
+        check(launches == base_launches,
+              f"obs={level}: kernel launches {launches} != {base_launches}")
+        check((rep.telemetry is None) == (level == "off"),
+              f"obs={level}: telemetry presence")
+        if level == "trace":
+            tele = rep.telemetry
+        del rep
+    mean = {k: sum(v) / len(v) for k, v in walls.items()}
+    for level in ("summary", "trace"):
+        print(f"telemetry overhead obs={level} over off: "
+              f"{mean[level] - mean['off']:+.4f} s "
+              f"({100 * (mean[level] / mean['off'] - 1):+.2f}%; means of 2:"
+              f" {mean[level]:.4f} vs {mean['off']:.4f} s)")
+    print(f"telemetry (trace): dispatch {tele['dispatch_s']:.4f} s, execute "
+          f"{1e3 * tele['execute_s']:.3f} ms, {tele['ls_per_iter']:.3f} "
+          f"trials/iter, flops {tele['flops']:.4e}, words "
+          f"{tele['words']:.4e}")
+    print("span tree (2 summary + 2 trace fits):")
+    for line in span_tree(tracer.snapshot()):
+        print(line)
+    snap = reg.snapshot()
+    for key, val in snap.items():
+        if key.startswith("repro_solve"):
+            print(f"  {key} = {val}")
+    check(snap['repro_solves_total{variant="cov"}'] == 4,
+          "the solve counter did not count the 4 observed fits")
+    check([s.name for s in tracer.snapshot()].count("dispatch") == 2,
+          "trace-level spans missing or recorded at summary")
+
+
+def telemetry_path(torch, mods, state) -> None:
+    """A 3-point ``fit_path`` under trace, exported as a Chrome trace and
+    read back by ``python -m repro_torch.obs.cli print`` and ``export``."""
+    from repro_torch.obs import trace
+    _, est_mod, penalty, ops = mods
+    tracer = trace.get_tracer()
+    tracer.clear()
+    est = est_mod.ConcordEstimator(
+        penalty=penalty.PenaltySpec.l1(0.3, 0.05),
+        config=main_cell_config(est_mod, obs="trace"))
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    path = est.fit_path(s=state["s"], lam1_grid=LAM_PATH, n_samples=N_MAIN)
+    wall = time.perf_counter() - t0
+    spans = tracer.snapshot()
+    names = [s.name for s in spans]
+    print(f"traced fit_path: {len(path)} points, iters={path.total_iters} "
+          f"trials={path.total_ls} wall {wall:.3f} s, {len(spans)} spans, "
+          f"launches {dict(ops.LAUNCHES)}")
+    check([names.count(k) for k in ("fit_path", "fit.reference", "dispatch",
+                                    "execute")] == [1, 3, 3, 3],
+          f"traced path spans {names}")
+    check(ops.LAUNCHES["fused_prox_stats"] == path.total_ls,
+          "traced path: kernel 1 launches != trials")
+    chrome, jsonl = TELE_DIR / "path.json", TELE_DIR / "path.jsonl"
+    check(tracer.export_chrome(chrome) == len(spans), "chrome export")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    for argv in (["print", str(chrome)], ["export", str(chrome),
+                                          str(jsonl)]):
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.obs.cli",
+                               *argv], env=env, capture_output=True,
+                              text=True, timeout=300, cwd=ROOT)
+        check(proc.returncode == 0 and (argv[0] == "export"
+                                        or "fit_path" in proc.stdout),
+              f"obs.cli {argv[0]} failed:\n{proc.stderr[-3000:]}")
+        print(f"obs.cli {argv[0]}: " + " | ".join(
+            proc.stdout.strip().splitlines()[-4:]))
+    check(len(trace.load_jsonl(jsonl)) == len(spans), "export round trip")
+    tracer.clear()
+
+
+def _recon_rows(tele) -> list[str]:
+    return [f"    {r['prim']:<10} {','.join(r['axes']):<6} "
+            f"{r['measured_count']:>5}x {r['measured_bytes']:>14} B | "
+            f"predicted {r['predicted_count']:>5}x "
+            f"{r['predicted_bytes']:>14} B "
+            f"{'OK' if r['match'] else 'MISMATCH'}"
+            for rep in tele["comm_reconcile"] for r in rep["rows"]]
+
+
+def telemetry_dist(torch, mods, dev) -> None:
+    """The dense distributed solve at world size 1 through NCCL at
+    ``obs="trace"``: Cov on the main S, Obs on its X (n = 8192); every
+    (prim, axes) row of the comm reconciliation must match."""
+    from repro_torch.comm import group
+    graphs, est_mod, penalty, ops = mods
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = graphs.sample_gaussian_torch(
+        graphs.chain_omega(P_MAIN, dtype=np.float64), N_MAIN, gen, dev)
+    s = (x.T @ x) / N_MAIN
+    group.init_process_group(dev, world_size=1, rank=0,
+                             init_method=f"tcp://localhost:{free_port()}")
+    try:
+        for variant in ("cov", "obs"):
+            est = est_mod.ConcordEstimator(
+                penalty=penalty.PenaltySpec.l1(0.3, 0.05),
+                config=est_mod.SolverConfig(
+                    backend="distributed", variant=variant, use_pallas=True,
+                    dtype="float64", obs="trace"))
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            rep = (est.fit_cov(s, n_samples=N_MAIN) if variant == "cov"
+                   else est.fit(x)).report_
+            wall = time.perf_counter() - t0
+            tele = rep.telemetry
+            print(f"dense distributed {variant} at world size 1 (NCCL), obs "
+                  f"trace: iters={rep.iters} trials={rep.ls_total} wall "
+                  f"{wall:.3f} s launches {dict(ops.LAUNCHES)}; "
+                  f"comm_reconcile_ok={tele['comm_reconcile_ok']}")
+            for line in _recon_rows(tele):
+                print(line)
+            check(tele["comm_reconcile_ok"] is True
+                  and len(tele["comm_reconcile"]) == 1,
+                  f"dense {variant}: the reconciliation failed")
+            check(rep.converged and not rep.stalled,
+                  f"dense {variant}: no convergence")
+            check(ops.LAUNCHES["fused_prox_stats"] == rep.ls_total,
+                  f"dense {variant}: kernel 1 launches != trials")
+            del rep
+    finally:
+        group.destroy_process_group()
+    del x, s
+    torch.cuda.empty_cache()
+
+
+def _telemetry_rank(rank, cfg, out_q):
+    """One of ``cfg["world"]`` gloo ranks sharing the card: the dense
+    distributed fit of each of ``cfg["grids"]`` through the facade at
+    ``obs="trace"``, and this rank's comm reconciliation."""
+    import datetime
+    import traceback
+    sys.path.insert(0, str(SRC))
+    import torch
+    from repro_torch import estimator as est_mod
+    from repro_torch.comm import group
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = group.init_process_group(
+            cfg["device"], backend="gloo", world_size=cfg["world"],
+            rank=rank, init_method=f"file://{cfg['init_file']}",
+            timeout=datetime.timedelta(seconds=300))
+        data = torch.load(cfg["data"], map_location=dev)
+        out = []
+        for variant, cx, co in cfg["grids"]:
+            est = est_mod.ConcordEstimator(lam1=0.3, lam2=0.05, config=(
+                est_mod.SolverConfig(
+                    backend="distributed", variant=variant, c_x=cx,
+                    c_omega=co, use_pallas=True, dtype="float64",
+                    obs="trace", device=str(dev))))
+            t0 = time.perf_counter()
+            rep = (est.fit_cov(data["s"], n_samples=cfg["n"])
+                   if variant == "cov" else est.fit(data["x"])).report_
+            out.append(dict(variant=variant, grid=(cx, co), iters=rep.iters,
+                            trials=rep.ls_total,
+                            wall=time.perf_counter() - t0,
+                            telemetry=rep.telemetry))
+        out_q.put((rank, True, out))
+    except BaseException:
+        out_q.put((rank, False, traceback.format_exc()))
+        raise
+    finally:
+        group.destroy_process_group()
+
+
+def telemetry_ranks(torch, mods, dev) -> None:
+    """P_DIST gloo ranks sharing the card at TELE_P: every rank's
+    reconciliation of each TELE_GRIDS solve holds."""
+    graphs = mods[0]
+    x, s = dist_problem(torch, graphs, dev, TELE_P, TELE_N)
+    cfg = dict(device=str(dev), world=P_DIST, grids=TELE_GRIDS, n=TELE_N,
+               init_file=str(TELE_DIR / "pg"), data=str(TELE_DIR / "xs.pt"))
+    torch.save({"x": x, "s": s}, cfg["data"])
+    del x, s
+    t0 = time.perf_counter()
+    results = spawn_ranks(_telemetry_rank, cfg, "telemetry")
+    print(f"telemetry P={P_DIST}: {len(TELE_GRIDS)} dense solves at p="
+          f"{TELE_P} in {time.perf_counter() - t0:.1f} s (process start "
+          f"included)")
+    for i, (variant, cx, co) in enumerate(TELE_GRIDS):
+        rows = [results[r][i] for r in range(P_DIST)]
+        for r, row in enumerate(rows):
+            tele = row["telemetry"]
+            rec = tele["comm_reconcile"][0]
+            print(f"  {variant} (4,{cx},{co}) rank {r}: iters={row['iters']} "
+                  f"trials={row['trials']} wall {row['wall']:.2f} s; "
+                  f"measured {rec['measured_bytes_total']} B = predicted "
+                  f"{rec['predicted_bytes_total']} B: "
+                  f"{tele['comm_reconcile_ok']}")
+            if r == 0:
+                for line in _recon_rows(tele):
+                    print(line)
+            check(tele["comm_reconcile_ok"] is True,
+                  f"telemetry {variant} ({cx},{co}) rank {r}: the "
+                  f"reconciliation failed")
+            check(Fraction(rec["measured_bytes_total"]) > 0,
+                  f"telemetry {variant} ({cx},{co}) rank {r}: no bytes moved")
+        check(len({(row["iters"], row["trials"]) for row in rows}) == 1,
+              f"telemetry {variant} ({cx},{co}): ranks disagree on counts")
+
+
+def telemetry_cli() -> None:
+    """``torchrun --nproc-per-node 1 -m repro_torch.obs.cli reconcile`` at
+    the CLI's default problem (torchrun's own parser refuses ``--n`` as an
+    ambiguous abbreviation of its options, even after the module)."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "repro_torch.obs.cli", "reconcile",
+           "--max-iters", "50", "--json-out", str(TELE_DIR / "reconcile.json")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=300, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    out = proc.stdout.strip().splitlines()
+    print(f"torchrun obs.cli reconcile (exit {proc.returncode}, {wall:.1f} s "
+          f"with start-up): " + " | ".join(
+              ln for ln in out if "->" in ln or ln.startswith("OK")))
+    check(proc.returncode == 0 and out and out[-1].startswith("OK"),
+          f"obs.cli reconcile failed:\n{proc.stdout[-2000:]}\n"
+          f"{proc.stderr[-2000:]}")
+
+
+def telemetry_phase(torch, mods, dev, state) -> None:
+    shutil.rmtree(TELE_DIR, ignore_errors=True)
+    TELE_DIR.mkdir(parents=True)
+    try:
+        telemetry_levels(torch, mods, state)
+        telemetry_path(torch, mods, state)
+        torch.cuda.empty_cache()
+        telemetry_dist(torch, mods, dev)
+        telemetry_ranks(torch, mods, dev)
+        telemetry_cli()
+    finally:
+        shutil.rmtree(TELE_DIR, ignore_errors=True)
+
+
+def serve_phase(torch, dev) -> None:
+    """``launch.serve --workload concord`` on the card: SERVE_REQUESTS
+    requests in groups of SERVE_BATCH at (SERVE_N, SERVE_P), obs summary."""
+    from repro_torch.launch import serve
+    from repro_torch.obs import metrics
+    reg = metrics.get_registry()
+    reg.clear()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st = serve.main(SERVE_ARGV)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    lat = st.latency_s
+    n_conv = sum(r.converged for r in st.reports)
+    iters = [r.iters for r in st.reports]
+    print(f"serve: {SERVE_REQUESTS} requests at (n {SERVE_N}, p {SERVE_P}) "
+          f"f32 in {st.n_groups} groups {st.group_shapes[0]}: batched "
+          f"{st.t_batched:.3f} s = {SERVE_REQUESTS / st.t_batched:.3f} req/s, "
+          f"sequential {st.t_sequential:.3f} s = "
+          f"{SERVE_REQUESTS / st.t_sequential:.3f} req/s; latency p50 "
+          f"{np.quantile(lat, 0.5):.3f} s p99 {np.quantile(lat, 0.99):.3f} s;"
+          f" iters {min(iters)}-{max(iters)} (sum {sum(iters)}), converged "
+          f"{n_conv}/{SERVE_REQUESTS}; max_gap {st.max_gap:.3e}; peak "
+          f"{peak / 2**30:.2f} GiB above the {base / 2**30:.1f} GiB held "
+          f"before; whole call {wall:.1f} s (host draws of the requests "
+          f"included)")
+    check(len(st.reports) == SERVE_REQUESTS and all(
+        r.lam1 == float(lam) and r.device.startswith("cuda")
+        for r, lam in zip(st.reports, st.lam1s)),
+        "serve: reports missing, out of order or not on the card")
+    check(st.n_groups == SERVE_REQUESTS // SERVE_BATCH and st.group_shapes
+          == [(SERVE_BATCH, SERVE_N, SERVE_P)] * st.n_groups,
+          f"serve: groups {st.group_shapes}")
+    check(st.max_gap < 5e-3, f"serve: max_gap {st.max_gap} >= 5e-3")
+    check(all(bool(torch.isfinite(r.omega).all()) for r in st.reports),
+          "serve: a non-finite estimate")
+    snap = reg.snapshot()
+    for name in ("latency", "queue_wait", "solve_wall"):
+        check(snap[f"repro_serve_{name}_seconds"]["count"] == SERVE_REQUESTS,
+              f"serve: the {name} histogram did not count every request")
+    reg.clear()
+    return st
+
+
+def profile_serve(torch, mods, dev, st) -> None:
+    """Device time by kernel over one serve group (``fit_batch`` of
+    SERVE_BATCH requests at the drain's first group's lam1s) and over the
+    same requests solved one by one, on requests drawn on the card at the
+    serve shape with the drain's knobs."""
+    graphs, est_mod, _, _ = mods
+    lam = [float(st.lam1s[i]) for i in st.order[:SERVE_BATCH]]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    om = graphs.chain_omega(SERVE_P, dtype=np.float64)
+    xs = torch.stack([graphs.sample_gaussian_torch(om, SERVE_N, gen, dev)
+                      for _ in lam]).float()
+    cfg = est_mod.SolverConfig(backend="reference", variant="obs",
+                               tol=1e-5, max_iters=300)
+
+    def batched():
+        return est_mod.fit_batch(x=xs, lam1=lam, lam2=0.05, config=cfg)
+
+    def sequential():
+        return [est_mod.ConcordEstimator(lam1=lv, lam2=0.05, config=cfg)
+                .fit(xs[i]).report_ for i, lv in enumerate(lam)]
+
+    for name, fn in (("batched group", batched),
+                     ("the same requests one by one", sequential)):
+        fn()                                               # warm
+        out, wall, busy, rows = _profile(torch, fn)
+        reps = out.reports if name == "batched group" else out
+        trials = sum(r.ls_total for r in reps)
+        extra = (f"; {out.stats.summary()}" if name == "batched group"
+                 else "")
+        print(f"profile: serve {name} ({len(lam)} x ({SERVE_N}, {SERVE_P})"
+              f" f32) wall={wall:.3f} s (profiled), {trials} lane trials "
+              f"({1e3 * wall / trials:.3f} ms each), device busy "
+              f"{busy:.3f} s, idle share {1.0 - busy / wall:.3f}{extra}")
+        for secs, n, key in rows[:10]:
+            print(f"  {100 * secs / wall:5.1f}% {1e3 * secs / trials:7.3f} "
+                  f"ms/lane trial x{n:<6d} {key[:90]}")
 
 
 def path_mode_costs(torch, mods, state) -> None:
@@ -1663,11 +2077,8 @@ def profile_fit(torch, mods, state):
     """Device time by kernel over one warm Cov fit and one batched path at
     the main path's size, and the card's idle share of each wall time."""
     _, est_mod, penalty, _ = mods
-    cfg = est_mod.SolverConfig(backend="reference", variant="cov",
-                               use_pallas=True, sparse_matmul="on",
-                               dtype="float64")
     est = est_mod.ConcordEstimator(penalty=penalty.PenaltySpec.l1(0.3, 0.05),
-                                   config=cfg)
+                                   config=main_cell_config(est_mod))
     _, wall, busy, rows = _profile(
         torch, lambda: est.fit_cov(state["s"], n_samples=N_MAIN))
     rep = est.report_
@@ -1696,14 +2107,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="all",
                     help="comma list of kernels,main,batched,adaptive,obs,"
-                         "gram,lm,dist,pathmode,cross,timing (default: "
-                         "all; device and build always run; pathmode "
-                         "needs main)")
+                         "gram,lm,dist,telemetry,serve,pathmode,cross,"
+                         "timing (default: all; device and build always "
+                         "run; telemetry and pathmode need main)")
     ap.add_argument("--profile", action="store_true",
                     help="after the phases, profile one warm main-path fit "
-                         "and one batched path (needs the main phase) and "
-                         "one loss_fn (needs the lm phase); the gram phase "
-                         "profiles one prep's streaming pass")
+                         "and one batched path (needs the main phase), "
+                         "one loss_fn (needs the lm phase) and one serve "
+                         "group against its requests one by one (needs "
+                         "the serve phase); the gram phase profiles one "
+                         "prep's streaming pass")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script",
@@ -1731,6 +2144,7 @@ def main(argv=None) -> int:
     phase("build")
     build_kernels(build)
     errs, state, lm_state, launches, measured = {}, None, None, {}, {}
+    serve_stats = None
     if run("kernels"):
         phase("kernels")
         check_kernels(torch, kman, ops, ref, dev)
@@ -1766,6 +2180,14 @@ def main(argv=None) -> int:
         phase("dist")
         dist_path(torch, mods, dev, args.profile)
         torch.cuda.empty_cache()
+    if run("telemetry") and state is not None:
+        phase("telemetry")
+        telemetry_phase(torch, mods, dev, state)
+        torch.cuda.empty_cache()
+    if run("serve"):
+        phase("serve")
+        serve_stats = serve_phase(torch, dev)
+        torch.cuda.empty_cache()
     if run("pathmode") and state is not None:
         phase("pathmode")
         path_mode_costs(torch, mods, state)
@@ -1788,6 +2210,9 @@ def main(argv=None) -> int:
     if args.profile and lm_state is not None:
         phase("profile lm")
         profile_lm(torch, lm_state)
+    if args.profile and serve_stats is not None:
+        phase("profile serve")
+        profile_serve(torch, mods, dev, serve_stats)
     if measured:
         rows = kernel_rows(kman, measured, errs, launches, smi)
         print(json.dumps({"kernels": rows}))

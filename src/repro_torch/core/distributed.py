@@ -318,6 +318,30 @@ def _shard_spec_weights(spec: PenaltySpec, like: torch.Tensor, p: int,
         spec, weights=mm.shard(_pad_square(w, p_pad), comm, layout))
 
 
+#: dispatch-observer hook (``repro_torch.obs.commwatch``): when set, the
+#: driver announces each solve before its loop starts and the loop's
+#: result when it ends.  The observer must not post a collective or touch
+#: the device: the solve itself is untouched.
+_DISPATCH_OBSERVER = None
+
+
+def set_dispatch_observer(observer):
+    """Install ``observer`` (or None) on the driver hook; returns the
+    previous observer so callers can restore it.
+
+    ``observer.on_dispatch(variant, grid, meta)`` runs on this rank right
+    before the loop, with ``meta`` = ``{"p", "p_pad", "n", "dtype",
+    "sparse"}``, and returns a token; ``observer.on_result(token, res)``
+    runs when the loop has ended, with its ``ProxResult`` (``iters``,
+    ``ls_total``, ...), before the estimate's closing all-gather: the
+    reference leaves its estimate sharded in the program's output, with
+    no collective, so the gather is not part of the solve's schedule."""
+    global _DISPATCH_OBSERVER
+    prev = _DISPATCH_OBSERVER
+    _DISPATCH_OBSERVER = observer
+    return prev
+
+
 def _solve(variant, data_full, lam1, lam2, *, grid, comm, tol, max_iters,
            max_ls, warm_start_tau, use_pallas, omega0, penalty,
            sparse_matmul) -> FitResult:
@@ -356,9 +380,17 @@ def _solve(variant, data_full, lam1, lam2, *, grid, comm, tol, max_iters,
         om0 = _eye_shard(shape, lo, blk, cov, dtype, dev)
     else:
         om0 = mm.shard(_pad_omega0(omega0, data_full, p, p_pad), comm, layout)
+    obs = _DISPATCH_OBSERVER
+    if obs is not None:
+        token = obs.on_dispatch(variant, grid, {
+            "p": p, "p_pad": p_pad, "n": n,
+            "dtype": str(dtype).removeprefix("torch."),
+            "sparse": ops.prox_stats is not None})
     res = prox_gradient(om0, data, ops, penalty=spec, tol=tol,
                         max_iters=max_iters, max_ls=max_ls,
                         warm_start_tau=warm_start_tau)
+    if obs is not None:
+        obs.on_result(token, res)
     omega = mm.unshard(res.omega, comm, layout)[:p, :p]
     return FitResult(omega, res.iters, res.ls_total, res.converged,
                      res.g_final, variant, grid, res.block_density,

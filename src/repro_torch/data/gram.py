@@ -68,6 +68,35 @@ RANK_BUDGET_BYTES = 256 * 1024 * 1024
 SYM_BLOCK = 4096
 
 
+class _NoSpan:
+    """Do-nothing stand-in for a tracer span when obs is inactive."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def note(self, **attrs):
+        return self
+
+
+_NO_SPAN = _NoSpan()
+
+
+def _obs_span(name: str, **attrs):
+    """Tracer span IF the obs subsystem is active (``repro_torch.obs.
+    trace`` already imported, mode scoped by the caller); the shared
+    no-op otherwise — the data layer never imports ``repro_torch.obs``
+    itself."""
+    import sys
+    tr = sys.modules.get("repro_torch.obs.trace")
+    if tr is None:
+        return _NO_SPAN
+    return tr.get_tracer().span(name, cat="data", level="trace", **attrs)
+
+
 def _dtype_name(chunk) -> str:
     if isinstance(chunk, torch.Tensor):
         return str(chunk.dtype).removeprefix("torch.")
@@ -205,26 +234,28 @@ class GramAccumulator:
         elif arr.shape[1] != self.p:
             raise ValueError(
                 f"chunk has {arr.shape[1]} columns, accumulator is p={self.p}")
-        t = self._to_device(arr)
-        if not bool(torch.isfinite(t).all()):
-            raise ValueError(
-                f"chunk {self.n_chunks} contains non-finite values; refusing "
-                f"to fold NaN/Inf into the Gram")
-        self.source_dtype = self.source_dtype or _dtype_name(arr)
-        a64 = t.to(torch.float64)           # cast first, then multiply
-        m = a64.shape[0]
-        panel_gram(a64, panel=self.panel, out=self._xx)
-        # Welford/Chan chunk merge of mean and M2; the centered chunk is
-        # formed in place when a64 is this call's own copy
-        cmean = a64.mean(dim=0)
-        centered = a64 - cmean if a64 is chunk else a64.sub_(cmean)
-        cm2 = centered.square_().sum(dim=0)
-        tot = self.n + m
-        delta = cmean - self._mean
-        self._mean += delta * (m / tot)
-        self._m2 += cm2 + delta * delta * (self.n * m / tot)
-        self.n = tot
-        self.n_chunks += 1
+        with _obs_span("gram.chunk", chunk=self.n_chunks,
+                       rows=int(arr.shape[0]), p=int(arr.shape[1])):
+            t = self._to_device(arr)
+            if not bool(torch.isfinite(t).all()):
+                raise ValueError(
+                    f"chunk {self.n_chunks} contains non-finite values; "
+                    f"refusing to fold NaN/Inf into the Gram")
+            self.source_dtype = self.source_dtype or _dtype_name(arr)
+            a64 = t.to(torch.float64)       # cast first, then multiply
+            m = a64.shape[0]
+            panel_gram(a64, panel=self.panel, out=self._xx)
+            # Welford/Chan chunk merge of mean and M2; the centered chunk
+            # is formed in place when a64 is this call's own copy
+            cmean = a64.mean(dim=0)
+            centered = a64 - cmean if a64 is chunk else a64.sub_(cmean)
+            cm2 = centered.square_().sum(dim=0)
+            tot = self.n + m
+            delta = cmean - self._mean
+            self._mean += delta * (m / tot)
+            self._m2 += cm2 + delta * delta * (self.n * m / tot)
+            self.n = tot
+            self.n_chunks += 1
         return self
 
     def merge(self, other: "GramAccumulator") -> "GramAccumulator":

@@ -23,3 +23,11 @@ def resolve_device(device=None) -> torch.device:
             "repro_torch runs on a CUDA card by default and none is "
             "available; pass device='cpu' to run on the host explicitly")
     return dev
+
+
+def synchronize(device) -> None:
+    """Wait for the work queued on ``device`` (a no-op on the CPU), so a
+    host clock read next times work done, not work queued."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

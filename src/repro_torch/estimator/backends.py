@@ -34,7 +34,7 @@ from ..core.costmodel import (H100, ProblemShape, crossover_density,
                               enumerate_configs, tune)
 from ..core.distributed import estimate_density
 from ..core.penalty import PenaltySpec, as_penalty, penalty_value
-from ..device import resolve_device
+from ..device import resolve_device, synchronize
 from .config import SolverConfig
 from .report import FitReport
 
@@ -258,15 +258,25 @@ def _resolve_variant(problem: Problem, lam1: float, config: SolverConfig,
 
 def _report(res, *, lam1, lam2, wall, backend, variant,
             config: SolverConfig, penalty: PenaltySpec, c_x: int = 1,
-            c_omega: int = 1, n_devices: int = 1) -> FitReport:
+            c_omega: int = 1, n_devices: int = 1,
+            telemetry: dict | None = None) -> FitReport:
     """The report of one solve.  The nnz and block-occupancy scan of the
-    estimate runs on its device; only scalars come back."""
+    estimate runs on its device; only scalars come back.  The same count
+    feeds the deferred obs registry feed (``_solve_with_obs``), so obs
+    adds no second scan and no host copy of Omega."""
     om = res.omega
     p = om.shape[0]
     nz = om.abs() > NNZ_TOL
     bs = config.sparse_block
     occ = matops.block_mask(nz, bs)
     nnz, n_occ = torch.stack([nz.sum(), (occ > 0).sum()]).tolist()
+    nnz_per_row = max(1.0, nnz / p)
+    if telemetry is not None and "_pending_cost" in telemetry:
+        from ..obs.metrics import get_registry, record_solve_cost
+        cost = record_solve_cost(get_registry(), density=nnz_per_row / p,
+                                 **telemetry.pop("_pending_cost"))
+        telemetry["flops"] = cost["flops"]
+        telemetry["words"] = cost["words"]
     g = res.g_final
     return FitReport(
         omega=om,
@@ -280,10 +290,11 @@ def _report(res, *, lam1, lam2, wall, backend, variant,
         wall_time_s=float(wall),
         backend=backend, variant=variant,
         c_x=int(c_x), c_omega=int(c_omega), n_devices=int(n_devices),
-        nnz_per_row=max(1.0, nnz / p),
+        nnz_per_row=nnz_per_row,
         block_density=n_occ / occ.numel(),
         sparse_matmul=config.sparse_matmul,
         device=str(om.device),
+        telemetry=telemetry,
     )
 
 
@@ -305,35 +316,84 @@ def reference_backend(problem: Problem, penalty, config: SolverConfig,
         data = _cast(problem.x, config)
     policy = _matmul_policy(
         config, problem.p, problem.p if variant == "cov" else problem.n)
-    res, wall = _timed(lambda: prox.solve_reference(
-        data, penalty=spec, omega0=omega0, variant=variant,
-        tol=config.tol, max_iters=config.max_iters, max_ls=config.max_ls,
-        warm_start_tau=config.warm_start_tau,
-        tau_schedule=config.tau_schedule, sparse_matmul=policy,
-        use_kernels=config.use_pallas), data.device)
+    res, wall, telemetry = _solve_with_obs(
+        config, "reference", variant, lambda: prox.solve_reference(
+            data, penalty=spec, omega0=omega0, variant=variant,
+            tol=config.tol, max_iters=config.max_iters,
+            max_ls=config.max_ls, warm_start_tau=config.warm_start_tau,
+            tau_schedule=config.tau_schedule, sparse_matmul=policy,
+            use_kernels=config.use_pallas),
+        data.device, p=problem.p, n=problem.n)
     return _report(res, lam1=lam1, lam2=float(spec.lam2), wall=wall,
                    backend="reference", variant=variant, config=config,
-                   penalty=spec)
+                   penalty=spec, telemetry=telemetry)
 
 
-def _timed(fn, device: torch.device):
-    """``fn()`` and its host wall, ending in a device sync on the card."""
+def _solve_with_obs(config: SolverConfig, backend: str, variant: str,
+                    solve, device: torch.device, *, p: int, n: int,
+                    n_devices: int = 1, c_x: int = 1, c_omega: int = 1):
+    """``solve()`` under the configured observability level: (result,
+    host wall ending in a device sync, telemetry or None).
+
+    ``obs="off"`` is the plain timed solve and never imports
+    ``repro_torch.obs``.  Otherwise the solve runs inside a
+    ``fit.<backend>`` span; at ``"trace"`` it is split into ``dispatch``
+    and ``execute`` spans.  Here (the reference's split is trace +
+    compile + enqueue against ``block_until_ready``) "dispatch" is the
+    host-side solve loop, which issues every launch and reads the
+    scalars that steer it, and "execute" is ``torch.cuda.synchronize``:
+    the device's drain of whatever the loop left queued (on the CPU,
+    nothing).  The solve metrics feed the process registry and the
+    telemetry dict lands on the report.  No level adds a launch or reads
+    a device value inside the solve, so the estimate, the counts and the
+    kernel launches are the same at every level."""
     if device.type == "cuda":
         # a float32 solve keeps full float32 products (no TF32)
         torch.backends.cuda.matmul.allow_tf32 = False
-        torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    res = fn()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    return res, time.perf_counter() - t0
+    synchronize(device)
+    if config.obs == "off":
+        t0 = time.perf_counter()
+        res = solve()
+        synchronize(device)
+        return res, time.perf_counter() - t0, None
+    from ..obs.trace import get_tracer
+    tracer = get_tracer()
+    with tracer.scoped(config.obs):
+        t0 = time.perf_counter()
+        with tracer.span(f"fit.{backend}", variant=variant, p=p, n=n,
+                         n_devices=n_devices) as span:
+            with tracer.span("dispatch", level="trace", variant=variant):
+                res = solve()
+            t1 = time.perf_counter()
+            with tracer.span("execute", level="trace", variant=variant):
+                synchronize(device)
+        wall = time.perf_counter() - t0
+        iters, ls_total = int(res.iters), int(res.ls_total)
+        span.note(iters=iters, ls_total=ls_total,
+                  converged=bool(res.converged))
+        telemetry = {
+            "obs": config.obs,
+            "dispatch_s": t1 - t0,
+            "execute_s": wall - (t1 - t0),
+            "ls_per_iter": ls_total / max(iters, 1),
+            # the registry feed needs the OBSERVED density, which
+            # _report's device-side nnz scan counts anyway: it is fed
+            # there, from that count
+            "_pending_cost": dict(
+                variant=variant, p=p, n=n, iters=iters, ls_total=ls_total,
+                n_devices=n_devices, c_x=c_x, c_omega=c_omega,
+                wall_s=wall),
+        }
+    return res, wall, telemetry
 
 
 def distributed_backend(problem: Problem, penalty, config: SolverConfig,
                         omega0=None) -> FitReport:
     """1.5D solve over the process group's ranks (``config.n_devices``,
     by default the world size), called on every rank; each rank gets the
-    whole estimate."""
+    whole estimate.  At ``obs="trace"`` on the dense path, the comm
+    watcher reconciles the collectives this rank posted against the
+    analytic prediction (``telemetry["comm_reconcile"]``)."""
     spec = as_penalty(penalty)
     lam1 = float(spec.lam1)
     n_dev = config.n_devices or world_size()
@@ -346,15 +406,34 @@ def distributed_backend(problem: Problem, penalty, config: SolverConfig,
         config, problem.p, problem.p if variant == "cov" else problem.n)
     data = _cast(problem.cov() if variant == "cov" else problem.x, config)
     fit = dist.fit_cov if variant == "cov" else dist.fit_obs
-    res, wall = _timed(lambda: fit(
-        data, penalty=spec, grid=grid, tol=config.tol,
-        max_iters=config.max_iters, max_ls=config.max_ls,
-        warm_start_tau=config.warm_start_tau, use_pallas=config.use_pallas,
-        omega0=omega0, sparse_matmul=policy), data.device)
+    # the sparse policy's mask traffic has no analytic twin: only the
+    # dense dispatch is reconciled
+    watch = None
+    if config.obs == "trace" and policy is None:
+        from ..obs.commwatch import CommWatch
+        watch = CommWatch().install()
+    try:
+        res, wall, telemetry = _solve_with_obs(
+            config, "distributed", variant, lambda: fit(
+                data, penalty=spec, grid=grid, tol=config.tol,
+                max_iters=config.max_iters, max_ls=config.max_ls,
+                warm_start_tau=config.warm_start_tau,
+                use_pallas=config.use_pallas, omega0=omega0,
+                sparse_matmul=policy),
+            data.device, p=problem.p, n=problem.n, n_devices=n_dev,
+            c_x=grid.c_x, c_omega=grid.c_omega)
+    finally:
+        if watch is not None:
+            watch.uninstall()
+    if watch is not None:
+        recon = watch.reconcile()
+        telemetry["comm_reconcile"] = [r.to_json() for r in recon]
+        telemetry["comm_reconcile_ok"] = all(r.ok for r in recon)
     return _report(res, lam1=lam1, lam2=float(spec.lam2), wall=wall,
                    backend="distributed", variant=res.variant,
                    config=config, penalty=spec, c_x=grid.c_x,
-                   c_omega=grid.c_omega, n_devices=n_dev)
+                   c_omega=grid.c_omega, n_devices=n_dev,
+                   telemetry=telemetry)
 
 
 def auto_backend(problem: Problem, penalty, config: SolverConfig,

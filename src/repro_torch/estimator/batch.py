@@ -25,7 +25,7 @@ import torch
 from ..core import batch as core_batch
 from ..core.penalty import PenaltySpec, _as_numpy, normalize_penalty
 from ..core.prox import ProxResult
-from ..device import resolve_device
+from ..device import resolve_device, synchronize
 from .backends import Problem, _cast, _report
 from .config import SolverConfig
 from .report import BatchReport, FitReport
@@ -68,11 +68,6 @@ def _slice_result(res: ProxResult, i: int) -> ProxResult:
             for f in dataclasses.fields(ProxResult)}
     return ProxResult(**{k: v if k == "omega" else v.item()
                          for k, v in vals.items()})
-
-
-def _sync(t: torch.Tensor) -> None:
-    if t.device.type == "cuda":
-        torch.cuda.synchronize(t.device)
 
 
 def batch_reports(res: ProxResult, lam1s, lam2s, wall: float, *,
@@ -146,7 +141,7 @@ def fit_batch(x=None, *, s=None, lam1=None, lam2=0.0, penalty=None,
                                            np.float64), (b,))
         lam2s = np.broadcast_to(np.asarray(_as_numpy(spec.lam2),
                                            np.float64), (b,))
-        _sync(data)
+        synchronize(data.device)
         t0 = time.perf_counter()
         res, stats = core_batch.solve_batch(data, penalty=spec, **kw)
     else:
@@ -155,12 +150,12 @@ def fit_batch(x=None, *, s=None, lam1=None, lam2=0.0, penalty=None,
         spec = None
         lam1s = np.broadcast_to(np.asarray(lam1, np.float64), (b,))
         lam2s = np.broadcast_to(np.asarray(lam2, np.float64), (b,))
-        _sync(data)
+        synchronize(data.device)
         t0 = time.perf_counter()
         res, stats = core_batch.solve_batch(
             data, torch.tensor(lam1s, dtype=data.dtype),
             torch.tensor(lam2s, dtype=data.dtype), **kw)
-    _sync(res.omega)
+    synchronize(res.omega.device)
     wall = time.perf_counter() - t0
     reports = batch_reports(res, lam1s, lam2s, wall, variant=variant,
                             config=cfg, penalty=spec)
@@ -197,7 +192,7 @@ def batched_path_reports(problem: Problem, grid: list[float],
     if data.device.type == "cuda":
         # a float32 solve keeps full float32 products (no TF32)
         torch.backends.cuda.matmul.allow_tf32 = False
-    _sync(data)
+    synchronize(data.device)
     t0 = time.perf_counter()
     res, stats = core_batch.solve_path_batched(
         data, np.asarray(grid, np.float64), lam2, penalty=penalty,
@@ -209,7 +204,7 @@ def batched_path_reports(problem: Problem, grid: list[float],
         use_pallas=config.use_pallas,
         gemm=_resolve_batch_gemm(config, variant, data),
         warm_start=config.batch_warm_start, return_stats=True)
-    _sync(res.omega)
+    synchronize(res.omega.device)
     wall = time.perf_counter() - t0
     lam2s = [lam2] * len(grid)
     spec_b = penalty.with_lam1(np.asarray(grid, np.float64)) \

@@ -1,11 +1,8 @@
 """Solver configuration for the ``repro_torch.estimator`` facade.
 
 Port of ``repro.estimator.config``: the same frozen, validated
-``SolverConfig`` with the same field names, plus ``device``.  ``obs``,
-which belongs to a later slice of the port, is validated as in the
-reference and raises ``NotImplementedError`` naming its slice when set
-away from its default, so a config carried over from the JAX package
-never runs a different solve than it asks for.
+``SolverConfig`` with the same field names and values, plus ``device``.
+``obs`` takes the reference's levels (``repro_torch.obs``).
 
 ``use_pallas`` keeps its name as a knob; in the port it means "use the
 hand-written CUDA kernels" (the fused prox and its occupancy harvest, and
@@ -35,11 +32,6 @@ BATCH_WARM_STARTS = (None, "pilot")
 
 OBS_MODES = ("off", "summary", "trace")
 
-#: fields of later slices: name -> (default, the slice that brings them)
-LATER_SLICE_FIELDS = {
-    "obs": ("off", "the observability slice (ROADMAP A9)"),
-}
-
 
 @dataclass(frozen=True)
 class SolverConfig:
@@ -51,6 +43,12 @@ class SolverConfig:
                a process group, this rank's device.
     n_devices  processes of the 1.5D grid; ``None`` is the process
                group's world size (1 outside one).
+    obs        runtime observability (``repro_torch.obs``): ``"off"``
+               (the obs package is never imported), ``"summary"`` (a
+               span per solve, the solve metrics, ``FitReport.telemetry``)
+               or ``"trace"`` (adds the dispatch / execute split and, on
+               the distributed backend's dense path, the comm
+               reconciliation); the estimate is the same at every level.
     """
     backend: str = "auto"
     variant: str = "auto"
@@ -145,12 +143,6 @@ class SolverConfig:
         if self.device is not None and not isinstance(self.device, str):
             raise ValueError(f"device must be a string or None, got "
                              f"{self.device!r}")
-        for name, (default, later) in LATER_SLICE_FIELDS.items():
-            v = getattr(self, name)
-            if v != default:
-                raise NotImplementedError(
-                    f"SolverConfig.{name}={v!r} arrives with {later} of "
-                    f"the PyTorch port")
 
     def replace(self, **changes) -> "SolverConfig":
         """Functional update (frozen dataclass)."""

@@ -210,6 +210,22 @@ class ConcordEstimator:
     def _run_path(self, problem: Problem, grid: list[float],
                   spec: PenaltySpec, mode: str, warm_start: bool,
                   score_bic: bool):
+        if self.config.obs != "off":
+            from ..obs.trace import get_tracer
+            tracer = get_tracer()
+            with tracer.scoped(self.config.obs):
+                with tracer.span("fit_path", points=len(grid),
+                                 mode=mode) as span:
+                    reports, stats = self._run_path_inner(
+                        problem, grid, spec, mode, warm_start, score_bic)
+                span.note(total_iters=sum(r.iters for r in reports))
+            return reports, stats
+        return self._run_path_inner(problem, grid, spec, mode, warm_start,
+                                    score_bic)
+
+    def _run_path_inner(self, problem: Problem, grid: list[float],
+                        spec: PenaltySpec, mode: str, warm_start: bool,
+                        score_bic: bool):
         stats = None
         if mode == "batched":
             reports, _, stats = batched_path_reports(

@@ -43,6 +43,11 @@ class FitReport:
     stalled: bool = False
     penalty: str = "l1"
     device: str = "cpu"                 # device the solve ran on
+    telemetry: dict | None = None       # obs != "off" only: the solve's
+                                        # dispatch vs execute wall split,
+                                        # analytic flop/word totals at
+                                        # the observed shape, mean trials
+                                        # per iteration; None at "off"
 
     def summary(self) -> str:
         dens = ""

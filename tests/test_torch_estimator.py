@@ -1,7 +1,7 @@
 """The port's estimator facade against the JAX facade: ``fit``,
 ``fit_cov`` and ``fit_path`` with the reference and auto backends on the
-CPU, the cost model, the converters, and the later-slice knobs that must
-raise rather than run a different solve."""
+CPU, the cost model, the converters, and the knobs of the later slices,
+taken as the reference takes them."""
 import dataclasses
 
 import numpy as np
@@ -189,15 +189,11 @@ def test_config_defaults_and_validation_match():
     ("backend", "distributed"),
 ])
 def test_later_slice_knobs_raise(field, value):
-    """A knob of a later slice (obs) raises naming it; the distributed
-    slice's knobs have landed and are taken as the reference takes them."""
+    """The knobs of the later slices (the distributed solve's, obs) have
+    all landed: each is taken as the reference takes it, and none raises."""
     want = jest.SolverConfig(**{field: value})   # valid in the reference
-    if field == "obs":
-        with pytest.raises(NotImplementedError, match="slice"):
-            test_.SolverConfig(**{field: value})
-    else:
-        got = test_.SolverConfig(**{field: value})
-        assert getattr(got, field) == getattr(want, field) == value
+    got = test_.SolverConfig(**{field: value})
+    assert getattr(got, field) == getattr(want, field) == value
 
 
 @pytest.mark.parametrize("field,value", [

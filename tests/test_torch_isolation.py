@@ -206,6 +206,48 @@ def test_distributed_solve_runs_with_jax_blocked(tmp_path):
     assert lines[0].startswith("ok") and lines[0] == lines[1]
 
 
+def test_serve_and_obs_entry_points_do_not_fall_back_to_the_cpu(no_cuda):
+    import argparse
+    from repro_torch.launch import serve
+    from repro_torch.obs import cli
+    args = argparse.Namespace(requests=2, batch=2, p=8, n=20, lam2=0.05,
+                              tol=1e-4, max_iters=20, seed=0)
+    for call in (lambda: serve.serve_concord(args),
+                 lambda: serve.main(["--workload", "concord", "--p", "8"]),
+                 lambda: cli.main(["reconcile"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_obs_and_serve_run_with_jax_blocked(tmp_path):
+    """The obs package (tracer, metrics, commwatch, CLI) and the serving
+    drain import and run with JAX and the JAX package blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch.obs, repro_torch.obs.commwatch\n"
+        "from repro_torch.obs import cli, trace\n"
+        "from repro_torch.launch import serve\n"
+        "st = serve.main(['--workload', 'concord', '--requests', '3',\n"
+        "                 '--batch', '2', '--p', '12', '--n', '40',\n"
+        "                 '--obs', 'trace'], device='cpu')\n"
+        "assert len(st.reports) == 3 and st.max_gap < 5e-3\n"
+        f"out = {str(tmp_path / 't.json')!r}\n"
+        "assert cli.main(['reconcile', '--trace-out', out],\n"
+        "                device='cpu') == 0\n"
+        "assert cli.main(['print', out]) == 0\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO / "src")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
 def test_init_process_group_does_not_pick_gloo_on_its_own(no_cuda):
     """No device and no card: the CUDA default raises, as every entry
     point does; gloo is chosen only by asking for the CPU."""

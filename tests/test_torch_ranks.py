@@ -305,7 +305,7 @@ def facade(rank, x, lam1, backend, config_kw):
     return dict(omega=rep.omega.numpy(), iters=rep.iters,
                 ls_total=rep.ls_total, backend=rep.backend,
                 variant=rep.variant, c_x=rep.c_x, c_omega=rep.c_omega,
-                n_devices=rep.n_devices)
+                n_devices=rep.n_devices, telemetry=rep.telemetry)
 
 
 def gram(rank, x, transform):
@@ -325,3 +325,23 @@ def cli(rank, argv):
     return dict(omega=rep.omega.numpy(), iters=rep.iters,
                 ls_total=rep.ls_total, backend=rep.backend,
                 c_x=rep.c_x, c_omega=rep.c_omega, n_devices=rep.n_devices)
+
+
+def reconcile(rank, P, cx, co, variant, x, max_iters):
+    """A dense distributed fit under ``obs.commwatch.CommWatch``; returns
+    this rank's reconciliation reports as JSON."""
+    from repro_torch.comm import Grid1p5D
+    from repro_torch.core import distributed as dist
+    from repro_torch.obs.commwatch import CommWatch
+    x = torch.as_tensor(x)
+    data = x if variant == "obs" else (x.T @ x) / x.shape[0]
+    fit = dist.fit_cov if variant == "cov" else dist.fit_obs
+    with CommWatch() as watch:
+        fit(data, 0.3, grid=Grid1p5D(P, cx, co), max_iters=max_iters)
+    return [r.to_json() for r in watch.reconcile()]
+
+
+def obs_cli(rank, argv):
+    """``obs.cli.main`` inside the rank group; returns its exit code."""
+    from repro_torch.obs import cli
+    return cli.main(list(argv), device="cpu")
