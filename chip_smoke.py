@@ -84,6 +84,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 time, plain-version time, library time (kernel 2: the
                 dense product and PyTorch's f64 BSR product), and the
                 bound
+ 12. lmserve    LM serving through ``launch.serve.serve_batch`` (after the
+                profiles; it reuses and then frees the lm phase's model):
+                (a) h2o-danube-1.8b at full width and depth, 8 prompts of
+                4096 tokens (its window ring, full) and 128 greedy
+                tokens; (b) a single-shot prefill of 2 x 6083 tokens into
+                that 4096-slot ring and a decode step, against the
+                cache-free forward; (c) OLMoE-1B-7B at full width and
+                depth, 4 prompts of 16384 tokens through its chunked
+                prefill (2 x 8192) and 64 greedy tokens, then a 512-token
+                cross-check at the drop-free capacity factor.  Prefill
+                wall, ms per decode step (mean, p99), decode tokens/s,
+                peak; decode steps under ``set_sync_debug_mode("error")``;
+                no kernel launches (the reference's cached path reaches
+                none)
 
 The kernels phase also holds the flash kernel against its plain version
 at every manifest config (f32, bf16) and at the LM path's shape (B 2,
@@ -91,8 +105,9 @@ Hq 32, Hkv 8, L 8192, D 80, causal, window 4096, bf16).
 
 ``--profile`` adds a torch.profiler pass over one warm main-path fit, one
 batched path, one prep's streaming pass at the gram phase's size, one
-``loss_fn`` at the lm shape and one serve group against its requests one
-by one (device time by kernel, the card's idle share); ``--phases`` runs a subset while iterating (e.g. ``--phases
+``loss_fn`` at the lm shape, one serve group against its requests one
+by one and 8 decode steps of each lmserve model (device time by kernel,
+the card's idle share); ``--phases`` runs a subset while iterating (e.g. ``--phases
 kernels,lm`` or ``--phases gram``).
 
 The second-to-last line is the ``kernels`` JSON object; the last line is
@@ -161,6 +176,28 @@ SERVE_ARGV = ["--workload", "concord", "--requests", str(SERVE_REQUESTS),
 #: the LM slice: h2o-danube-1.8b at full width, loss on LM_BATCHES batches
 #: of (LM_B, LM_L) tokens; the cross-check cuts it to CROSS_LAYERS layers
 LM_ARCH, LM_B, LM_L, LM_BATCHES, CROSS_LAYERS = "h2o_danube_1p8b", 2, 8192, 3, 2
+#: the lmserve phase: (a) danube serving, SERVE_LM_B prompts of
+#: SERVE_LM_PROMPT tokens (they fill its 4096-slot window ring, so the
+#: decode wraps it), then SERVE_LM_GEN greedy tokens; (b) a single-shot
+#: prefill of RING_B prompts of RING_PROMPT tokens (longer than the ring)
+#: and one decode step, against the cache-free forward (6083 and 6084
+#: keys: the "chunked" attention runs over the largest divisor <= 1024 of
+#: the key count, 869 and 1014 here, where 6143 = 1.5 x 4096 - 1 is prime
+#: and would run it over 6143 one-key chunks); (c) OLMoE serving through
+#: its native chunked prefill (OLMOE_PROMPT / prefill_chunk segments),
+#: and a cross-check on one OLMOE_CROSS-token prompt at the drop-free
+#: capacity factor n_experts / top_k
+SERVE_LM_B, SERVE_LM_PROMPT, SERVE_LM_GEN = 8, 4096, 128
+RING_B, RING_PROMPT = 2, 6083
+OLMOE_ARCH, OLMOE_B, OLMOE_PROMPT, OLMOE_GEN = "olmoe_1b_7b", 4, 16384, 64
+OLMOE_CROSS = 512
+#: bf16 serving against the cache-free forward, both through the "chunked"
+#: attention: max |logit difference| / max |logit|.  The decode step's
+#: probabilities are rounded to bf16 for P V where the cache-free route
+#: keeps them in f32, and the two prefills run their GEMMs at other
+#: shapes: a few bf16 ulps (2^-8 relative) per layer, the lm cross-check's
+#: 5e-2 on hidden states
+SERVE_LOGIT_TOL = 5e-2
 #: the flash kernel's shape on that path: (B, Hq, Hkv, L, D, window)
 FLASH_MAIN = (LM_B, 32, 8, LM_L, 80, 4096)
 #: the main shape's tolerance beside rtol, in units of each output row's
@@ -605,6 +642,273 @@ def profile_lm(torch, lm_state):
     for secs, n, key in rows[:15]:
         print(f"  {100 * secs / wall:5.1f}% {1e3 * secs:8.2f} ms x{n:<5d} "
               f"{key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# the lmserve phase: KV-cache prefill and greedy decode
+# ---------------------------------------------------------------------------
+
+def lm_prompts(torch, cfg, b: int, length: int, seed: int, dev):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.integers(0, cfg.vocab, (b, length)),
+                           dtype=torch.int32, device=dev)
+
+
+def weight_bytes(model) -> int:
+    """Bytes of the weights in the compute dtype (bf16)."""
+    return 2 * sum(p.numel() for p in model.parameters())
+
+
+def serve_lm(torch, ops, cfg, model, b: int, prompt_len: int, gen: int,
+             tag: str) -> dict:
+    """``launch.serve.serve_batch`` on ``b`` seeded prompts: prefill wall,
+    ms per decode step (mean, p99), decode tokens/s and peak memory, with
+    the decode step's bytes bound; the tokens in range, the prefill's and
+    one more decode step's logits finite, no kernel launched."""
+    from repro_torch.launch import serve
+    from repro_torch.models import layers, lm, transformer
+    dev = next(model.parameters()).device
+    prompts = lm_prompts(torch, cfg, b, prompt_len, seed=1, dev=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    stats = {}
+    t0 = time.perf_counter()
+    with layers.count_moe_drops() as tally:
+        toks = serve.serve_batch(cfg, model, prompts, gen, prompt_len + gen,
+                                 stats=stats)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launched = dict(ops.LAUNCHES)
+    cache = stats.pop("cache")
+    steps = 1e3 * np.asarray(stats["step_s"])
+    ring_bytes = 2 * cache["k"].numel() * cache["k"].element_size()
+    w_bytes = weight_bytes(model)
+    bound_ms = 1e3 * (w_bytes + ring_bytes) / PEAK_BYTES_PER_S
+    width = cache["k"].shape[3]
+    print(f"lmserve {tag}: {cfg.name} B {b} x prompt {prompt_len} "
+          f"(prefill_chunk {cfg.prefill_chunk}), {gen} greedy tokens, ring "
+          f"{width} slots x {cfg.n_layers} layers ({ring_bytes / 1e9:.2f} "
+          f"GB): prefill {1e3 * stats['prefill_s']:.1f} ms "
+          f"({b * prompt_len / stats['prefill_s']:.0f} prompt tokens/s); "
+          f"decode step mean {steps.mean():.3f} ms p50 "
+          f"{np.quantile(steps, 0.5):.3f} p99 {np.quantile(steps, 0.99):.3f}"
+          f" max {steps.max():.3f} over {len(steps)} steps = "
+          f"{b * len(steps) / (steps.sum() / 1e3):.1f} decode tokens/s; "
+          f"whole call {wall:.2f} s; peak {peak / 2**30:.2f} GiB; "
+          f"decode bound {bound_ms:.3f} ms (bytes: {w_bytes / 1e9:.2f} GB "
+          f"bf16 weights + the ring, read once); capacity dropped "
+          f"{tally.dropped} of {tally.assigned} MoE (token, expert) "
+          f"assignments, all at prefill (a decode step's B tokens fit the "
+          f"128-slot floor)")
+    print(f"lmserve {tag}: sample {toks[0, :12].tolist()}")
+    check(tuple(toks.shape) == (b, gen), f"lmserve {tag}: tokens shape")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          f"lmserve {tag}: a token outside [0, vocab)")
+    check(bool(torch.isfinite(stats["logits"][:, :cfg.vocab]).all()),
+          f"lmserve {tag}: non-finite prefill logits")
+    # one more step from the final cache, outside the timing: its logits
+    pc = lm.cast_params(cfg, model)
+    pos = torch.tensor([prompt_len + gen - 1], device=dev)
+    h, cache, _ = transformer.forward(cfg, pc, toks[:, -1:], pos,
+                                      caches=cache)
+    logits = transformer.lm_head(cfg, pc, h)[:, 0, :cfg.vocab]
+    check(bool(torch.isfinite(logits).all()),
+          f"lmserve {tag}: non-finite decode logits")
+    held = cache["pos"][0].clone()
+    # the decode loop waits for nothing: 4 more steps with every implicit
+    # host sync raising (past max_len a full-attention ring wraps; the
+    # work per step is the same)
+    decode = lm.make_decode_step(cfg)
+    nxt, at = toks[:, -1], torch.arange(prompt_len + gen,
+                                        prompt_len + gen + 4, device=dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(4):
+            cache, nxt = decode(pc, cache, nxt, at[i])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(int(held.max()) == prompt_len + gen - 1
+          and bool(((held % width) == torch.arange(width, device=dev))
+                   [held >= 0].all()),
+          f"lmserve {tag}: the ring does not hold its positions by slot")
+    check(peak < 80e9, f"lmserve {tag}: peak {peak / 1e9:.1f} GB >= 80 GB")
+    check(not any(launched.values()),
+          f"lmserve {tag}: a kernel launched on the serve path: {launched}")
+    return {"prefill_s": stats["prefill_s"], "steps_ms": steps,
+            "peak": peak, "dropped": tally.dropped, "cache": cache,
+            "pc": pc, "bound_ms": bound_ms}
+
+
+def serve_vs_forward(torch, ops, cfg, pc, prompts, last, tag: str):
+    """Single-shot prefill of ``prompts`` (b, n), then one decode step at
+    position n feeding ``last`` (b,) (None: the prefill's greedy token),
+    against the cache-free forward + ``lm_head`` over the n + 1 tokens at
+    their last position: max |d logits| / max |logit| within
+    SERVE_LOGIT_TOL, greedy tokens compared, no MoE drop, no kernel.
+    Returns the cache."""
+    from repro_torch.models import layers, lm, transformer
+    b, n = prompts.shape
+    dev = prompts.device
+    at = torch.tensor([n], device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    with layers.count_moe_drops() as tally:
+        cache = transformer.init_cache(cfg, b, n + 1, device=dev)
+        cache, plog = lm.make_prefill(cfg, n + 1)(pc, cache, prompts)
+        if last is None:
+            last = plog.argmax(-1).to(prompts.dtype)
+        # the decode step's token, then its logits (what it computes before
+        # the argmax); the second write of position n's keys is the same
+        cache, nxt = lm.make_decode_step(cfg)(pc, cache, last, at)
+        h, cache, _ = transformer.forward(cfg, pc, last[:, None], at,
+                                          caches=cache)
+        step = transformer.lm_head(cfg, pc, h)[:, 0, :cfg.vocab]
+        hf = transformer.forward(cfg, pc, torch.cat([prompts, last[:, None]],
+                                                    dim=1),
+                                 torch.arange(n + 1, device=dev))[0]
+        full = transformer.lm_head(cfg, pc, hf[:, -1:])[:, 0, :cfg.vocab]
+        torch.cuda.synchronize()
+    launched = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    rel = float((step - full).abs().max() / full.abs().max())
+    agree = int((step.argmax(-1) == full.argmax(-1)).sum())
+    width = cache["k"].shape[3]
+    print(f"lmserve {tag}: {cfg.name} B {b}, prefill {n} tokens into a "
+          f"{width}-slot ring, decode at position {n} vs the cache-free "
+          f"forward ({cfg.attention_impl}): max |d logits| / max |logit| = "
+          f"{rel:.3e} (max |logit| {float(full.abs().max()):.3f}); greedy "
+          f"tokens agree {agree}/{b}; dropped {tally.dropped} of "
+          f"{tally.assigned} MoE assignments; peak {peak / 2**30:.2f} GiB")
+    check(bool(((nxt >= 0) & (nxt < cfg.vocab)).all()),
+          f"lmserve {tag}: a token outside [0, vocab)")
+    check(peak < 80e9, f"lmserve {tag}: peak {peak / 1e9:.1f} GB >= 80 GB")
+    check(bool(torch.isfinite(step).all() and torch.isfinite(full).all()),
+          f"lmserve {tag}: non-finite logits")
+    check(rel <= SERVE_LOGIT_TOL,
+          f"lmserve {tag}: decode logits differ from the cache-free "
+          f"forward by {rel:.3e} > {SERVE_LOGIT_TOL}")
+    check(bool((nxt == step.argmax(-1)).all()),
+          f"lmserve {tag}: decode_step's token is not its logits' argmax")
+    check(tally.dropped == 0, f"lmserve {tag}: the dispatch dropped "
+          f"{tally.dropped} assignments")
+    check(not any(launched.values()),
+          f"lmserve {tag}: a kernel launched on the serve path: {launched}")
+    return cache
+
+
+def profile_decode(torch, cfg, out: dict, tag: str, steps: int = 8) -> None:
+    """Device time by kernel over ``steps`` decode steps from the serve
+    run's final cache, and the card's idle share."""
+    from repro_torch.models import lm
+    pc, cache = out["pc"], out["cache"]
+    b = cache["k"].shape[1]
+    pos0 = int(cache["pos"].max()) + 1
+    dev = cache["k"].device
+    decode = lm.make_decode_step(cfg)
+    tok = torch.zeros(b, dtype=torch.int32, device=dev)
+    pos = torch.arange(pos0, pos0 + steps, device=dev)
+
+    def run():
+        nonlocal cache
+        t = tok
+        for i in range(steps):
+            cache, t = decode(pc, cache, t, pos[i])
+        return t
+
+    # positions go on past max_len: the ring wraps, the work per step is
+    # the same
+    run()                                                   # warm
+    _, wall, busy, rows = _profile(torch, run)
+    n_kernels = sum(r[1] for r in rows)
+    print(f"profile: lmserve {tag} decode, {steps} steps, wall "
+          f"{1e3 * wall / steps:.3f} ms/step (profiled), device busy "
+          f"{1e3 * busy / steps:.3f} ms/step, idle share "
+          f"{1.0 - busy / wall:.3f}, {n_kernels / steps:.0f} kernels/step")
+    for secs, n, key in rows[:12]:
+        print(f"  {100 * secs / wall:5.1f}% {1e3 * secs / steps:7.3f} "
+              f"ms/step x{n // steps:<4d}/step {key[:90]}")
+
+
+def lmserve_phase(torch, dev, ops, lm_state: dict, profile: bool) -> None:
+    """(a) danube serving, (b) the ring past its width, (c) OLMoE serving
+    and its drop-free cross-check; the lm phase's model is reused for
+    danube (the same seeded weights) and freed before OLMoE's."""
+    from repro_torch import configs
+    from repro_torch.models import layers, transformer
+    cfg = configs.get(LM_ARCH)                     # "chunked" attention
+    model = lm_state.pop("model", None)
+    if model is None:
+        model = transformer.init_params(cfg, seed=0, device=dev)
+    lm_state.clear()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = serve_lm(torch, ops, cfg, model, SERVE_LM_B, SERVE_LM_PROMPT,
+                   SERVE_LM_GEN, "(a)")
+    if profile:
+        profile_decode(torch, cfg, out, "(a)")
+    pc = out["pc"]
+    del out
+    torch.cuda.empty_cache()
+    print(f"lmserve (a): part wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    toks = lm_prompts(torch, cfg, RING_B, RING_PROMPT + 1, seed=2, dev=dev)
+    cache = serve_vs_forward(torch, ops, cfg, pc, toks[:, :-1], toks[:, -1],
+                             "(b)")
+    held = cache["pos"][0]
+    check(cache["k"].shape[3] == cfg.window
+          and sorted(held.tolist()) == list(range(RING_PROMPT + 1
+                                                   - cfg.window,
+                                                   RING_PROMPT + 1)),
+          "lmserve (b): the ring does not hold the last window positions")
+    del model, pc, cache
+    torch.cuda.empty_cache()
+    print(f"lmserve (b): part wall {time.perf_counter() - t0:.1f} s")
+
+    cfg = configs.get(OLMOE_ARCH)
+    t0 = time.perf_counter()
+    model = transformer.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_experts}"
+          f" experts top-{cfg.top_k} (d_ff {cfg.d_ff_expert}), heads "
+          f"{cfg.n_heads}/{cfg.n_kv}, vocab {cfg.vocab}: {n_params / 1e9:.3f}e9"
+          f" {cfg.param_dtype} parameters drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # the config counts the vocab rows, the model holds the padded rows
+    pad = (cfg.vocab_pad - cfg.vocab) * cfg.d_model * (
+        1 if cfg.tie_embeddings else 2)
+    check(n_params == cfg.param_count() + pad + 2 * cfg.n_layers
+          * cfg.d_model + cfg.d_model,
+          "OLMoE's parameter count differs from the config's")
+    out = serve_lm(torch, ops, cfg, model, OLMOE_B, OLMOE_PROMPT, OLMOE_GEN,
+                   "(c)")
+    if profile:
+        profile_decode(torch, cfg, out, "(c)")
+    pc = out["pc"]
+    del out
+    torch.cuda.empty_cache()
+    # the cached path sees other token counts than the cache-free forward
+    # (512, then 1, against 513), so at the config's capacity factor they
+    # drop other assignments; at n_experts / top_k every expert holds
+    # every token and nothing can drop
+    prompt = lm_prompts(torch, cfg, 1, OLMOE_CROSS, seed=3, dev=dev)
+    with layers.count_moe_drops() as tally:
+        transformer.forward(cfg, pc, prompt,
+                            torch.arange(OLMOE_CROSS, device=dev))
+    print(f"lmserve (c) cross-check: at the config's capacity factor "
+          f"{cfg.capacity_factor} the prompt's cache-free forward drops "
+          f"{tally.dropped} of {tally.assigned} assignments; the cross-check "
+          f"runs at {cfg.n_experts // cfg.top_k}")
+    serve_vs_forward(torch, ops, cfg.with_(
+        capacity_factor=cfg.n_experts / cfg.top_k), pc, prompt, None,
+        "(c) cross-check")
+    del model, pc
+    torch.cuda.empty_cache()
+    print(f"lmserve (c): part wall {time.perf_counter() - t0:.1f} s "
+          f"(the weights' draw included)")
 
 
 # ---------------------------------------------------------------------------
@@ -2108,15 +2412,16 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="all",
                     help="comma list of kernels,main,batched,adaptive,obs,"
                          "gram,lm,dist,telemetry,serve,pathmode,cross,"
-                         "timing (default: all; device and build always "
-                         "run; telemetry and pathmode need main)")
+                         "timing,lmserve (default: all; device and build "
+                         "always run; telemetry and pathmode need main)")
     ap.add_argument("--profile", action="store_true",
                     help="after the phases, profile one warm main-path fit "
                          "and one batched path (needs the main phase), "
                          "one loss_fn (needs the lm phase) and one serve "
                          "group against its requests one by one (needs "
                          "the serve phase); the gram phase profiles one "
-                         "prep's streaming pass")
+                         "prep's streaming pass, the lmserve phase 8 "
+                         "decode steps of danube and of OLMoE")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script",
@@ -2213,6 +2518,10 @@ def main(argv=None) -> int:
     if args.profile and serve_stats is not None:
         phase("profile serve")
         profile_serve(torch, mods, dev, serve_stats)
+    if run("lmserve"):
+        phase("lmserve")
+        lmserve_phase(torch, dev, ops, lm_state or {}, args.profile)
+        lm_state = None
     if measured:
         rows = kernel_rows(kman, measured, errs, launches, smi)
         print(json.dumps({"kernels": rows}))

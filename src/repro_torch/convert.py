@@ -80,8 +80,9 @@ def lm_params_from_numpy(cfg, tree, device=None):
     ``tree`` is the reference's ``{"embed": {...}, "final": {...},
     "blocks": {name: (n_layers, ...)}}`` as nested dicts of numpy arrays
     (``jax.tree.map(np.asarray, params)``); ``blocks`` is unstacked along
-    the layer axis.  The tensors keep ``cfg.param_dtype`` (float32 master
-    weights, as in the reference)."""
+    the layer axis, whatever each tensor's trailing shape (the MoE router
+    (d, E) and experts (E, d, f) too).  The tensors keep
+    ``cfg.param_dtype`` (float32 master weights, as in the reference)."""
     from .models.transformer import DecoderLM
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.param_dtype)
@@ -95,6 +96,30 @@ def lm_params_from_numpy(cfg, tree, device=None):
         "final": {k: tensor(v) for k, v in tree["final"].items()},
         "blocks": [{k: tensor(v[i]) for k, v in blocks.items()}
                    for i in range(cfg.n_layers)]})
+
+
+def cache_from_numpy(cfg, tree, device=None):
+    """The port's serve cache (``transformer.init_cache``'s layout) from
+    the reference's decoder cache as numpy arrays: ``k`` / ``v`` (n_layers,
+    B, Hkv, W, hd) in ``cfg.dtype`` (bfloat16 arrays widen exactly on the
+    way), ``pos`` (n_layers, W) int32."""
+    dev = resolve_device(device)
+    dt = getattr(torch, cfg.dtype)
+
+    def kv(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev).to(dt)
+
+    return {"k": kv(tree["k"]), "v": kv(tree["v"]),
+            "pos": torch.tensor(np.asarray(tree["pos"], np.int32),
+                                device=dev)}
+
+
+def cache_to_numpy(cache) -> dict:
+    """A serve cache as numpy: ``k`` / ``v`` as float32 (exact for a
+    bfloat16 cache), ``pos`` as int32."""
+    return {"k": cache["k"].float().cpu().numpy(),
+            "v": cache["v"].float().cpu().numpy(),
+            "pos": cache["pos"].to(torch.int32).cpu().numpy()}
 
 
 def gram_from_numpy(result, device=None):

@@ -1,6 +1,13 @@
-"""Serving launcher: batch concurrent estimation requests through the
-batched solve engine.  Port of ``repro.launch.serve``, with the same
-flags:
+"""Serving launcher: batch concurrent requests through one engine.  Port
+of ``repro.launch.serve``, with the same flags:
+
+  * ``--workload lm`` (the default): batched prefill and greedy decode
+    over the KV cache, for the dense, MoE and vlm decoders
+    (``serve_batch``).  The ssm, hybrid and audio families raise
+    ``NotImplementedError`` naming their slice.
+
+      PYTHONPATH=src python -m repro_torch.launch.serve \\
+          --arch h2o-danube-1.8b --batch 4 --prompt-len 32 --gen 32
 
   * ``--workload concord``: a queue of concurrent estimation requests
     (multi-tenant / multi-subject solves, one dataset + penalty each) is
@@ -16,13 +23,9 @@ flags:
       PYTHONPATH=src python -m repro_torch.launch.serve --workload concord \\
           --requests 12 --batch 4 --p 64 --n 160
 
-  * ``--workload lm`` (the reference's default): batched prefill and
-    greedy decode.  It needs the LM zoo's KV caches, a later slice of the
-    port (ROADMAP item 5.1), and raises ``NotImplementedError`` until
-    then.
-
-The drain runs on the CUDA card; ``serve_concord(args, device="cpu")``
-and ``main(argv, device="cpu")`` run it on the host.
+Both run on the CUDA card; ``serve_concord(args, device="cpu")`` and
+``main(argv, device="cpu")`` run them on the host, and ``serve_batch``
+runs where its parameters and prompts are.
 """
 from __future__ import annotations
 
@@ -77,6 +80,70 @@ def _difficulty_buckets(shapes, lam1s, bsz: int):
         ordered = [idx[k] for k in np.argsort(-iters[idx], kind="stable")]
         for lo in range(0, len(ordered), bsz):
             yield ordered[lo:lo + bsz]
+
+
+def _mark(dev):
+    """A point on ``dev``'s clock: a recorded CUDA event (no host wait),
+    or the host clock on the CPU."""
+    if dev.type == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+    return time.perf_counter()
+
+
+def _seconds(a, b) -> float:
+    if isinstance(a, float):
+        return b - a
+    return a.elapsed_time(b) / 1e3
+
+
+def serve_batch(cfg, params, prompts, gen: int, max_len: int,
+                frames=None, *, stats=None):
+    """Greedy-decode ``gen`` tokens for a batch of prompts.
+
+    ``params`` is a ``DecoderLM`` (float32 master weights) and ``prompts``
+    a (B, Lp) integer tensor on the same device.  The weights are cast to
+    the compute dtype once, before the prefill (the reference casts them
+    inside every jitted step; the cast is the same round-to-nearest-even,
+    so the bits are the same).  The generated tokens stay on the device,
+    and the decode loop reads nothing back, so the host never waits on
+    the card.  Returns (B, gen) int32.
+
+    With a dict ``stats``, also fills ``prefill_s`` (the prefill and its
+    greedy token) and ``step_s`` (one entry per decode step), timed on
+    the device's clock (CUDA events; the loop still waits for nothing
+    until its end), ``logits`` (the prefill's last-position logits) and
+    ``cache`` (the cache after the last step)."""
+    from ..models import lm
+    from ..models import transformer as T
+    B, Lp = prompts.shape
+    dev = prompts.device
+    pc = lm.cast_params(cfg, params)
+    cache = T.init_cache(cfg, B, max_len, device=dev)
+    prefill = lm.make_prefill(cfg, max_len)
+    decode = lm.make_decode_step(cfg)
+    marks = [] if stats is not None else None
+    if marks is not None:
+        marks.append(_mark(dev))
+    cache, logits = prefill(pc, cache, prompts, frames)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    out = [tok]
+    if marks is not None:
+        marks.append(_mark(dev))
+    steps = torch.arange(Lp, Lp + gen - 1, device=dev)
+    for i in range(gen - 1):
+        cache, tok = decode(pc, cache, tok, steps[i])
+        out.append(tok)
+        if marks is not None:
+            marks.append(_mark(dev))
+    if marks is not None:
+        synchronize(dev)
+        stats.update(
+            prefill_s=_seconds(marks[0], marks[1]),
+            step_s=[_seconds(a, b) for a, b in zip(marks[1:-1], marks[2:])],
+            logits=logits, cache=cache)
+    return torch.stack(out, dim=1)                       # (B, gen)
 
 
 def serve_concord(args, *, device=None):
@@ -204,7 +271,7 @@ def serve_concord(args, *, device=None):
 
 def main(argv=None, *, device=None):
     """The CLI; ``device`` (not a flag: the reference has none) picks
-    where the drain runs — ``None`` is the CUDA card."""
+    where either workload runs — ``None`` is the CUDA card."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", default="lm", choices=["lm", "concord"])
     ap.add_argument("--arch", default=None,
@@ -231,10 +298,28 @@ def main(argv=None, *, device=None):
 
     if args.workload == "concord":
         return serve_concord(args, device=device)
-    raise NotImplementedError(
-        "--workload lm (batched prefill + greedy decode) needs the LM "
-        "zoo's KV caches, which arrive with a later slice of the port "
-        "(ROADMAP item 5.1); --workload concord runs")
+    if args.arch is None:
+        ap.error("--arch is required for --workload lm")
+    from .. import configs as C
+    from ..models import transformer as T
+
+    cfg = C.get_smoke(args.arch) if args.smoke else C.get(args.arch)
+    dev = resolve_device(device)
+    max_len = args.prompt_len + args.gen
+    params = T.init_params(cfg, seed=args.seed, max_len=max_len, device=dev)
+    rng = np.random.default_rng(args.seed)
+    prompts = torch.as_tensor(
+        rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)),
+        dtype=torch.int32, device=dev)
+    synchronize(dev)
+    t0 = time.perf_counter()
+    toks = serve_batch(cfg, params, prompts, args.gen, max_len)
+    synchronize(dev)
+    dt = time.perf_counter() - t0
+    n = args.batch * args.gen
+    print(f"generated {n} tokens in {dt:.2f}s ({n / dt:.1f} tok/s on {dev})")
+    print("sample:", toks[0][:16].cpu().numpy())
+    return toks
 
 
 if __name__ == "__main__":

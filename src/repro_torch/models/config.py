@@ -101,6 +101,19 @@ class ModelConfig:
     def ssm_nheads(self) -> int:
         return self.d_inner // self.ssm_headdim
 
+    @property
+    def n_experts_disp(self) -> int:
+        """Expert count seen by dispatch/buffers (virtual splits count)."""
+        if self.expert_sharding == "ep_virtual":
+            return self.n_experts * self.virtual_split
+        return self.n_experts
+
+    @property
+    def d_ff_expert_disp(self) -> int:
+        if self.expert_sharding == "ep_virtual":
+            return self.d_ff_expert // self.virtual_split
+        return self.d_ff_expert
+
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 

@@ -1,21 +1,23 @@
 """LM-zoo building blocks: norms, RoPE, GQA attention (causal / sliding
-window / softcap / qk-norm) and SwiGLU & GELU MLPs.
+window / softcap / qk-norm, with or without a ring-buffered KV cache),
+SwiGLU & GELU MLPs, and top-k MoE with capacity-bounded scatter dispatch.
 
-Port of ``repro.models.layers``, cache-free paths only.  Parameters come
-from *schemas* as in the reference: each entry is ``name -> (shape,
-logical_axes, init_scale)``, so the parameter tree and its initializer
-never drift apart.  A layer reads its parameters from any mapping ``p``
-(a dict, or a :class:`~repro_torch.models.transformer.ParamBlock`).
+Port of ``repro.models.layers``.  Parameters come from *schemas* as in
+the reference: each entry is ``name -> (shape, logical_axes,
+init_scale)``, so the parameter tree and its initializer never drift
+apart.  A layer reads its parameters from any mapping ``p`` (a dict, or
+a :class:`~repro_torch.models.transformer.ParamBlock`).
 
 The reference's numerics are kept: norms and RoPE in float32 and cast
 back to the compute dtype, rmsnorm's ``1 + scale``, RoPE on halves (not
 interleaved), attention logits in float32 and the ``-1e30`` mask
-sentinel.  Attention with a serve cache and MoE belong to later slices
-and raise ``NotImplementedError``; cross-attention comes with Whisper's
-slice.
+sentinel.  On one device the MoE dispatch is the reference's unsharded
+branch (its ``shard_map`` branch comes with the sharding helpers);
+cross-attention comes with Whisper's slice.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -25,9 +27,6 @@ from ..kernels import ops as kops
 from .config import ModelConfig
 
 NEG_INF = -1e30
-
-SERVE_SLICE = ("the serving slice (prefill/decode with caches, "
-               "lm.make_prefill / make_decode_step)")
 
 # ---------------------------------------------------------------------------
 # schema machinery
@@ -214,19 +213,62 @@ def _project_qkv(cfg: ModelConfig, p, x, prefix: str):
             v.reshape(B, L, Hkv, hd))
 
 
+def _write_ring(cache, k, v, positions):
+    """Write this call's keys, values and positions into one layer's ring,
+    in place: slot ``position % W``.  A prompt longer than the ring keeps
+    only its last W positions; they are consecutive, so their slots are
+    distinct, and they are what writing every position in order leaves."""
+    W = cache["k"].shape[2]
+    if positions.shape[0] > W:
+        k, v, positions = k[:, :, -W:], v[:, :, -W:], positions[-W:]
+    slots = (positions % W).long()
+    cache["k"].index_copy_(2, slots, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(2, slots, v.to(cache["v"].dtype))
+    cache["pos"].index_copy_(0, slots, positions.to(cache["pos"].dtype))
+
+
+def _decode_attention(cfg: ModelConfig, q, cache, positions, *, causal,
+                      window, scale):
+    """One new query per sequence against the whole ring, K/V heads kept
+    grouped (no repeat of the cache).  q: (B, Hq, 1, hd).  Logits in
+    float32 of the compute-dtype operands, softcap, the ring's position
+    mask; probabilities back in the compute dtype for P V.  Returns
+    (B, 1, Hq * hd)."""
+    B, Hq, _, hd = q.shape
+    dt = q.dtype
+    kc, vc = cache["k"].to(dt), cache["v"].to(dt)
+    Hkv = kc.shape[1]
+    qg = q.reshape(B, Hkv, Hq // Hkv, hd)
+    logits = torch.matmul(qg.float(), kc.float().transpose(-1, -2))
+    logits.mul_(scale)
+    logits = _softcap(logits, cfg.softcap)
+    keep = _attn_mask(positions, cache["pos"], causal=causal, window=window)
+    logits.masked_fill_(~keep, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(dt)
+    return torch.matmul(probs, vc).reshape(B, 1, Hq * hd)
+
+
 def attention(cfg: ModelConfig, p, x, positions, *, prefix="attn",
-              causal=True, window=None, cache=None):
-    """GQA self-attention without a cache.  x: (B, L, d); positions:
-    (L,) absolute positions.  Returns (out, None).
+              causal=True, window=None, cache=None, fresh_kv=True):
+    """GQA self-attention.  x: (B, L, d); positions: (L,) absolute
+    positions.  Returns (out, cache).
+
+    ``cache`` is None (the cache-free forward) or one layer's ring,
+    ``{"k": (B, Hkv, W, hd), "v": ..., "pos": (W,) int32}`` with
+    ``pos = -1`` on empty slots; this call's keys are written into it in
+    place and it is returned.  With a cache:
+
+      * L == 1 (decode): grouped attention over the whole ring;
+      * ``fresh_kv=False`` (a chunked-prefill segment): the memory-
+        efficient attention against the whole updated ring (its width is
+        window + segment, so no key a query needs was overwritten);
+      * ``fresh_kv=True`` (single-shot prefill): this call's keys are the
+        whole history, so it runs the cache-free formulation.
 
     ``cfg.attention_impl`` "chunked" runs the reference's memory-
     efficient online softmax (:func:`mea_attention`); any other value
-    runs the materialized einsum path ("ref").  A ``cache`` (the serve
-    path) raises ``NotImplementedError``; so does Whisper's
-    cross-attention, whose family the model refuses."""
-    if cache is not None:
-        raise NotImplementedError(
-            f"attention with a KV cache belongs to {SERVE_SLICE}")
+    runs the materialized einsum path ("ref").  Whisper's cross-attention
+    comes with its slice."""
     B, L, d = x.shape
     hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv
     dt = x.dtype
@@ -243,29 +285,46 @@ def attention(cfg: ModelConfig, p, x, positions, *, prefix="attn",
 
     scale = hd ** -0.5
     group = Hq // Hkv
-    if group > 1:
-        k = torch.repeat_interleave(k, group, dim=1)
-        v = torch.repeat_interleave(v, group, dim=1)
-    qpos = kpos = positions
+    win = 0 if window is None else int(window)
+    wo = p[f"{prefix}_wo"].to(dt)
 
-    if cfg.attention_impl == "chunked":
-        chunk = _pick_chunk(L, cfg.attn_chunk)
-        out = mea_attention(q, k, v, qpos, kpos,
-                            0 if window is None else int(window), causal,
-                            scale, cfg.softcap, chunk)
+    if cache is not None:
+        _write_ring(cache, k, v, positions)
+        if L == 1:
+            out = _decode_attention(cfg, q, cache, positions, causal=causal,
+                                    window=win, scale=scale)
+            return out @ wo, cache
+
+    if cache is not None and not fresh_kv:
+        kc, vc = cache["k"].to(dt), cache["v"].to(dt)
+        if group > 1:
+            kc = torch.repeat_interleave(kc, group, dim=1)
+            vc = torch.repeat_interleave(vc, group, dim=1)
+        out = mea_attention(q, kc, vc, positions, cache["pos"], win, causal,
+                            scale, cfg.softcap,
+                            _pick_chunk(kc.shape[2], cfg.attn_chunk))
     else:
-        # float32 logits of the compute-dtype operands (the reference's
-        # preferred_element_type=float32), masked in place
-        logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
-        logits.mul_(scale)
-        logits = _softcap(logits, cfg.softcap)
-        keep = _attn_mask(qpos, kpos, causal=causal, window=window)
-        logits.masked_fill_(~keep[None, None], NEG_INF)
-        probs = torch.softmax(logits, dim=-1).to(dt)
-        del logits
-        out = torch.matmul(probs, v)
+        if group > 1:
+            k = torch.repeat_interleave(k, group, dim=1)
+            v = torch.repeat_interleave(v, group, dim=1)
+        if cfg.attention_impl == "chunked":
+            out = mea_attention(q, k, v, positions, positions, win, causal,
+                                scale, cfg.softcap,
+                                _pick_chunk(L, cfg.attn_chunk))
+        else:
+            # float32 logits of the compute-dtype operands (the reference's
+            # preferred_element_type=float32), masked in place
+            logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+            logits.mul_(scale)
+            logits = _softcap(logits, cfg.softcap)
+            keep = _attn_mask(positions, positions, causal=causal,
+                              window=win)
+            logits.masked_fill_(~keep[None, None], NEG_INF)
+            probs = torch.softmax(logits, dim=-1).to(dt)
+            del logits
+            out = torch.matmul(probs, v)
     out = out.to(dt).transpose(1, 2).reshape(B, L, -1)
-    return out @ p[f"{prefix}_wo"].to(dt), None
+    return out @ wo, cache
 
 
 def attention_flash(cfg: ModelConfig, p, x, positions, *, prefix="attn",
@@ -324,15 +383,169 @@ def apply_mlp(cfg: ModelConfig, p, x, prefix: str = "mlp"):
 
 
 # ---------------------------------------------------------------------------
-# MoE
+# MoE (token-choice top-k, capacity-bounded scatter dispatch)
 # ---------------------------------------------------------------------------
 
-MOE_SLICE = "the MoE slice (apply_moe, expert dispatch)"
-
-
 def moe_schema(cfg: ModelConfig, prefix: str = "moe"):
-    raise NotImplementedError(f"{cfg.name}: MoE layers belong to {MOE_SLICE}")
+    d = cfg.d_model
+    # weights stored at DISPATCH granularity: with "ep_virtual" each
+    # expert is split into virtual_split f-slices that behave as
+    # independent experts (y = x Wg1 Wd1 + x Wg2 Wd2 is exact)
+    E, f = cfg.n_experts_disp, cfg.d_ff_expert_disp
+    return {
+        f"{prefix}_router": ((d, cfg.n_experts), ("embed", "expert"),
+                             fan_in(d)),
+        f"{prefix}_wg": ((E, d, f), ("expert", "embed", "expert_mlp"),
+                         fan_in(d)),
+        f"{prefix}_wu": ((E, d, f), ("expert", "embed", "expert_mlp"),
+                         fan_in(d)),
+        f"{prefix}_wd": ((E, f, d), ("expert", "expert_mlp", "embed"),
+                         fan_in(f)),
+    }
+
+
+CAPACITY_QUANTUM = 4096  # divisible by any (pod x data) shard count
+
+
+def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    c = int(math.ceil(n_tokens * cfg.top_k * cfg.capacity_factor
+                      / cfg.n_experts))
+    q = CAPACITY_QUANTUM if n_tokens >= CAPACITY_QUANTUM else 128
+    return max(q, -(-c // q) * q)
+
+
+def positions_in_expert(flat_ids, n_experts: int):
+    """Position of each assignment within its expert, in flat order: an
+    exact int32 prefix count over a (n, E) hit matrix.  (The reference's
+    block-triangular matmul is a TPU device for the same numbers.)"""
+    n = flat_ids.shape[0]
+    ids = flat_ids.long()[:, None]
+    hits = torch.zeros((n, n_experts), dtype=torch.int32,
+                       device=flat_ids.device).scatter_(1, ids, 1)
+    counts = torch.cumsum(hits, dim=0, dtype=torch.int32)
+    return counts.gather(1, ids)[:, 0] - 1
+
+
+def router_top_k(logits, k: int):
+    """``lax.top_k``: the k largest per row, descending, equal values in
+    ascending index order (a stable sort; ``torch.topk`` promises no
+    order among ties, and bf16 router logits do tie)."""
+    vals, ids = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[..., :k], ids[..., :k]
+
+
+class DropTally:
+    """Assignments a :func:`count_moe_drops` block dispatched, and those
+    capacity dropped; the count stays on the device until the block
+    closes."""
+
+    def __init__(self):
+        self.assigned = 0
+        self.dropped = 0
+        self._dropped = None
+
+    def add(self, keep):
+        n = (~keep).sum()
+        self._dropped = n if self._dropped is None else self._dropped + n
+        self.assigned += keep.numel()
+
+    def close(self):
+        if self._dropped is not None:
+            self.dropped = int(self._dropped)
+
+
+_DROP_TALLY: DropTally | None = None
+
+
+@contextlib.contextmanager
+def count_moe_drops():
+    """Count the (token, expert) assignments that every :func:`apply_moe`
+    inside the block drops for capacity.  Yields a :class:`DropTally`
+    whose ``dropped`` is read (one host sync) when the block closes;
+    outside a block nothing is counted."""
+    global _DROP_TALLY
+    tally, prev = DropTally(), _DROP_TALLY
+    _DROP_TALLY = tally
+    try:
+        yield tally
+    finally:
+        _DROP_TALLY = prev
+        tally.close()
+
+
+def _moe_dispatch_local(cfg: ModelConfig, xt, router, c_loc: int):
+    """Router -> top-k -> positions within each expert -> scatter into a
+    (E, c_loc, d) capacity buffer.  Kept slots are distinct; dropped
+    assignments go to a sentinel row that is thrown away, so the scatter
+    is deterministic.  Returns (buf, slot, gates, keep, (me_sum, ce_sum))
+    as the reference does."""
+    dt = xt.dtype
+    E, K = cfg.n_experts, cfg.top_k
+    t_loc, d = xt.shape
+    logits = (xt @ router.to(dt)).float()
+    gate_vals, ids = router_top_k(logits, K)
+    gates = torch.softmax(gate_vals, dim=-1)
+
+    # load-balance aux (Switch-style): softmax mass and selection count
+    # per expert, summed over the tokens
+    me_sum = torch.softmax(logits, dim=-1).sum(dim=0)
+    ce_sum = torch.zeros(E, dtype=torch.float32, device=xt.device)
+    ce_sum.index_add_(0, ids.reshape(-1),
+                      torch.ones(ids.numel(), dtype=torch.float32,
+                                 device=xt.device))
+
+    if cfg.expert_sharding == "ep_virtual":
+        # expand each assignment to its virtual f-slices; same gate on
+        # every slice (their partial outputs sum to the expert output)
+        v = cfg.virtual_split
+        ids = (ids[..., None] * v + torch.arange(
+            v, device=ids.device)).reshape(t_loc, K * v)
+        gates = torch.repeat_interleave(gates, v, dim=-1)
+        E, K = E * v, K * v
+
+    flat_ids = ids.reshape(-1)
+    pos = positions_in_expert(flat_ids, E)
+    keep = pos < c_loc
+    slot = torch.where(keep, flat_ids * c_loc + pos, E * c_loc)
+    xr = xt[:, None].expand(t_loc, K, d).reshape(t_loc * K, d)
+    buf = torch.zeros((E * c_loc + 1, d), dtype=dt, device=xt.device)
+    buf.index_copy_(0, slot, xr)
+    return buf[:-1].view(E, c_loc, d), slot, gates, keep, (me_sum, ce_sum)
+
+
+def _moe_combine_local(out_e_loc, slot, gates, keep, K: int):
+    """Gather each assignment's expert output back to its token, weighted
+    by its gate (0 where dropped), and sum over the token's K."""
+    E, c_loc, d = out_e_loc.shape
+    flat = out_e_loc.reshape(E * c_loc, d)
+    g = flat[slot.clamp(max=E * c_loc - 1)]
+    g = g * (gates.reshape(-1)[:, None] * keep[:, None]).to(flat.dtype)
+    return g.view(-1, K, d).sum(dim=1)                    # (T, d)
 
 
 def apply_moe(cfg: ModelConfig, p, x, prefix: str = "moe"):
-    raise NotImplementedError(f"{cfg.name}: MoE layers belong to {MOE_SLICE}")
+    """x: (B, L, d).  Token-choice top-k with capacity and dropping.
+    Returns (out, aux_loss).
+
+    The reference's unsharded branch: one dispatch over all B * L tokens
+    into an (E, C, d) buffer, every expert's MLP over its C slots as one
+    batched product, and the combine.  ``expert_sharding`` "ep" and "tp"
+    differ only in how the reference shards the weights, so on one device
+    they run alike; "ep_virtual" dispatches to the f-slices."""
+    B, L, d = x.shape
+    dt = x.dtype
+    E, K = cfg.n_experts, cfg.top_k
+    K_comb = K * (cfg.virtual_split
+                  if cfg.expert_sharding == "ep_virtual" else 1)
+    T = B * L
+    C = moe_capacity(cfg, T)
+    buf, slot, gates, keep, (me_s, ce_s) = _moe_dispatch_local(
+        cfg, x.reshape(T, d), p[f"{prefix}_router"], C)
+    if _DROP_TALLY is not None:
+        _DROP_TALLY.add(keep)
+    aux = E * torch.sum((me_s / T) * (ce_s / T))
+    wg, wu, wd = (p[f"{prefix}_{w}"].to(dt) for w in ("wg", "wu", "wd"))
+    h = F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
+    out_e = torch.bmm(h, wd)                              # (E, C, d)
+    out = _moe_combine_local(out_e, slot, gates, keep, K_comb)
+    return out.reshape(B, L, d), aux

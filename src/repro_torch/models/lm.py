@@ -1,10 +1,11 @@
-"""Loss evaluation of the LM zoo.
+"""Loss evaluation and serving of the LM zoo.
 
 Port of ``repro.models.lm``'s ``Batch``, ``cross_entropy``,
-``cast_params`` and ``loss_fn``: the cache-free forward of a batch and
-its mean next-token cross entropy.  The train step (gradients, AdamW,
-microbatching), prefill and decode with caches, and the sharding helpers
-belong to later slices.
+``cast_params``, ``loss_fn``, ``make_prefill`` and ``make_decode_step``:
+the cache-free forward of a batch and its mean next-token cross entropy,
+and the serve path's prefill (single-shot or chunked) and greedy decode
+step over the ring-buffered KV cache.  The train step (gradients, AdamW,
+microbatching) and the sharding helpers belong to later slices.
 """
 from __future__ import annotations
 
@@ -79,9 +80,51 @@ def make_train_step(cfg: ModelConfig, *args, **kwargs):
 
 
 def make_prefill(cfg: ModelConfig, max_len: int):
-    raise NotImplementedError("make_prefill belongs to the serving slice")
+    """prefill(params, cache, tokens) -> (cache, last_logits).
+
+    ``tokens`` (B, L) fill the cache from position 0, which is written in
+    place and returned; ``last_logits`` (B, V_pad) float32 are the last
+    position's.  With ``cfg.prefill_chunk`` > 0 dividing a longer L, the
+    prompt goes through in segments against the cache (chunked prefill):
+    peak activation memory drops from O(L) to O(chunk).  ``frames`` (the
+    enc-dec input) keeps the reference's signature; its family belongs to
+    Whisper's slice."""
+
+    def prefill(params, cache, tokens, frames=None):
+        B, L = tokens.shape
+        dev = tokens.device
+        ck = cfg.prefill_chunk
+        if ck and L > ck and L % ck == 0 and not cfg.enc_dec:
+            for start in range(0, L, ck):
+                positions = torch.arange(start, start + ck, device=dev)
+                hidden, cache, _ = T.forward(
+                    cfg, params, tokens[:, start:start + ck], positions,
+                    caches=cache, fresh_kv=False)
+        else:
+            positions = torch.arange(L, device=dev)
+            hidden, cache, _ = T.forward(cfg, params, tokens, positions,
+                                         caches=cache)
+        logits = T.lm_head(cfg, params, hidden[:, -1:])
+        return cache, logits[:, 0]
+
+    return prefill
 
 
 def make_decode_step(cfg: ModelConfig):
-    raise NotImplementedError("make_decode_step belongs to the serving "
-                              "slice")
+    """decode(params, cache, token (B,), step) -> (cache, next (B,)).
+
+    ``step`` is the new token's position: a one-element tensor on the
+    cache's device (no host copy, so a decode loop never waits on the
+    card), or an int.  The cache is written in place and returned;
+    ``next`` is the greedy token, in ``token``'s dtype."""
+
+    def decode(params, cache, token, step):
+        positions = (step.reshape(1) if torch.is_tensor(step)
+                     else torch.tensor([int(step)], device=token.device))
+        hidden, cache, _ = T.forward(cfg, params, token[:, None], positions,
+                                     caches=cache)
+        logits = T.lm_head(cfg, params, hidden)
+        nxt = torch.argmax(logits[:, 0], dim=-1).to(token.dtype)
+        return cache, nxt
+
+    return decode

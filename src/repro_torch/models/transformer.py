@@ -1,15 +1,22 @@
-"""Model assembly of the LM zoo: the decoder-only families, cache-free.
+"""Model assembly of the LM zoo: the decoder-only families, with and
+without the serve path's KV cache.
 
-Port of ``repro.models.transformer`` for the dense and vlm families.
-The reference keeps its parameters as a pytree with the layers stacked
-for ``lax.scan``; the port keeps them in a :class:`DecoderLM` module
-whose ``blocks`` is a ``ModuleList`` of one :class:`ParamBlock` per
-layer, each holding the schema's names as its parameters, and runs the
-layers in a Python loop.  ``forward``, ``lm_head`` and ``init_params``
-keep the reference's names.
+Port of ``repro.models.transformer`` for the dense, MoE and vlm
+families.  The reference keeps its parameters as a pytree with the
+layers stacked for ``lax.scan``; the port keeps them in a
+:class:`DecoderLM` module whose ``blocks`` is a ``ModuleList`` of one
+:class:`ParamBlock` per layer, each holding the schema's names as its
+parameters, and runs the layers in a Python loop.  ``forward``,
+``lm_head``, ``init_params`` and ``init_cache`` keep the reference's
+names.
 
-The MoE, SSM, hybrid and enc-dec families, and the serve path with
-caches, belong to later slices and raise ``NotImplementedError``.
+The cache is the reference's stacked tree, ``{"k", "v": (n_layers, B,
+Hkv, W, hd), "pos": (n_layers, W)}``; each layer writes its slice in
+place, so the cache is never double-buffered (the reference's
+``_serve_loop`` carries it through a ``fori_loop`` for the same end).
+
+The SSM, hybrid and enc-dec families belong to later slices and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,7 +28,6 @@ from . import layers as L
 from .config import ModelConfig
 
 _FAMILY_SLICE = {
-    "moe": L.MOE_SLICE,
     "ssm": "the SSM slice (models/ssm.py, Mamba2 blocks)",
     "hybrid": "the hybrid slice (Zamba2's shared attention over Mamba2)",
     "audio": "the Whisper slice (encoder, cross-attention)",
@@ -29,12 +35,11 @@ _FAMILY_SLICE = {
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    fam = "audio" if cfg.enc_dec else ("moe" if cfg.n_experts
-                                       else cfg.family)
+    fam = "audio" if cfg.enc_dec else cfg.family
     if fam in _FAMILY_SLICE:
         raise NotImplementedError(
             f"{cfg.name}: the {fam} family belongs to {_FAMILY_SLICE[fam]}; "
-            f"the port runs the dense and vlm decoders")
+            f"the port runs the dense, MoE and vlm decoders")
 
 
 # ---------------------------------------------------------------------------
@@ -76,8 +81,8 @@ def model_schema(cfg: ModelConfig, max_len: int = 0):
 class ParamBlock(nn.Module):
     """A flat group of named tensors (one schema), read as a mapping:
     ``p["attn_wq"]``, ``"attn_qnorm" in p``.  The tensors are parameters
-    without gradients: this slice evaluates the loss, and the train step
-    that differentiates it is a later slice."""
+    without gradients: the port evaluates the loss and serves, and the
+    train step that differentiates it is a later slice."""
 
     def __init__(self, tensors: dict):
         super().__init__()
@@ -152,18 +157,16 @@ def window_pattern(cfg: ModelConfig) -> list[int]:
 # ---------------------------------------------------------------------------
 
 def apply_decoder_block(cfg: ModelConfig, p, h, positions, window,
-                        cache=None):
-    if cache is not None:
-        raise NotImplementedError(
-            f"decoder blocks with a cache belong to {L.SERVE_SLICE}")
+                        cache=None, fresh_kv=True):
     x = L.apply_norm(cfg, p, "ln1", h)
-    if cfg.attention_impl == "flash":
+    if cfg.attention_impl == "flash" and cache is None:
         # as in the reference: the flash branch takes the config's uniform
-        # window, not the per-layer one
+        # window, not the per-layer one, and the cached paths never take it
         a, new_cache = L.attention_flash(cfg, p, x, positions,
                                          window=cfg.window)
     else:
-        a, new_cache = L.attention(cfg, p, x, positions, window=window)
+        a, new_cache = L.attention(cfg, p, x, positions, window=window,
+                                   cache=cache, fresh_kv=fresh_kv)
     if cfg.post_norm:
         a = L.apply_norm(cfg, p, "pn1", a)
     h = h + a
@@ -194,23 +197,27 @@ def _embed(cfg: ModelConfig, params, tokens, positions):
 
 
 def forward(cfg: ModelConfig, params: DecoderLM, tokens, positions, *,
-            caches=None):
-    """Token ids -> final hidden states, without a cache.
+            caches=None, fresh_kv=True):
+    """Token ids -> final hidden states.
 
-    Returns (hidden, None, aux_loss) as the reference does on its train
-    path; ``caches`` (the serve path) and the non-decoder families raise
+    Returns (hidden, caches, aux_loss) as the reference does.  ``caches``
+    is None (the cache-free forward) or the tree from :func:`init_cache`,
+    written in place and returned; the cached path returns a zero aux
+    loss, as the reference's does.  The non-decoder families raise
     ``NotImplementedError``."""
     _check_family(cfg)
-    if caches is not None:
-        raise NotImplementedError(
-            f"the forward with caches belongs to {L.SERVE_SLICE}")
     h = _embed(cfg, params, tokens, positions)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for p, w in zip(params.blocks, window_pattern(cfg)):
-        h, _, a = apply_decoder_block(cfg, p, h, positions, w)
-        aux = aux + a
+    for layer, (p, w) in enumerate(zip(params.blocks, window_pattern(cfg))):
+        if caches is None:
+            h, _, a = apply_decoder_block(cfg, p, h, positions, w)
+            aux = aux + a
+        else:
+            h, _, _ = apply_decoder_block(
+                cfg, p, h, positions, w, cache=layer_cache(caches, layer),
+                fresh_kv=fresh_kv)
     h = L.apply_norm(cfg, params.final, "fn", h)
-    return h, None, aux
+    return h, caches, aux
 
 
 def lm_head(cfg: ModelConfig, params: DecoderLM, h):
@@ -225,3 +232,44 @@ def lm_head(cfg: ModelConfig, params: DecoderLM, h):
     if cfg.vocab_pad != cfg.vocab:
         logits[..., cfg.vocab:] = L.NEG_INF
     return logits
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+def cache_width(cfg: ModelConfig, max_len: int) -> int:
+    """Ring slots per layer: ``max_len``; under a sliding window, window +
+    the chunked-prefill segment (a segment is written before any of its
+    queries reads, so the ring must hold both); under ``local_global``
+    the widest layer's width."""
+    if cfg.local_global:
+        widths = [cfg.local_window if layer % 2 == 0 else max_len
+                  for layer in range(cfg.n_layers)]
+        return max(min(w, max_len) for w in widths)
+    if cfg.window:
+        return min(max_len, cfg.window + cfg.prefill_chunk)
+    return max_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    """The serve path's cache on ``device`` (default: the CUDA card):
+    ``{"k", "v": zeros (n_layers, batch, Hkv, W, hd) in the compute
+    dtype, "pos": (n_layers, W) int32 of -1 (empty)}``, W from
+    :func:`cache_width`.  A sliding-window model ring-buffers only its
+    window, which is what makes long decodes fit."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    dt = getattr(torch, cfg.dtype)
+    width = cache_width(cfg, max_len)
+    shape = (cfg.n_layers, batch, cfg.n_kv, width, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev),
+            "pos": torch.full((cfg.n_layers, width), -1, dtype=torch.int32,
+                              device=dev)}
+
+
+def layer_cache(caches, layer: int) -> dict:
+    """Views of one layer's ring in the stacked cache; writes to them land
+    in the stack."""
+    return {name: caches[name][layer] for name in ("k", "v", "pos")}

@@ -264,13 +264,44 @@ def test_init_process_group_does_not_pick_gloo_on_its_own(no_cuda):
 
 def test_lm_entry_points_do_not_fall_back_to_the_cpu(no_cuda):
     from repro_torch import configs
+    from repro_torch.launch import serve
     from repro_torch.models import transformer
     cfg = configs.get_smoke("h2o_danube_1p8b")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        transformer.init_params(cfg)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        convert.lm_params_from_numpy(cfg, {"embed": {}, "final": {},
-                                           "blocks": {}})
+    for call in (lambda: transformer.init_params(cfg),
+                 lambda: transformer.init_cache(cfg, 1, 8),
+                 lambda: convert.lm_params_from_numpy(
+                     cfg, {"embed": {}, "final": {}, "blocks": {}}),
+                 lambda: convert.cache_from_numpy(
+                     cfg, {"k": np.zeros(1), "v": np.zeros(1),
+                           "pos": np.zeros(1)}),
+                 lambda: serve.main(["--arch", "h2o-danube-1.8b",
+                                     "--smoke"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_lm_serving_runs_with_jax_blocked():
+    """``launch.serve --workload lm --smoke`` (a dense and an MoE decoder)
+    imports and runs with JAX and the JAX package blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "from repro_torch.launch import serve\n"
+        "for arch in ('h2o-danube-1.8b', 'olmoe-1b-7b'):\n"
+        "    toks = serve.main(['--workload', 'lm', '--arch', arch,\n"
+        "                       '--smoke', '--batch', '2', '--gen', '8'],\n"
+        "                      device='cpu')\n"
+        "    assert tuple(toks.shape) == (2, 8), toks.shape\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO / "src")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
 
 
 def test_chip_smoke_refuses_without_a_card_or_the_repo(tmp_path):

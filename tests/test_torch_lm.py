@@ -30,8 +30,7 @@ import _torch_parity  # noqa: F401  (pins torch to one thread)
 
 DECODERS = ("h2o_danube_1p8b", "qwen2p5_3b", "qwen1p5_110b", "gemma2_27b",
             "chameleon_34b")
-LATER = {"mixtral_8x22b": "MoE", "olmoe_1b_7b": "MoE",
-         "mamba2_130m": "SSM", "zamba2_7b": "hybrid",
+LATER = {"mamba2_130m": "SSM", "zamba2_7b": "hybrid",
          "whisper_small": "Whisper"}
 IMPLS = ("flash", "ref", "chunked")
 B, L = 2, 64
@@ -189,24 +188,36 @@ def test_later_families_raise(name):
 
 
 def test_cached_paths_and_moe_raise():
+    """The cached paths and the MoE layer run (their parity with the
+    reference is in ``test_torch_lm_serve.py`` and ``test_torch_moe.py``);
+    only the train step still raises."""
     cfg = tconfigs.get_smoke("h2o_danube_1p8b").with_(dtype="float32")
     model = tT.init_params(cfg, device="cpu")
     tok = torch.zeros((1, 8), dtype=torch.long)
     pos = torch.arange(8)
-    with pytest.raises(NotImplementedError, match="serving"):
-        tT.forward(cfg, model, tok, pos, caches={})
+    caches = tT.init_cache(cfg, 1, 16, device="cpu")
+    h, out, _ = tT.forward(cfg, model, tok, pos, caches=caches)
+    assert out is caches and h.shape == (1, 8, cfg.d_model)
+    assert caches["pos"][:, :8].tolist() == [list(range(8))] * cfg.n_layers
     x = torch.zeros((1, 8, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="serving"):
-        tL.attention(cfg, model.blocks[0], x, pos, cache={})
-    with pytest.raises(NotImplementedError, match="serving"):
-        tT.apply_decoder_block(cfg, model.blocks[0], x, pos, 32, cache={})
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tL.apply_moe(cfg, model.blocks[0], x)
-    for fn, args in ((tlm.make_prefill, (cfg, 8)),
-                     (tlm.make_decode_step, (cfg,)),
-                     (tlm.make_train_step, (cfg,))):
-        with pytest.raises(NotImplementedError):
-            fn(*args)
+    cache = tT.layer_cache(tT.init_cache(cfg, 1, 16, device="cpu"), 0)
+    a, c = tL.attention(cfg, model.blocks[0], x, pos, cache=cache)
+    assert c is cache and a.shape == x.shape and bool(cache["pos"][7] == 7)
+    h, c, aux = tT.apply_decoder_block(cfg, model.blocks[0], x, pos, 32,
+                                       cache=cache)
+    assert c is cache and h.shape == x.shape and aux == 0.0
+    moe = tconfigs.get_smoke("olmoe_1b_7b").with_(dtype="float32")
+    m, aux = tL.apply_moe(moe, tT.init_params(moe, device="cpu").blocks[0],
+                          torch.zeros((1, 8, moe.d_model)))
+    assert m.shape == (1, 8, moe.d_model) and float(aux) > 0
+    prefill = tlm.make_prefill(cfg, 16)
+    caches, logits = prefill(model, tT.init_cache(cfg, 1, 16, device="cpu"),
+                             tok)
+    assert logits.shape == (1, cfg.vocab_pad)
+    caches, nxt = tlm.make_decode_step(cfg)(model, caches, tok[:, 0], 8)
+    assert nxt.shape == (1,) and bool(caches["pos"][0, 8] == 8)
+    with pytest.raises(NotImplementedError, match="train-step"):
+        tlm.make_train_step(cfg)
 
 
 def test_flash_route_counts_no_launch_on_the_cpu():

@@ -2,7 +2,9 @@
 ``--workload concord`` micro-batching drain (bucketing, tail padding,
 dropped padding, the batched-vs-sequential agreement), its parity with
 ``repro.launch.serve`` on the same arguments, the obs latency split, and
-``--workload lm`` refusing until its slice."""
+the CLI's ``--workload lm`` (its parity with the reference is in
+``test_torch_lm_serve.py``), which refuses the families of later
+slices."""
 import argparse
 
 import numpy as np
@@ -141,8 +143,11 @@ def test_main_runs_concord_and_refuses_lm():
                   "2", "--p", "12", "--n", "40", "--max-iters", "40"],
                  device="cpu")
     assert stats.n_groups == 2 and len(stats.reports) == 3
-    with pytest.raises(NotImplementedError, match="5.1"):
-        main(["--arch", "h2o-danube-1.8b", "--smoke"], device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
+    toks = main(["--arch", "h2o-danube-1.8b", "--smoke"], device="cpu")
+    assert toks.shape == (4, 32) and toks.dtype == torch.int32
+    assert bool(((toks >= 0) & (toks < 256)).all())
+    with pytest.raises(SystemExit):                 # --arch is required
         main([], device="cpu")
+    with pytest.raises(NotImplementedError, match="SSM slice"):
+        main(["--arch", "mamba2-130m", "--smoke"], device="cpu")
 
