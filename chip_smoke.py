@@ -84,7 +84,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 time, plain-version time, library time (kernel 2: the
                 dense product and PyTorch's f64 BSR product), and the
                 bound
- 12. lmserve    LM serving through ``launch.serve.serve_batch`` (after the
+ 12. calibrate  kernel 2 against the dense product at p = 16384, block 128,
+                m = 16384 (Cov's Omega S) and 1200 (Obs's Omega X^T) over
+                block densities 1/128 to 1 (seeded masks built by
+                ``matops.block_mask``), CUDA events; the rows, the fitted
+                ``BlockSparseModel`` and its residuals, both crossovers
+                (data sheet, fitted) beside ``CARD_BLOCK_MODEL``'s; kernel
+                2 against its plain version at two of the rows
+ 12b. brain     the paper's Section 5 pipeline
+                (``examples/torch_brain_clustering.py``) on a 128 x 128
+                cortex (p = 16384) of 64 regions, n = 1200 frames drawn on
+                the card: a warm ``fit_path`` per lam2 in {0.05, 0.1} over
+                lam1 in {0.12, 0.16, 0.2, 0.25} through kernels 1 and 2
+                (``sparse_matmul="auto"``: the card's calibrated
+                threshold), the watershed at eps 0 / 1 / 2, label
+                propagation, the thresholded-covariance baseline, the
+                example's assertion (hard); the chosen point cold through
+                the kernels and at the reference example's config (dense,
+                no kernel): support agreement, counts, max |dOmega|
+ 13. lmserve    LM serving through ``launch.serve.serve_batch`` (after the
                 profiles; it reuses and then frees the lm phase's model):
                 (a) h2o-danube-1.8b at full width and depth, 8 prompts of
                 4096 tokens (its window ring, full) and 128 greedy
@@ -172,6 +190,19 @@ SERVE_REQUESTS, SERVE_BATCH, SERVE_P, SERVE_N = 16, 4, 4096, 1200
 SERVE_ARGV = ["--workload", "concord", "--requests", str(SERVE_REQUESTS),
               "--batch", str(SERVE_BATCH), "--p", str(SERVE_P), "--n",
               str(SERVE_N), "--obs", "summary"]
+
+#: the calibrate phase: kernel 2 against the dense product at P_MAIN x m for
+#: m in CAL_MS (Cov's Omega S; Obs's Omega X^T at the brain cell's n) over
+#: CAL_DENSITIES block densities; kernel 2 held against its plain version
+#: at the (m, density) pairs of CAL_PLAIN (the plain gather at m = P_MAIN
+#: and density 0.3 would take 82 GB)
+CAL_MS = (P_MAIN, N_OBS)
+CAL_DENSITIES = (1 / 128, 0.02, 0.05, 0.1, 0.2, 0.3, 0.5, 0.7, 1.0)
+CAL_PLAIN = {(P_MAIN, 0.02), (N_OBS, 0.3)}
+#: the brain phase: examples/torch_brain_clustering.py's pipeline on a
+#: BRAIN_SIDE x BRAIN_SIDE cortex (p = 16384) of BRAIN_REGION^2-vertex
+#: regions (64), BRAIN_N frames (HCP's per resting-state run)
+BRAIN_SIDE, BRAIN_REGION, BRAIN_N, BRAIN_SEED = 128, 16, 1200, 0
 
 #: the LM slice: h2o-danube-1.8b at full width, loss on LM_BATCHES batches
 #: of (LM_B, LM_L) tokens; the cross-check cuts it to CROSS_LAYERS layers
@@ -2222,6 +2253,233 @@ def path_mode_costs(torch, mods, state) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phases 12b-12c: the crossover's calibration and the Section 5 pipeline
+# ---------------------------------------------------------------------------
+
+def calibrate_phase(torch, mods, ref, dev) -> None:
+    """Kernel 2 against the dense product at p = P_MAIN, block BLOCK, for
+    m in CAL_MS over CAL_DENSITIES (block masks drawn from a seeded
+    generator, built by ``matops.block_mask`` as the dispatch builds
+    them), CUDA-event times; the rows refit ``BlockSparseModel``
+    (``calibrate_block_model``) and both models' crossovers are printed
+    beside the committed ``CARD_BLOCK_MODEL``."""
+    from repro_torch.core import costmodel as cm
+    from repro_torch.core import matops
+    from repro_torch.kernels import manifest as kman
+    ops = mods[3]
+    p, bs = P_MAIN, BLOCK
+    nb = p // bs
+    gen = torch.Generator(device=dev).manual_seed(11)
+    a_full = torch.randn((p, p), generator=gen, dtype=torch.float64,
+                         device=dev)
+    tol = kman.entry("blocksparse_matmul")["rtol"]["float64"]
+    rows = []
+    for m in CAL_MS:
+        b = torch.randn((p, m), generator=gen, dtype=torch.float64,
+                        device=dev)
+        reps = 5 if m >= 4096 else 20
+        for d in CAL_DENSITIES:
+            occ = max(1, round(d * nb * nb))
+            keep = torch.zeros(nb * nb, dtype=torch.bool, device=dev)
+            keep[torch.randperm(nb * nb, generator=gen, device=dev)[:occ]] \
+                = True
+            keep = keep.reshape(nb, nb)
+            a = a_full * keep.repeat_interleave(bs, 0) \
+                .repeat_interleave(bs, 1)
+            mask = matops.block_mask(a, bs)
+            check(torch.equal(mask > 0, keep), "block_mask != drawn mask")
+            ops.reset_launches()
+            t_sparse = time_ms(torch, lambda: matops.masked_matmul(
+                a, b, mask, block_size=bs, capacity=occ), reps, 1)
+            check(ops.LAUNCHES["blocksparse_matmul"] == reps + 1,
+                  "calibrate: the sparse branch did not launch kernel 2")
+            t_dense = time_ms(torch, lambda: a @ b, reps, 1)
+            row = {"p": p, "m": m, "block_size": bs, "density": occ / nb**2,
+                   "occupied": occ, "t_dense": 1e-3 * t_dense,
+                   "t_sparse": 1e-3 * t_sparse}
+            if (m, d) in CAL_PLAIN:
+                got = matops.masked_matmul(a, b, mask, block_size=bs,
+                                           capacity=occ)
+                want = ref.masked_matmul(a, b, mask, block_size=bs,
+                                         capacity=occ)
+                err = float((got - want).abs().max())
+                check(torch.allclose(got, want, rtol=tol, atol=tol),
+                      f"calibrate: kernel 2 disagrees with its plain "
+                      f"version at m={m}, density {d}: {err:.3e}")
+                row["max_abs_err"] = err
+                del got, want
+                torch.cuda.empty_cache()
+            rows.append(row)
+            print(f"calibrate: m={m:5d} density {row['density']:.4f} "
+                  f"({occ:5d} blocks): dense {t_dense:9.3f} ms, kernel 2 "
+                  f"{t_sparse:9.3f} ms"
+                  + (f", vs plain max abs err {row['max_abs_err']:.3e}"
+                     if "max_abs_err" in row else ""))
+            del a, mask
+        del b
+    del a_full
+    torch.cuda.empty_cache()
+    fit = cm.calibrate_block_model(rows)
+    print(f"calibrate: fitted BlockSparseModel(dense_eff={fit.dense_eff!r}, "
+          f"sparse_eff={fit.sparse_eff!r}, gather_eff={fit.gather_eff!r}) "
+          f"over the H100 data sheet; committed CARD_BLOCK_MODEL "
+          f"{cm.CARD_BLOCK_MODEL}")
+    for r in rows:
+        pred = cm.blocksparse_matmul_time(r["p"], r["m"], r["density"], bs,
+                                          model=fit)
+        print(f"calibrate: residual m={r['m']:5d} density "
+              f"{r['density']:.4f}: kernel 2 {1e3 * r['t_sparse']:.3f} ms, "
+              f"fit {1e3 * pred:.3f} ms ({pred / r['t_sparse'] - 1:+.1%}); "
+              f"dense {1e3 * r['t_dense']:.3f} ms, fit "
+              f"{1e3 * cm.dense_matmul_time(r['p'], r['m'], model=fit):.3f}"
+              f" ms")
+    for m in CAL_MS:
+        print(f"calibrate: crossover at p={p} m={m} block {bs}: data sheet "
+              f"{cm.crossover_density(p, m, bs):.4f}, this fit "
+              f"{cm.crossover_density(p, m, bs, model=fit):.4f}, "
+              f"CARD_BLOCK_MODEL "
+              f"{cm.crossover_density(p, m, bs, model=cm.CARD_BLOCK_MODEL):.4f}")
+    print("calibrate rows: " + json.dumps(rows))
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def support_agreement(clustering, om_a, om_b, tol: float) -> str:
+    """Edges in one support and not the other, vertices whose degree
+    differs, and max |dOmega| between two estimates on the card."""
+    sa = clustering.estimate_support(om_a, tol)
+    sb = clustering.estimate_support(om_b, tol)
+    diff_edges = int((sa ^ sb).sum()) // 2
+    edges = int(sa.sum()) // 2
+    deg_diff = int((clustering.degrees_from_support(sa)
+                    != clustering.degrees_from_support(sb)).sum())
+    d_om = float((om_a - om_b).abs().max())
+    return (f"{edges} edges, {diff_edges} in one support only, {deg_diff} "
+            f"vertices of another degree, max |dOmega| {d_om:.3e}")
+
+
+def brain_phase(torch, mods, dev) -> None:
+    """The Section 5 pipeline (``examples/torch_brain_clustering.py``) at
+    a BRAIN_SIDE^2 cortex of BRAIN_REGION^2 regions, n = BRAIN_N frames
+    drawn on the card: the full (lam1, lam2) grid through kernels 1 and 2
+    with ``sparse_matmul="auto"`` (the card's calibrated threshold), the
+    host clustering, the baseline and the example's assertion; then the
+    chosen point cold, through the kernels and at the reference example's
+    own config (dense, no kernel)."""
+    from repro_torch.core import clustering
+    from repro_torch.core.costmodel import crossover_density
+    from repro_torch.estimator.backends import _matmul_policy
+    _, est_mod, _, ops = mods
+    brain = load_example("torch_brain_clustering")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(BRAIN_SEED + 1)
+    omega0, labels, x, nbrs, side = brain.make_region_problem(
+        BRAIN_SIDE, BRAIN_REGION, BRAIN_N, BRAIN_SEED, generator=gen)
+    s = brain.sample_covariance(x, dev)
+    n, p = x.shape
+    del x
+    torch.cuda.synchronize()
+    print(f"brain: cortex {side}x{side} (p={p}), {labels.max() + 1} "
+          f"regions of {BRAIN_REGION}x{BRAIN_REGION}, n={n} frames drawn "
+          f"on the card, S in {time.perf_counter() - t0:.1f} s; lam1 grid "
+          f"{brain.LAM1_GRID} x lam2 {brain.LAM2_GRID}: sqrt(log p / n) = "
+          f"{np.sqrt(np.log(p) / n):.4f} here, "
+          f"{np.sqrt(np.log(144) / 600):.4f} at the example's p=144 n=600")
+    config = est_mod.SolverConfig(
+        backend="reference", variant="cov", tol=1e-5, max_iters=250,
+        use_pallas=True, sparse_matmul="auto", sparse_block=BLOCK,
+        dtype="float64", device=str(dev))
+    thr = _matmul_policy(config, p, p, dev).threshold
+    print(f"brain: sparse_matmul='auto' threshold on the card "
+          f"{thr:.4f} (CARD_BLOCK_MODEL); the data-sheet model's "
+          f"{crossover_density(p, p, BLOCK):.4f}")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = brain.run_pipeline(s, n, labels, nbrs, config=config)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    trials = 0
+    for lam2, path in res.paths.items():
+        for r in path:
+            trials += r.ls_total
+            deg = res.degrees[(r.lam1, lam2)]
+            jac = " ".join(f"eps {e:g}: {res.scores[(r.lam1, lam2, e)]:.4f}"
+                           for e in brain.EPS_GRID)
+            print(f"brain: lam1={r.lam1} lam2={lam2} iters={r.iters} "
+                  f"trials={r.ls_total} converged={r.converged} "
+                  f"stalled={r.stalled} block density {r.block_density:.4f}"
+                  f" wall {r.wall_time_s:.2f} s, {int(deg.sum()) // 2} "
+                  f"edges; Jaccard {jac}")
+            check(bool(torch.isfinite(r.omega).all()),
+                  f"brain: non-finite estimate at lam1={r.lam1}")
+    score, lam1, lam2, eps, ph, _ = res.best
+    print(f"brain: persistent homology best Jaccard {score:.4f} (lam1={lam1}"
+          f", lam2={lam2}, eps={eps}, {ph.max() + 1} clusters); label "
+          f"propagation {res.lp_score:.4f} ({res.lp.max() + 1} clusters); "
+          f"thresholded-cov baseline "
+          + ", ".join(f"keep {k}: {v:.4f}" for k, v in res.baseline.items())
+          + f" (best {res.baseline_best:.4f})")
+    print(f"brain: path wall {res.path_wall_s:.2f} s ({trials} trials, "
+          f"{1e3 * res.path_wall_s / trials:.1f} ms/trial), graphs on the "
+          f"card {res.graph_wall_s:.2f} s, host clustering "
+          f"{res.cluster_wall_s:.2f} s, pipeline {wall:.2f} s; peak "
+          f"{peak / 2**30:.1f} GiB; launches {launches}")
+    try:
+        brain.check_result(res)
+    except AssertionError as exc:
+        fail(f"brain: {exc}")
+    check(launches["fused_prox_stats"] == trials,
+          "brain: fused prox launches != line-search trials")
+    check(launches["blocksparse_matmul"] > 0,
+          "brain: kernel 2 never ran on the pipeline's path")
+    chosen = res.paths[lam2].reports[
+        [r.lam1 for r in res.paths[lam2]].index(lam1)]
+    del res
+    torch.cuda.empty_cache()
+
+    # the chosen point cold: through the kernels, and at the reference
+    # example's own config (dense, no kernel)
+    cold = {}
+    for name, kw in (("kernels", dict(use_pallas=True, sparse_matmul="auto",
+                                      sparse_block=BLOCK)),
+                     ("dense", {})):
+        cfg = est_mod.SolverConfig(backend="reference", variant="cov",
+                                   tol=1e-5, max_iters=250, dtype="float64",
+                                   device=str(dev), **kw)
+        ops.reset_launches()
+        rep = est_mod.ConcordEstimator(lam1=lam1, lam2=lam2, config=cfg) \
+            .fit_cov(s, n_samples=n).report_
+        cold[name] = rep
+        print(f"brain cross-check: cold {name} lam1={lam1} lam2={lam2}: "
+              f"iters={rep.iters} trials={rep.ls_total} converged="
+              f"{rep.converged} wall {rep.wall_time_s:.2f} s launches "
+              f"{dict(ops.LAUNCHES)}")
+        if name == "dense":
+            check(not any(ops.LAUNCHES.values()),
+                  "brain: the dense cross-check launched a kernel")
+    dense = cold["dense"].omega
+    print(f"brain cross-check: cold kernels vs cold dense: "
+          f"{support_agreement(clustering, cold['kernels'].omega, dense, brain.SUPPORT_TOL)}")
+    print(f"brain cross-check: the path's warm point vs cold dense: "
+          f"{support_agreement(clustering, chosen.omega, dense, brain.SUPPORT_TOL)}")
+    check(cold["dense"].converged, "brain: the dense cross-check did not "
+          "converge")
+    del cold, chosen, dense, s
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 7: timing
 # ---------------------------------------------------------------------------
 
@@ -2412,8 +2670,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="all",
                     help="comma list of kernels,main,batched,adaptive,obs,"
                          "gram,lm,dist,telemetry,serve,pathmode,cross,"
-                         "timing,lmserve (default: all; device and build "
-                         "always run; telemetry and pathmode need main)")
+                         "timing,calibrate,brain,lmserve (default: all; "
+                         "device and build always run; telemetry and "
+                         "pathmode need main)")
     ap.add_argument("--profile", action="store_true",
                     help="after the phases, profile one warm main-path fit "
                          "and one batched path (needs the main phase), "
@@ -2518,6 +2777,12 @@ def main(argv=None) -> int:
     if args.profile and serve_stats is not None:
         phase("profile serve")
         profile_serve(torch, mods, dev, serve_stats)
+    if run("calibrate"):
+        phase("calibrate")
+        calibrate_phase(torch, mods, ref, dev)
+    if run("brain"):
+        phase("brain")
+        brain_phase(torch, mods, dev)
     if run("lmserve"):
         phase("lmserve")
         lmserve_phase(torch, dev, ops, lm_state or {}, args.profile)

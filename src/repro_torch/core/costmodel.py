@@ -2,7 +2,8 @@
 
 A copy of the parts of ``repro.core.costmodel`` that the port decides
 with: the variant tuner behind ``variant="auto"``, the dense <->
-block-sparse crossover behind ``sparse_matmul="auto"``, the streaming
+block-sparse crossover behind ``sparse_matmul="auto"`` and its
+calibration from measured rows (``calibrate_block_model``), the streaming
 Gram's chunk-size guidance (``gram_chunk_rows``), the batched path
 engine's difficulty model and ``fit_path(mode="auto")`` decision, and
 the exact communication volume of the 1.5D products (``comm_volume``).
@@ -11,16 +12,17 @@ the exact communication volume of the 1.5D products (``comm_volume``).
 
 with machine constants gamma (s/flop), alpha (s/message), beta (s/word).
 The port's default machine is :data:`H100`, whose constants are NVIDIA's
-data-sheet figures for one H100 SXM card.  They are NOT measured on this
-system; a calibration run (``benchmarks/sparse_crossover.py`` once it is
-ported) replaces them.  The reference's TPU constants play no part in the
-port's decisions.  The path-scheduling constants (trials per iteration,
-the iteration power law, the gemm step-cost and pilot factors) are the
-reference's, copied unchanged so both packages schedule a grid alike;
-they are ratios the reference measured for itself on a CPU host, not
-measurements of the port.  The one exception is :data:`CARD_STEP_COST`,
-the step costs measured on the H100, with which ``fit_path(mode="auto")``
-decides on a CUDA device.
+data-sheet figures for one H100 SXM card, not measurements.  The
+reference's TPU constants play no part in the port's decisions.  The
+path-scheduling constants (trials per iteration, the iteration power law,
+the gemm step-cost and pilot factors) are the reference's, copied
+unchanged so both packages schedule a grid alike; they are ratios the
+reference measured for itself on a CPU host, not measurements of the
+port.  Two sets of constants are measured on the H100 and decide on a
+CUDA device: :data:`CARD_STEP_COST`, the step costs with which
+``fit_path(mode="auto")`` picks a mode, and :data:`CARD_BLOCK_MODEL`, the
+dense <-> block-sparse crossover fitted from ``chip_smoke.py`` phase
+``calibrate``.
 """
 from __future__ import annotations
 
@@ -180,8 +182,8 @@ class BlockSparseModel:
       T_sparse(p, m, d)  = 2 d p^2 m gamma / sparse_eff
                          + d nb (2 bs m + bs^2) w / B / gather_eff
 
-    The efficiencies are the reference's conservative defaults; they are
-    not measured on the H100."""
+    The defaults are the reference's conservative efficiencies, not
+    measured on the H100; :data:`CARD_BLOCK_MODEL` is."""
     dense_eff: float = 0.85
     sparse_eff: float = 0.45
     gather_eff: float = 0.50
@@ -220,6 +222,54 @@ def crossover_density(p: int, m: int, block_size: int,
     if ts1 <= 0.0:
         return 1.0
     return max(0.0, min(1.0, td / ts1))
+
+
+def calibrate_block_model(rows, machine: Machine | None = None
+                          ) -> BlockSparseModel:
+    """Refit :class:`BlockSparseModel` from measured sweep rows (dicts with
+    ``p``, ``m``, ``block_size``, ``density``, ``t_dense``, ``t_sparse``),
+    as ``repro.core.costmodel.calibrate_block_model`` fits them: the
+    median dense efficiency, then a least-squares fit of the two sparse
+    coefficients.  ``chip_smoke.py`` phase ``calibrate`` makes the rows
+    on the card."""
+    import numpy as np
+
+    machine = machine or H100
+    rows = [r for r in rows if r.get("t_dense", 0) > 0 and
+            r.get("t_sparse", 0) > 0]
+    if not rows:
+        raise ValueError("no usable rows to calibrate from")
+    dense_effs = [2.0 * r["p"] ** 2 * r["m"] * machine.gamma / r["t_dense"]
+                  for r in rows]
+    dense_eff = float(np.median(dense_effs))
+    # least squares for the two sparse-path coefficients
+    a = np.array([[2.0 * r["density"] * r["p"] ** 2 * r["m"] * machine.gamma,
+                   r["density"] * _nb_total(r["p"], r["block_size"])
+                   * (2.0 * r["block_size"] * r["m"] + r["block_size"] ** 2)
+                   * machine.word_bytes / machine.hbm_bw]
+                  for r in rows])
+    y = np.array([r["t_sparse"] for r in rows])
+    coef, *_ = np.linalg.lstsq(a, y, rcond=None)
+    inv_sparse_eff = max(float(coef[0]), 1e-12)
+    inv_gather_eff = max(float(coef[1]), 1e-12)
+    return BlockSparseModel(dense_eff=max(dense_eff, 1e-12),
+                            sparse_eff=1.0 / inv_sparse_eff,
+                            gather_eff=1.0 / inv_gather_eff)
+
+
+#: the crossover's constants measured on the H100 (NVIDIA H100 80GB HBM3,
+#: 700.00 W): ``calibrate_block_model`` over :data:`H100` of ``chip_smoke.py``
+#: phase ``calibrate``'s rows (p = 16384, block 128, m = 16384 and 1200,
+#: block densities 1/128 to 1; PERF.md section 6).  The fit's
+#: flop coefficient came out negative and is clamped (``sparse_eff``
+#: 1e12), so kernel 2 is priced by its gathered bytes alone: crossovers
+#: 0.520 at m = 16384 and 0.496 at m = 1200, where the rows cross near
+#: 0.70 and 0.68.  ``sparse_matmul="auto"`` routes with it when the
+#: solve's device is CUDA and with the data-sheet
+#: :class:`BlockSparseModel` on the CPU.
+CARD_BLOCK_MODEL = BlockSparseModel(dense_eff=0.8349614649979095,
+                                    sparse_eff=1e12,
+                                    gather_eff=0.544698968616549)
 
 
 def gram_chunk_rows(p: int, *, machine: Machine | None = None,

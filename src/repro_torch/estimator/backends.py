@@ -30,8 +30,8 @@ from ..comm.grid import Grid1p5D
 from ..comm.group import world_size
 from ..core import distributed as dist
 from ..core import matops, prox
-from ..core.costmodel import (H100, ProblemShape, crossover_density,
-                              enumerate_configs, tune)
+from ..core.costmodel import (CARD_BLOCK_MODEL, H100, ProblemShape,
+                              crossover_density, enumerate_configs, tune)
 from ..core.distributed import estimate_density
 from ..core.penalty import PenaltySpec, as_penalty, penalty_value
 from ..device import resolve_device, synchronize
@@ -170,10 +170,12 @@ def _problem_shape(problem: Problem, lam1: float,
     return ProblemShape(p=problem.p, n=problem.n, d=d)
 
 
-def _matmul_policy(config: SolverConfig, p: int,
-                   m: int) -> matops.MatmulPolicy | None:
+def _matmul_policy(config: SolverConfig, p: int, m: int,
+                   device) -> matops.MatmulPolicy | None:
     """Resolve the config's sparse_matmul knobs into a routing policy for
-    an Omega-side product with ``m`` output columns."""
+    an Omega-side product with ``m`` output columns on ``device``.  On a
+    CUDA device ``"auto"`` takes the crossover of the constants measured
+    on the H100 (``CARD_BLOCK_MODEL``), elsewhere the data-sheet model's."""
     mode = config.sparse_matmul
     if mode == "off":
         return None
@@ -181,7 +183,9 @@ def _matmul_policy(config: SolverConfig, p: int,
         thr = (config.sparse_threshold if config.sparse_threshold is not None
                else DEFAULT_SPARSE_THRESHOLD)
     else:  # auto
-        thr = crossover_density(p, m, config.sparse_block)
+        on_card = torch.device(device).type == "cuda"
+        thr = crossover_density(p, m, config.sparse_block,
+                                model=CARD_BLOCK_MODEL if on_card else None)
         if config.sparse_threshold is not None:
             thr = min(thr, config.sparse_threshold)
     if thr <= 0.0:
@@ -315,7 +319,8 @@ def reference_backend(problem: Problem, penalty, config: SolverConfig,
             raise ValueError("Obs variant requires the data matrix x")
         data = _cast(problem.x, config)
     policy = _matmul_policy(
-        config, problem.p, problem.p if variant == "cov" else problem.n)
+        config, problem.p, problem.p if variant == "cov" else problem.n,
+        data.device)
     res, wall, telemetry = _solve_with_obs(
         config, "reference", variant, lambda: prox.solve_reference(
             data, penalty=spec, omega0=omega0, variant=variant,
@@ -402,9 +407,10 @@ def distributed_backend(problem: Problem, penalty, config: SolverConfig,
     grid = Grid1p5D(n_dev, c_x, c_omega)
     if variant != "cov" and problem.x is None:
         raise ValueError("Obs variant requires the data matrix x")
-    policy = _matmul_policy(
-        config, problem.p, problem.p if variant == "cov" else problem.n)
     data = _cast(problem.cov() if variant == "cov" else problem.x, config)
+    policy = _matmul_policy(
+        config, problem.p, problem.p if variant == "cov" else problem.n,
+        data.device)
     fit = dist.fit_cov if variant == "cov" else dist.fit_obs
     # the sparse policy's mask traffic has no analytic twin: only the
     # dense dispatch is reconciled

@@ -196,7 +196,8 @@ class ConcordEstimator:
         step_cost = None
         if dev.type == "cuda":
             m = problem.n if self.config.variant == "obs" else problem.p
-            sparse = _matmul_policy(self.config, problem.p, m) is not None
+            sparse = _matmul_policy(self.config, problem.p, m,
+                                    dev) is not None
             step_cost = CARD_STEP_COST["blocksparse" if sparse else "dense"]
         return choose_path_mode(
             grid,

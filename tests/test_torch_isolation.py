@@ -1,6 +1,7 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package, and the entry points refuse to run on
-the CPU unless asked to."""
+"""The port stands alone: ``repro_torch``, its examples
+(``examples/torch_*.py``) and ``chip_smoke.py`` import neither JAX nor
+the JAX package, and the entry points refuse to run on the CPU unless
+asked to."""
 import ast
 import os
 import subprocess
@@ -20,7 +21,8 @@ SMOKE = REPO / "chip_smoke.py"
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [SMOKE]
+    return (sorted(PORT.rglob("*.py"))
+            + sorted((REPO / "examples").glob("torch_*.py")) + [SMOKE])
 
 
 def _imports(path: Path):
@@ -316,3 +318,52 @@ def test_chip_smoke_refuses_without_a_card_or_the_repo(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def _example(name):
+    import importlib.util
+    path = REPO / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", ["torch_quickstart",
+                                  "torch_brain_clustering",
+                                  "torch_replication_study"])
+def test_examples_do_not_fall_back_to_the_cpu(no_cuda, name):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _example(name).main([])
+
+
+def test_clustering_and_examples_run_with_jax_blocked():
+    """The Section 5 pipeline (``core.clustering`` through the brain
+    example's ``run_pipeline``) imports and runs with JAX and the JAX
+    package blocked."""
+    code = (
+        "import sys, importlib.util\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"path = {str(REPO / 'examples' / 'torch_brain_clustering.py')!r}\n"
+        "spec = importlib.util.spec_from_file_location('brain', path)\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "sys.modules['brain'] = mod\n"
+        "spec.loader.exec_module(mod)\n"
+        "om, labels, x, nbrs, side = mod.make_region_problem(8, 4, 300)\n"
+        "s = mod.sample_covariance(x, 'cpu')\n"
+        "cfg = mod.SolverConfig(backend='reference', variant='cov',\n"
+        "                       tol=1e-5, max_iters=250, device='cpu')\n"
+        "res = mod.run_pipeline(s, 300, labels, nbrs, config=cfg,\n"
+        "                       lam2_grid=(0.05,), lam1_grid=(0.16,))\n"
+        "assert 0.0 < res.best[0] <= 1.0 and len(res.baseline) == 3\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO / "src")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")

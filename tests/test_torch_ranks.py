@@ -345,3 +345,18 @@ def obs_cli(rank, argv):
     """``obs.cli.main`` inside the rank group; returns its exit code."""
     from repro_torch.obs import cli
     return cli.main(list(argv), device="cpu")
+
+
+def replication_sweep(rank):
+    """``examples/torch_replication_study.py``'s ``main`` inside the rank
+    group; its rows with the estimates as numpy."""
+    import importlib.util
+    from pathlib import Path
+    path = (Path(__file__).resolve().parents[1] / "examples"
+            / "torch_replication_study.py")
+    spec = importlib.util.spec_from_file_location("torch_replication_study",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    rows = mod.main([], device="cpu")
+    return [dict(r, omega=r["omega"].numpy()) for r in rows]
