@@ -116,6 +116,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 peak; decode steps under ``set_sync_debug_mode("error")``;
                 no kernel launches (the reference's cached path reaches
                 none)
+ 14. zoo        the LM zoo's last three families at full width and depth,
+                random seeded weights: (a) Zamba2-7B (81 layers: 27
+                groups of the shared attention block + 3 Mamba2 layers)
+                ``loss_fn`` on 2 batches of 2 x 4096, ``serve_batch`` on 4
+                x 4096 prompts + 64 tokens, a cross-check at a 6-layer cut;
+                (b) Mamba2-130M, 8 x 4096 + 128; (c) Whisper-small (12 +
+                12 layers, 1500 seeded frames), 8 x 64 + 192 within its
+                448-token context; each also ``loss_fn`` and one decode
+                step against the cache-free forward in bf16 and f32.
+                Prefill wall, ms per decode step (mean, p99), decode
+                tokens/s, peak, the cache by part, kernel-4 launches (0:
+                the reference routes none of them through flash)
 
 The kernels phase also holds the flash kernel against its plain version
 at every manifest config (f32, bf16) and at the LM path's shape (B 2,
@@ -124,8 +136,8 @@ Hq 32, Hkv 8, L 8192, D 80, causal, window 4096, bf16).
 ``--profile`` adds a torch.profiler pass over one warm main-path fit, one
 batched path, one prep's streaming pass at the gram phase's size, one
 ``loss_fn`` at the lm shape, one serve group against its requests one
-by one and 8 decode steps of each lmserve model (device time by kernel,
-the card's idle share); ``--phases`` runs a subset while iterating (e.g. ``--phases
+by one and 8 decode steps of each lmserve and zoo model (device time by
+kernel, the card's idle share); ``--phases`` runs a subset while iterating (e.g. ``--phases
 kernels,lm`` or ``--phases gram``).
 
 The second-to-last line is the ``kernels`` JSON object; the last line is
@@ -229,6 +241,27 @@ OLMOE_CROSS = 512
 #: shapes: a few bf16 ulps (2^-8 relative) per layer, the lm cross-check's
 #: 5e-2 on hidden states
 SERVE_LOGIT_TOL = 5e-2
+#: the zoo phase: the LM zoo's last three families at full width and
+#: depth, random seeded weights.  (a) Zamba2-7B: ``loss_fn`` on
+#: ZAMBA_LOSS_BATCHES batches of (ZAMBA_LOSS_B, ZAMBA_LOSS_L), serving
+#: ZAMBA_B prompts of ZAMBA_PROMPT tokens + ZAMBA_GEN greedy tokens, and
+#: the cross-check at a ZAMBA_CUT-layer cut (2 groups at shared_every 3);
+#: (b) Mamba2-130M: MAMBA_B x MAMBA_PROMPT + MAMBA_GEN; (c) Whisper-small
+#: (12 + 12 layers, enc_len 1500): WHISPER_B seeded frame sets, a
+#: WHISPER_PROMPT-token prompt + WHISPER_GEN tokens, its learned positions
+#: sized at its WHISPER_CTX-token text context.  Each part's cross-check
+#: prefills ZOO_CROSS_B prompts of ZOO_CROSS_PROMPT tokens (not a multiple
+#: of the SSD's 256-token chunk: the zero padding; Whisper's WHISPER_CTX -
+#: 1) and decodes one step, against the cache-free forward, in bf16
+#: (SERVE_LOGIT_TOL) and in f32 (ZOO_F32_TOL, the CPU tests'
+#: decode-vs-forward tolerance)
+ZAMBA_ARCH, ZAMBA_LOSS_B, ZAMBA_LOSS_L, ZAMBA_LOSS_BATCHES = (
+    "zamba2_7b", 2, 4096, 2)
+ZAMBA_B, ZAMBA_PROMPT, ZAMBA_GEN, ZAMBA_CUT = 4, 4096, 64, 6
+MAMBA_ARCH, MAMBA_B, MAMBA_PROMPT, MAMBA_GEN = "mamba2_130m", 8, 4096, 128
+WHISPER_ARCH, WHISPER_B, WHISPER_PROMPT, WHISPER_GEN, WHISPER_CTX = (
+    "whisper_small", 8, 64, 192, 448)
+ZOO_CROSS_B, ZOO_CROSS_PROMPT, ZOO_F32_TOL = 2, 4095, 2e-3
 #: the flash kernel's shape on that path: (B, Hq, Hkv, L, D, window)
 FLASH_MAIN = (LM_B, 32, 8, LM_L, 80, 4096)
 #: the main shape's tolerance beside rtol, in units of each output row's
@@ -690,12 +723,26 @@ def weight_bytes(model) -> int:
     return 2 * sum(p.numel() for p in model.parameters())
 
 
+def cache_leaves(tree: dict, prefix=()) -> list:
+    """[(path, tensor)] of every leaf of a cache tree."""
+    out = []
+    for name, t in tree.items():
+        if isinstance(t, dict):
+            out += cache_leaves(t, prefix + (name,))
+        else:
+            out.append((prefix + (name,), t))
+    return out
+
+
 def serve_lm(torch, ops, cfg, model, b: int, prompt_len: int, gen: int,
-             tag: str) -> dict:
-    """``launch.serve.serve_batch`` on ``b`` seeded prompts: prefill wall,
-    ms per decode step (mean, p99), decode tokens/s and peak memory, with
-    the decode step's bytes bound; the tokens in range, the prefill's and
-    one more decode step's logits finite, no kernel launched."""
+             tag: str, frames=None) -> dict:
+    """``launch.serve.serve_batch`` on ``b`` seeded prompts (and Whisper's
+    ``frames``): prefill wall, ms per decode step (mean, p99), decode
+    tokens/s, peak memory and the cache by part (KV rings, SSM state,
+    ``enc_out``), with the decode step's bytes bound; the tokens in
+    range, the prefill's and one more decode step's logits finite, every
+    ring holding its positions by slot, 4 more steps with every host
+    sync raising, no kernel launched (kernel 4's count printed)."""
     from repro_torch.launch import serve
     from repro_torch.models import layers, lm, transformer
     dev = next(model.parameters()).device
@@ -707,21 +754,30 @@ def serve_lm(torch, ops, cfg, model, b: int, prompt_len: int, gen: int,
     t0 = time.perf_counter()
     with layers.count_moe_drops() as tally:
         toks = serve.serve_batch(cfg, model, prompts, gen, prompt_len + gen,
-                                 stats=stats)
+                                 frames=frames, stats=stats)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     launched = dict(ops.LAUNCHES)
     cache = stats.pop("cache")
     steps = 1e3 * np.asarray(stats["step_s"])
-    ring_bytes = 2 * cache["k"].numel() * cache["k"].element_size()
+    parts, rings = {}, []
+    for path, t in cache_leaves(cache):
+        if path[-1] == "pos":
+            rings.append(t)
+            continue
+        key = ("SSM state" if path[-1] in ("conv", "h") else
+               "enc_out" if path[-1] == "enc_out" else "KV rings")
+        parts[key] = parts.get(key, 0) + t.numel() * t.element_size()
+    c_bytes = sum(parts.values())
     w_bytes = weight_bytes(model)
-    bound_ms = 1e3 * (w_bytes + ring_bytes) / PEAK_BYTES_PER_S
-    width = cache["k"].shape[3]
-    print(f"lmserve {tag}: {cfg.name} B {b} x prompt {prompt_len} "
-          f"(prefill_chunk {cfg.prefill_chunk}), {gen} greedy tokens, ring "
-          f"{width} slots x {cfg.n_layers} layers ({ring_bytes / 1e9:.2f} "
-          f"GB): prefill {1e3 * stats['prefill_s']:.1f} ms "
+    bound_ms = 1e3 * (w_bytes + c_bytes) / PEAK_BYTES_PER_S
+    split = ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in parts.items())
+    slots = (f", rings of {rings[0].shape[-1]} slots x "
+             f"{sum(r.shape[0] for r in rings)}" if rings else "")
+    print(f"{tag}: {cfg.name} B {b} x prompt {prompt_len} (prefill_chunk "
+          f"{cfg.prefill_chunk}), {gen} greedy tokens, cache ({split}"
+          f"{slots}): prefill {1e3 * stats['prefill_s']:.1f} ms "
           f"({b * prompt_len / stats['prefill_s']:.0f} prompt tokens/s); "
           f"decode step mean {steps.mean():.3f} ms p50 "
           f"{np.quantile(steps, 0.5):.3f} p99 {np.quantile(steps, 0.99):.3f}"
@@ -729,16 +785,16 @@ def serve_lm(torch, ops, cfg, model, b: int, prompt_len: int, gen: int,
           f"{b * len(steps) / (steps.sum() / 1e3):.1f} decode tokens/s; "
           f"whole call {wall:.2f} s; peak {peak / 2**30:.2f} GiB; "
           f"decode bound {bound_ms:.3f} ms (bytes: {w_bytes / 1e9:.2f} GB "
-          f"bf16 weights + the ring, read once); capacity dropped "
+          f"bf16 weights + the cache, read once); capacity dropped "
           f"{tally.dropped} of {tally.assigned} MoE (token, expert) "
           f"assignments, all at prefill (a decode step's B tokens fit the "
-          f"128-slot floor)")
-    print(f"lmserve {tag}: sample {toks[0, :12].tolist()}")
-    check(tuple(toks.shape) == (b, gen), f"lmserve {tag}: tokens shape")
+          f"128-slot floor); kernel-4 launches {launched['flash_attention']}")
+    print(f"{tag}: sample {toks[0, :12].tolist()}")
+    check(tuple(toks.shape) == (b, gen), f"{tag}: tokens shape")
     check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
-          f"lmserve {tag}: a token outside [0, vocab)")
+          f"{tag}: a token outside [0, vocab)")
     check(bool(torch.isfinite(stats["logits"][:, :cfg.vocab]).all()),
-          f"lmserve {tag}: non-finite prefill logits")
+          f"{tag}: non-finite prefill logits")
     # one more step from the final cache, outside the timing: its logits
     pc = lm.cast_params(cfg, model)
     pos = torch.tensor([prompt_len + gen - 1], device=dev)
@@ -746,8 +802,15 @@ def serve_lm(torch, ops, cfg, model, b: int, prompt_len: int, gen: int,
                                       caches=cache)
     logits = transformer.lm_head(cfg, pc, h)[:, 0, :cfg.vocab]
     check(bool(torch.isfinite(logits).all()),
-          f"lmserve {tag}: non-finite decode logits")
-    held = cache["pos"][0].clone()
+          f"{tag}: non-finite decode logits")
+    check(all(bool(torch.isfinite(t.float()).all())
+              for _, t in cache_leaves(cache)), f"{tag}: non-finite cache")
+    for held in rings:
+        width = held.shape[-1]
+        check(int(held.max()) == prompt_len + gen - 1
+              and bool(((held % width) == torch.arange(width, device=dev))
+                       [held >= 0].all()),
+              f"{tag}: a ring does not hold its positions by slot")
     # the decode loop waits for nothing: 4 more steps with every implicit
     # host sync raising (past max_len a full-attention ring wraps; the
     # work per step is the same)
@@ -760,16 +823,13 @@ def serve_lm(torch, ops, cfg, model, b: int, prompt_len: int, gen: int,
             cache, nxt = decode(pc, cache, nxt, at[i])
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    check(int(held.max()) == prompt_len + gen - 1
-          and bool(((held % width) == torch.arange(width, device=dev))
-                   [held >= 0].all()),
-          f"lmserve {tag}: the ring does not hold its positions by slot")
-    check(peak < 80e9, f"lmserve {tag}: peak {peak / 1e9:.1f} GB >= 80 GB")
+    check(peak < 80e9, f"{tag}: peak {peak / 1e9:.1f} GB >= 80 GB")
     check(not any(launched.values()),
-          f"lmserve {tag}: a kernel launched on the serve path: {launched}")
+          f"{tag}: a kernel launched on the serve path: {launched}")
     return {"prefill_s": stats["prefill_s"], "steps_ms": steps,
             "peak": peak, "dropped": tally.dropped, "cache": cache,
-            "pc": pc, "bound_ms": bound_ms}
+            "pc": pc, "bound_ms": bound_ms, "b": b,
+            "pos0": prompt_len + gen + 4}
 
 
 def serve_vs_forward(torch, ops, cfg, pc, prompts, last, tag: str):
@@ -834,10 +894,8 @@ def profile_decode(torch, cfg, out: dict, tag: str, steps: int = 8) -> None:
     """Device time by kernel over ``steps`` decode steps from the serve
     run's final cache, and the card's idle share."""
     from repro_torch.models import lm
-    pc, cache = out["pc"], out["cache"]
-    b = cache["k"].shape[1]
-    pos0 = int(cache["pos"].max()) + 1
-    dev = cache["k"].device
+    pc, cache, b, pos0 = out["pc"], out["cache"], out["b"], out["pos0"]
+    dev = next(pc.parameters()).device
     decode = lm.make_decode_step(cfg)
     tok = torch.zeros(b, dtype=torch.int32, device=dev)
     pos = torch.arange(pos0, pos0 + steps, device=dev)
@@ -854,7 +912,7 @@ def profile_decode(torch, cfg, out: dict, tag: str, steps: int = 8) -> None:
     run()                                                   # warm
     _, wall, busy, rows = _profile(torch, run)
     n_kernels = sum(r[1] for r in rows)
-    print(f"profile: lmserve {tag} decode, {steps} steps, wall "
+    print(f"profile: {tag} decode, {steps} steps, wall "
           f"{1e3 * wall / steps:.3f} ms/step (profiled), device busy "
           f"{1e3 * busy / steps:.3f} ms/step, idle share "
           f"{1.0 - busy / wall:.3f}, {n_kernels / steps:.0f} kernels/step")
@@ -877,9 +935,9 @@ def lmserve_phase(torch, dev, ops, lm_state: dict, profile: bool) -> None:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     out = serve_lm(torch, ops, cfg, model, SERVE_LM_B, SERVE_LM_PROMPT,
-                   SERVE_LM_GEN, "(a)")
+                   SERVE_LM_GEN, "lmserve (a)")
     if profile:
-        profile_decode(torch, cfg, out, "(a)")
+        profile_decode(torch, cfg, out, "lmserve (a)")
     pc = out["pc"]
     del out
     torch.cuda.empty_cache()
@@ -915,9 +973,9 @@ def lmserve_phase(torch, dev, ops, lm_state: dict, profile: bool) -> None:
           * cfg.d_model + cfg.d_model,
           "OLMoE's parameter count differs from the config's")
     out = serve_lm(torch, ops, cfg, model, OLMOE_B, OLMOE_PROMPT, OLMOE_GEN,
-                   "(c)")
+                   "lmserve (c)")
     if profile:
-        profile_decode(torch, cfg, out, "(c)")
+        profile_decode(torch, cfg, out, "lmserve (c)")
     pc = out["pc"]
     del out
     torch.cuda.empty_cache()
@@ -940,6 +998,193 @@ def lmserve_phase(torch, dev, ops, lm_state: dict, profile: bool) -> None:
     torch.cuda.empty_cache()
     print(f"lmserve (c): part wall {time.perf_counter() - t0:.1f} s "
           f"(the weights' draw included)")
+
+
+# ---------------------------------------------------------------------------
+# the zoo phase: Zamba2 (hybrid), Mamba2 (SSM), Whisper (enc-dec)
+# ---------------------------------------------------------------------------
+
+def zoo_model(torch, cfg, dev, max_len: int = 0):
+    """Seeded random weights on the card; the parameter count held
+    against the config's (plus the norms, biases, positions and padded
+    vocab rows it leaves out, counted from the schema)."""
+    from repro_torch.models import transformer
+    t0 = time.perf_counter()
+    model = transformer.init_params(cfg, seed=0, max_len=max_len,
+                                    device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    schema = transformer.model_schema(cfg, max_len)
+    want = sum(int(np.prod(shape)) for group in schema.values()
+               for shape, _, _ in group.values())
+    print(f"{cfg.name}: {cfg.family}, {cfg.n_layers} layers"
+          + (f" + {cfg.n_enc_layers} encoder" if cfg.enc_dec else "")
+          + f", d {cfg.d_model}: {n_params / 1e9:.3f}e9 {cfg.param_dtype} "
+          f"parameters (config's count {cfg.param_count() / 1e9:.3f}e9) "
+          f"drawn on the card in {time.perf_counter() - t0:.1f} s")
+    check(n_params == want, f"{cfg.name}: {n_params} parameters, the "
+          f"schema has {want}")
+    return model
+
+
+def zoo_frames(torch, cfg, b: int, seed: int, dev):
+    """Seeded stub frames (b, enc_len, d) in the compute dtype, or None."""
+    if not cfg.enc_dec:
+        return None
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(
+        rng.standard_normal((b, cfg.enc_len, cfg.d_model), np.float32),
+        device=dev).to(getattr(torch, cfg.dtype))
+
+
+def zoo_loss(torch, ops, cfg, model, b: int, length: int, n: int,
+             tag: str) -> None:
+    """``lm.loss_fn`` on ``n`` seeded batches (Whisper's with seeded
+    frames): wall per batch, tokens/s, peak; the loss finite within 1.0
+    of ln V, no kernel launched."""
+    from repro_torch.models import lm
+    dev = next(model.parameters()).device
+    batches = [tuple(torch.as_tensor(a, device=dev) for a in bt)
+               for bt in lm_batches(cfg, n, b, length, seed=4)]
+    frames = zoo_frames(torch, cfg, b, seed=5, dev=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    ln_v = float(np.log(cfg.vocab))
+    for i, (tokens, targets) in enumerate(batches):
+        t0 = time.perf_counter()
+        total, aux = lm.loss_fn(cfg, model, lm.Batch(tokens, targets,
+                                                     frames))
+        loss = float(aux["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(f"zoo {tag} loss batch {i}: {cfg.name} {b} x {length} tokens,"
+              f" loss {loss:.6f} (ln V = {ln_v:.6f}), wall "
+              f"{1e3 * wall:.1f} ms, {b * length / wall:.0f} tokens/s")
+        check(np.isfinite(loss) and abs(loss - ln_v) < 1.0,
+              f"zoo {tag}: loss {loss} is not finite within 1.0 of ln V")
+        check(float(total) == loss, f"zoo {tag}: total != loss")
+    peak = torch.cuda.max_memory_allocated()
+    launched = dict(ops.LAUNCHES)
+    print(f"zoo {tag} loss: peak {peak / 2**30:.2f} GiB, kernel-4 launches "
+          f"{launched['flash_attention']}")
+    check(peak < 80e9, f"zoo {tag}: loss peak {peak / 1e9:.1f} GB")
+    check(not any(launched.values()),
+          f"zoo {tag}: a kernel launched on the loss path: {launched}")
+
+
+def zoo_vs_forward(torch, ops, cfg, model, length: int, tag: str) -> None:
+    """ZOO_CROSS_B seeded prompts of ``length`` tokens prefilled, then one
+    decode step at position ``length`` (its logits from ``forward`` with
+    the cache, once: the SSM state is not idempotent under a second feed),
+    against the cache-free forward over the ``length + 1`` tokens at the
+    last position: max |d logits| / max |logit| in bf16 (SERVE_LOGIT_TOL)
+    and in f32 on the master weights (ZOO_F32_TOL), greedy tokens
+    compared, ``make_decode_step``'s token its logits' argmax, no kernel
+    launched."""
+    from repro_torch.models import lm, transformer
+    dev = next(model.parameters()).device
+    toks = lm_prompts(torch, cfg, ZOO_CROSS_B, length + 1, seed=3, dev=dev)
+    prompts, last = toks[:, :-1], toks[:, -1]
+    at = torch.tensor([length], device=dev)
+    for dt, tol in (("bfloat16", SERVE_LOGIT_TOL), ("float32", ZOO_F32_TOL)):
+        c = cfg.with_(dtype=dt)
+        pc = lm.cast_params(c, model)
+        frames = zoo_frames(torch, c, ZOO_CROSS_B, seed=6, dev=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        cache = transformer.init_cache(c, ZOO_CROSS_B, length + 1, device=dev)
+        cache, _ = lm.make_prefill(c, length + 1)(pc, cache, prompts, frames)
+        snap = {}
+        for path, t in cache_leaves(cache):
+            node = snap
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = t.clone()
+        h, cache, _ = transformer.forward(c, pc, last[:, None], at,
+                                          caches=cache)
+        step = transformer.lm_head(c, pc, h)[:, 0, :c.vocab]
+        _, nxt = lm.make_decode_step(c)(pc, snap, last, at)
+        hf = transformer.forward(c, pc, toks, torch.arange(length + 1,
+                                                           device=dev),
+                                 enc_frames=frames)[0]
+        full = transformer.lm_head(c, pc, hf[:, -1:])[:, 0, :c.vocab]
+        torch.cuda.synchronize()
+        launched = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        rel = float((step - full).abs().max() / full.abs().max())
+        agree = int((step.argmax(-1) == full.argmax(-1)).sum())
+        print(f"zoo {tag} cross-check ({dt}): {c.name} {c.n_layers} layers,"
+              f" B {ZOO_CROSS_B}, prefill {length} tokens, decode at "
+              f"position {length} vs the cache-free forward: max |d logits|"
+              f" / max |logit| = {rel:.3e} (max |logit| "
+              f"{float(full.abs().max()):.3f}); greedy tokens agree "
+              f"{agree}/{ZOO_CROSS_B}; peak {peak / 2**30:.2f} GiB; "
+              f"kernel-4 launches {launched['flash_attention']}")
+        check(bool(torch.isfinite(step).all() and torch.isfinite(full).all()),
+              f"zoo {tag}: non-finite logits")
+        check(rel <= tol, f"zoo {tag} ({dt}): decode logits differ from the "
+              f"cache-free forward by {rel:.3e} > {tol}")
+        check(agree == ZOO_CROSS_B, f"zoo {tag} ({dt}): greedy tokens differ")
+        check(bool((nxt == step.argmax(-1)).all()),
+              f"zoo {tag} ({dt}): decode_step's token is not its logits' "
+              f"argmax")
+        check(not any(launched.values()),
+              f"zoo {tag}: a kernel launched: {launched}")
+        del pc, cache, snap, hf
+        torch.cuda.empty_cache()
+
+
+def zoo_phase(torch, dev, ops, profile: bool) -> None:
+    """(a) Zamba2-7B at full width and depth: ``loss_fn``, serving, the
+    cross-check at a ZAMBA_CUT-layer cut; (b) Mamba2-130M serving and its
+    cross-check; (c) Whisper-small serving and its cross-check.  No
+    kernel runs on these paths (the reference routes none of them
+    through flash attention)."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+
+    cfg = configs.get(ZAMBA_ARCH)
+    t0 = time.perf_counter()
+    model = zoo_model(torch, cfg, dev)
+    zoo_loss(torch, ops, cfg, model, ZAMBA_LOSS_B, ZAMBA_LOSS_L,
+             ZAMBA_LOSS_BATCHES, "(a)")
+    torch.cuda.empty_cache()
+    out = serve_lm(torch, ops, cfg, model, ZAMBA_B, ZAMBA_PROMPT, ZAMBA_GEN,
+                   "zoo (a)")
+    if profile:
+        profile_decode(torch, cfg, out, "zoo (a)")
+    del out
+    torch.cuda.empty_cache()
+    cut = cfg.with_(n_layers=ZAMBA_CUT)
+    tree = model.tree()
+    small = transformer.DecoderLM(cut, {**tree,
+                                        "blocks": tree["blocks"][:ZAMBA_CUT]})
+    zoo_vs_forward(torch, ops, cut, small, ZOO_CROSS_PROMPT, "(a)")
+    del model, tree, small
+    torch.cuda.empty_cache()
+    print(f"zoo (a): part wall {time.perf_counter() - t0:.1f} s")
+
+    for tag, arch, b, prompt, gen, max_len, cross in (
+            ("(b)", MAMBA_ARCH, MAMBA_B, MAMBA_PROMPT, MAMBA_GEN, 0,
+             ZOO_CROSS_PROMPT),
+            ("(c)", WHISPER_ARCH, WHISPER_B, WHISPER_PROMPT, WHISPER_GEN,
+             WHISPER_CTX, WHISPER_CTX - 1)):
+        cfg = configs.get(arch)
+        t0 = time.perf_counter()
+        model = zoo_model(torch, cfg, dev, max_len=max_len)
+        zoo_loss(torch, ops, cfg, model, b, max_len or prompt, 1, tag)
+        out = serve_lm(torch, ops, cfg, model, b, prompt, gen, f"zoo {tag}",
+                       zoo_frames(torch, cfg, b, seed=2, dev=dev))
+        if profile:
+            profile_decode(torch, cfg, out, f"zoo {tag}")
+        del out
+        torch.cuda.empty_cache()
+        zoo_vs_forward(torch, ops, cfg, model, cross, tag)
+        del model
+        torch.cuda.empty_cache()
+        print(f"zoo {tag}: part wall {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2670,7 +2915,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="all",
                     help="comma list of kernels,main,batched,adaptive,obs,"
                          "gram,lm,dist,telemetry,serve,pathmode,cross,"
-                         "timing,calibrate,brain,lmserve (default: all; "
+                         "timing,calibrate,brain,lmserve,zoo (default: "
+                         "all; "
                          "device and build always run; telemetry and "
                          "pathmode need main)")
     ap.add_argument("--profile", action="store_true",
@@ -2680,7 +2926,8 @@ def main(argv=None) -> int:
                          "group against its requests one by one (needs "
                          "the serve phase); the gram phase profiles one "
                          "prep's streaming pass, the lmserve phase 8 "
-                         "decode steps of danube and of OLMoE")
+                         "decode steps of danube and of OLMoE, the zoo "
+                         "phase 8 decode steps of each of its models")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script",
@@ -2787,6 +3034,9 @@ def main(argv=None) -> int:
         phase("lmserve")
         lmserve_phase(torch, dev, ops, lm_state or {}, args.profile)
         lm_state = None
+    if run("zoo"):
+        phase("zoo")
+        zoo_phase(torch, dev, ops, args.profile)
     if measured:
         rows = kernel_rows(kman, measured, errs, launches, smi)
         print(json.dumps({"kernels": rows}))

@@ -77,49 +77,64 @@ def lm_params_from_numpy(cfg, tree, device=None):
     """The port's :class:`~repro_torch.models.transformer.DecoderLM` with
     the weights of a reference parameter tree.
 
-    ``tree`` is the reference's ``{"embed": {...}, "final": {...},
-    "blocks": {name: (n_layers, ...)}}`` as nested dicts of numpy arrays
-    (``jax.tree.map(np.asarray, params)``); ``blocks`` is unstacked along
-    the layer axis, whatever each tensor's trailing shape (the MoE router
-    (d, E) and experts (E, d, f) too).  The tensors keep
+    ``tree`` is the reference's parameter tree as nested dicts of numpy
+    arrays (``jax.tree.map(np.asarray, params)``): ``embed`` (with
+    Whisper's ``pos`` / ``pos_enc``), ``final``, ``blocks``, and where
+    the family has them Zamba2's ``shared`` and Whisper's ``enc`` /
+    ``enc_final``.  The stacked groups (``blocks``, ``enc``) are unstacked
+    along the layer axis, whatever each tensor's trailing shape (the MoE
+    router (d, E) and experts (E, d, f) too).  The tensors keep
     ``cfg.param_dtype`` (float32 master weights, as in the reference)."""
-    from .models.transformer import DecoderLM
+    from .models.transformer import DecoderLM, stacked_groups
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.param_dtype)
+    stacked = stacked_groups(cfg)
 
     def tensor(a):
         return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
 
-    blocks = tree["blocks"]
-    return DecoderLM(cfg, {
-        "embed": {k: tensor(v) for k, v in tree["embed"].items()},
-        "final": {k: tensor(v) for k, v in tree["final"].items()},
-        "blocks": [{k: tensor(v[i]) for k, v in blocks.items()}
-                   for i in range(cfg.n_layers)]})
+    out = {}
+    for name, group in tree.items():
+        if name in stacked:
+            out[name] = [{k: tensor(v[i]) for k, v in group.items()}
+                         for i in range(stacked[name])]
+        else:
+            out[name] = {k: tensor(v) for k, v in group.items()}
+    return DecoderLM(cfg, out)
 
 
 def cache_from_numpy(cfg, tree, device=None):
     """The port's serve cache (``transformer.init_cache``'s layout) from
-    the reference's decoder cache as numpy arrays: ``k`` / ``v`` (n_layers,
-    B, Hkv, W, hd) in ``cfg.dtype`` (bfloat16 arrays widen exactly on the
-    way), ``pos`` (n_layers, W) int32."""
+    the reference's cache tree of any family as numpy arrays: ``pos`` as
+    int32, the Mamba2 state ``h`` as float32, every other leaf (``k``,
+    ``v``, ``conv``, ``enc_out``) in ``cfg.dtype`` (bfloat16 arrays widen
+    exactly on the way)."""
     dev = resolve_device(device)
     dt = getattr(torch, cfg.dtype)
 
-    def kv(a):
-        return torch.tensor(np.asarray(a, np.float32), device=dev).to(dt)
+    def leaf(name, a):
+        if name == "pos":
+            return torch.tensor(np.asarray(a, np.int32), device=dev)
+        t = torch.tensor(np.asarray(a, np.float32), device=dev)
+        return t if name == "h" else t.to(dt)
 
-    return {"k": kv(tree["k"]), "v": kv(tree["v"]),
-            "pos": torch.tensor(np.asarray(tree["pos"], np.int32),
-                                device=dev)}
+    def walk(node):
+        return {k: walk(v) if isinstance(v, dict) else leaf(k, v)
+                for k, v in node.items()}
+
+    return walk(tree)
 
 
 def cache_to_numpy(cache) -> dict:
-    """A serve cache as numpy: ``k`` / ``v`` as float32 (exact for a
-    bfloat16 cache), ``pos`` as int32."""
-    return {"k": cache["k"].float().cpu().numpy(),
-            "v": cache["v"].float().cpu().numpy(),
-            "pos": cache["pos"].to(torch.int32).cpu().numpy()}
+    """A serve cache tree as numpy: ``pos`` as int32, every other leaf as
+    float32 (exact for a bfloat16 cache)."""
+    def leaf(t):
+        if t.dtype.is_floating_point:
+            return t.float().cpu().numpy()
+        return t.to(torch.int32).cpu().numpy()
+
+    return {k: cache_to_numpy(v) if isinstance(v, dict) else leaf(v)
+            for k, v in cache.items()}
 
 
 def gram_from_numpy(result, device=None):

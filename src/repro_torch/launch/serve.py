@@ -2,9 +2,8 @@
 of ``repro.launch.serve``, with the same flags:
 
   * ``--workload lm`` (the default): batched prefill and greedy decode
-    over the KV cache, for the dense, MoE and vlm decoders
-    (``serve_batch``).  The ssm, hybrid and audio families raise
-    ``NotImplementedError`` naming their slice.
+    over the cache, for every family of the zoo (``serve_batch``);
+    Whisper's encoder reads stub frames, zeros of (B, enc_len, d).
 
       PYTHONPATH=src python -m repro_torch.launch.serve \\
           --arch h2o-danube-1.8b --batch 4 --prompt-len 32 --gen 32
@@ -103,12 +102,13 @@ def serve_batch(cfg, params, prompts, gen: int, max_len: int,
     """Greedy-decode ``gen`` tokens for a batch of prompts.
 
     ``params`` is a ``DecoderLM`` (float32 master weights) and ``prompts``
-    a (B, Lp) integer tensor on the same device.  The weights are cast to
-    the compute dtype once, before the prefill (the reference casts them
-    inside every jitted step; the cast is the same round-to-nearest-even,
-    so the bits are the same).  The generated tokens stay on the device,
-    and the decode loop reads nothing back, so the host never waits on
-    the card.  Returns (B, gen) int32.
+    a (B, Lp) integer tensor on the same device; an enc-dec model also
+    takes ``frames`` (B, enc_len, d), encoded once by the prefill.  The
+    weights are cast to the compute dtype once, before the prefill (the
+    reference casts them inside every jitted step; the cast is the same
+    round-to-nearest-even, so the bits are the same).  The generated
+    tokens stay on the device, and the decode loop reads nothing back, so
+    the host never waits on the card.  Returns (B, gen) int32.
 
     With a dict ``stats``, also fills ``prefill_s`` (the prefill and its
     greedy token) and ``step_s`` (one entry per decode step), timed on
@@ -311,9 +311,13 @@ def main(argv=None, *, device=None):
     prompts = torch.as_tensor(
         rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)),
         dtype=torch.int32, device=dev)
+    frames = (torch.zeros((args.batch, cfg.enc_len, cfg.d_model),
+                          dtype=getattr(torch, cfg.dtype), device=dev)
+              if cfg.enc_dec else None)
     synchronize(dev)
     t0 = time.perf_counter()
-    toks = serve_batch(cfg, params, prompts, args.gen, max_len)
+    toks = serve_batch(cfg, params, prompts, args.gen, max_len,
+                       frames=frames)
     synchronize(dev)
     dt = time.perf_counter() - t0
     n = args.batch * args.gen

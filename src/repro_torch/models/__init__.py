@@ -1,3 +1,4 @@
-"""The LM zoo on PyTorch: configs, layers, the decoder forward and the
-loss (port of ``repro.models``; the decoder-only dense and vlm families,
-cache-free)."""
+"""The LM zoo on PyTorch: configs, layers, the Mamba2 SSM, the model
+assembly of every family (decoders, MoE, vlm, SSM, hybrid, Whisper's
+encoder-decoder), the loss and the serve path (port of
+``repro.models``)."""

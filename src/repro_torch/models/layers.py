@@ -12,8 +12,7 @@ The reference's numerics are kept: norms and RoPE in float32 and cast
 back to the compute dtype, rmsnorm's ``1 + scale``, RoPE on halves (not
 interleaved), attention logits in float32 and the ``-1e30`` mask
 sentinel.  On one device the MoE dispatch is the reference's unsharded
-branch (its ``shard_map`` branch comes with the sharding helpers);
-cross-attention comes with Whisper's slice.
+branch (its ``shard_map`` branch comes with the sharding helpers).
 """
 from __future__ import annotations
 
@@ -197,20 +196,23 @@ def _pick_chunk(lk: int, target: int) -> int:
     return max(c, 1)
 
 
-def _project_qkv(cfg: ModelConfig, p, x, prefix: str):
-    """(B, L, H, hd) projections with the optional qkv bias."""
+def _project_qkv(cfg: ModelConfig, p, x, prefix: str, kv_x=None):
+    """(B, L, H, hd) projections with the optional qkv bias; the keys and
+    values from ``kv_x`` (B, Lk, d) where given (cross-attention)."""
     B, L, _ = x.shape
     hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv
     dt = x.dtype
+    src = x if kv_x is None else kv_x
+    Lk = src.shape[1]
     q = x @ p[f"{prefix}_wq"].to(dt)
-    k = x @ p[f"{prefix}_wk"].to(dt)
-    v = x @ p[f"{prefix}_wv"].to(dt)
+    k = src @ p[f"{prefix}_wk"].to(dt)
+    v = src @ p[f"{prefix}_wv"].to(dt)
     if cfg.qkv_bias:
         q = q + p[f"{prefix}_bq"].to(dt)
         k = k + p[f"{prefix}_bk"].to(dt)
         v = v + p[f"{prefix}_bv"].to(dt)
-    return (q.reshape(B, L, Hq, hd), k.reshape(B, L, Hkv, hd),
-            v.reshape(B, L, Hkv, hd))
+    return (q.reshape(B, L, Hq, hd), k.reshape(B, Lk, Hkv, hd),
+            v.reshape(B, Lk, Hkv, hd))
 
 
 def _write_ring(cache, k, v, positions):
@@ -249,9 +251,14 @@ def _decode_attention(cfg: ModelConfig, q, cache, positions, *, causal,
 
 
 def attention(cfg: ModelConfig, p, x, positions, *, prefix="attn",
-              causal=True, window=None, cache=None, fresh_kv=True):
-    """GQA self-attention.  x: (B, L, d); positions: (L,) absolute
-    positions.  Returns (out, cache).
+              causal=True, window=None, cache=None, kv_x=None,
+              fresh_kv=True):
+    """GQA attention.  x: (B, L, d); positions: (L,) absolute positions.
+    Returns (out, cache).
+
+    ``kv_x`` (B, Lk, d) makes it cross-attention (Whisper's decoder): the
+    keys and values come from it, at key positions 0..Lk-1, with no RoPE,
+    no causal mask and no cache.
 
     ``cache`` is None (the cache-free forward) or one layer's ring,
     ``{"k": (B, Hkv, W, hd), "v": ..., "pos": (W,) int32}`` with
@@ -267,20 +274,23 @@ def attention(cfg: ModelConfig, p, x, positions, *, prefix="attn",
 
     ``cfg.attention_impl`` "chunked" runs the reference's memory-
     efficient online softmax (:func:`mea_attention`); any other value
-    runs the materialized einsum path ("ref").  Whisper's cross-attention
-    comes with its slice."""
+    runs the materialized einsum path ("ref")."""
     B, L, d = x.shape
     hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv
     dt = x.dtype
-    q, k, v = _project_qkv(cfg, p, x, prefix)
+    q, k, v = _project_qkv(cfg, p, x, prefix, kv_x)
     if f"{prefix}_qnorm" in p:
         q = rmsnorm(q, p[f"{prefix}_qnorm"], cfg.norm_eps)
         k = rmsnorm(k, p[f"{prefix}_knorm"], cfg.norm_eps)
-    if cfg.rope_theta > 0:
+    kpos = positions
+    if kv_x is not None:
+        cache, causal = None, False
+        kpos = torch.arange(k.shape[1], device=x.device)
+    elif cfg.rope_theta > 0:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     q = q.transpose(1, 2)                             # (B, Hq, L, hd)
-    k = k.transpose(1, 2)                             # (B, Hkv, L, hd)
+    k = k.transpose(1, 2)                             # (B, Hkv, Lk, hd)
     v = v.transpose(1, 2)
 
     scale = hd ** -0.5
@@ -308,17 +318,16 @@ def attention(cfg: ModelConfig, p, x, positions, *, prefix="attn",
             k = torch.repeat_interleave(k, group, dim=1)
             v = torch.repeat_interleave(v, group, dim=1)
         if cfg.attention_impl == "chunked":
-            out = mea_attention(q, k, v, positions, positions, win, causal,
+            out = mea_attention(q, k, v, positions, kpos, win, causal,
                                 scale, cfg.softcap,
-                                _pick_chunk(L, cfg.attn_chunk))
+                                _pick_chunk(k.shape[2], cfg.attn_chunk))
         else:
             # float32 logits of the compute-dtype operands (the reference's
             # preferred_element_type=float32), masked in place
             logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
             logits.mul_(scale)
             logits = _softcap(logits, cfg.softcap)
-            keep = _attn_mask(positions, positions, causal=causal,
-                              window=win)
+            keep = _attn_mask(positions, kpos, causal=causal, window=win)
             logits.masked_fill_(~keep[None, None], NEG_INF)
             probs = torch.softmax(logits, dim=-1).to(dt)
             del logits

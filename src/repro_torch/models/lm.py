@@ -4,8 +4,9 @@ Port of ``repro.models.lm``'s ``Batch``, ``cross_entropy``,
 ``cast_params``, ``loss_fn``, ``make_prefill`` and ``make_decode_step``:
 the cache-free forward of a batch and its mean next-token cross entropy,
 and the serve path's prefill (single-shot or chunked) and greedy decode
-step over the ring-buffered KV cache.  The train step (gradients, AdamW,
-microbatching) and the sharding helpers belong to later slices.
+step over the cache (the KV rings, the Mamba2 state, Whisper's encoder
+output), for every family of the zoo.  The train step (gradients,
+AdamW, microbatching) and the sharding helpers belong to later slices.
 """
 from __future__ import annotations
 
@@ -54,12 +55,11 @@ def cast_params(cfg: ModelConfig, params: T.DecoderLM) -> T.DecoderLM:
     def cast(t):
         return t.to(dt) if t.dtype == torch.float32 else t
 
-    tree = params.tree()
     return T.DecoderLM(cfg, {
-        "embed": {k: cast(v) for k, v in tree["embed"].items()},
-        "final": {k: cast(v) for k, v in tree["final"].items()},
-        "blocks": [{k: cast(v) for k, v in b.items()}
-                   for b in tree["blocks"]]})
+        name: ([{k: cast(v) for k, v in b.items()} for b in group]
+               if isinstance(group, list)
+               else {k: cast(v) for k, v in group.items()})
+        for name, group in params.tree().items()})
 
 
 def loss_fn(cfg: ModelConfig, params: T.DecoderLM, batch: Batch):
@@ -68,7 +68,8 @@ def loss_fn(cfg: ModelConfig, params: T.DecoderLM, batch: Batch):
     _, L = batch.tokens.shape
     positions = torch.arange(L, device=batch.tokens.device)
     pc = cast_params(cfg, params)
-    hidden, _, aux = T.forward(cfg, pc, batch.tokens, positions)
+    hidden, _, aux = T.forward(cfg, pc, batch.tokens, positions,
+                               enc_frames=batch.frames)
     loss = cross_entropy(cfg, pc, hidden, batch.targets)
     total = loss + 0.01 * aux
     return total, {"loss": loss, "aux_loss": aux}
@@ -80,15 +81,16 @@ def make_train_step(cfg: ModelConfig, *args, **kwargs):
 
 
 def make_prefill(cfg: ModelConfig, max_len: int):
-    """prefill(params, cache, tokens) -> (cache, last_logits).
+    """prefill(params, cache, tokens[, frames]) -> (cache, last_logits).
 
     ``tokens`` (B, L) fill the cache from position 0, which is written in
     place and returned; ``last_logits`` (B, V_pad) float32 are the last
     position's.  With ``cfg.prefill_chunk`` > 0 dividing a longer L, the
-    prompt goes through in segments against the cache (chunked prefill):
-    peak activation memory drops from O(L) to O(chunk).  ``frames`` (the
-    enc-dec input) keeps the reference's signature; its family belongs to
-    Whisper's slice."""
+    prompt goes through in segments against the cache (chunked prefill,
+    the Mamba2 state carried from segment to segment): peak activation
+    memory drops from O(L) to O(chunk).  An enc-dec model's prompt is
+    never chunked; its ``frames`` (B, enc_len, d) are encoded and the
+    encoder output stored in the cache for the decode steps."""
 
     def prefill(params, cache, tokens, frames=None):
         B, L = tokens.shape
@@ -103,7 +105,7 @@ def make_prefill(cfg: ModelConfig, max_len: int):
         else:
             positions = torch.arange(L, device=dev)
             hidden, cache, _ = T.forward(cfg, params, tokens, positions,
-                                         caches=cache)
+                                         caches=cache, enc_frames=frames)
         logits = T.lm_head(cfg, params, hidden[:, -1:])
         return cache, logits[:, 0]
 

@@ -1,0 +1,218 @@
+"""Mamba2 (SSD — state-space duality) blocks: the chunked-scan forward,
+the one-step decode recurrence, and the block with its conv and state
+cache.
+
+Port of ``repro.models.ssm``.  Shapes follow the Mamba2 paper: d_inner
+= expand * d_model, heads nh = d_inner / headdim, per-head state size
+N = ssm_state, B/C shared across heads in ssm_ngroups groups.  The
+chunked algorithm splits L into chunks of Q tokens: the intra-chunk
+terms are a masked quadratic form, the inter-chunk terms a length-L/Q
+recurrence over the running state h: (nh, hp, N), which is what makes
+decode O(1) in the sequence length.
+
+The reference's numerics are kept: every SSD operand is cast to float32
+and the state ``h`` is float32 whatever the compute dtype; the conv, the
+skip and the gated norm run in the compute dtype.  The reference's
+inter-chunk ``lax.scan`` is a Python loop over the L / Q chunks.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+from .layers import fan_in, rmsnorm
+
+
+def ssm_schema(cfg: ModelConfig, prefix: str = "ssm"):
+    d = cfg.d_model
+    di = cfg.d_inner
+    g, ns, nh = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads
+    conv_dim = di + 2 * g * ns
+    return {
+        f"{prefix}_in": ((d, 2 * di + 2 * g * ns + nh),
+                         ("embed", "heads"), fan_in(d)),
+        f"{prefix}_conv": ((cfg.ssm_conv, conv_dim), ("none", "heads"),
+                           fan_in(cfg.ssm_conv)),
+        f"{prefix}_conv_b": ((conv_dim,), ("heads",), 0.0),
+        f"{prefix}_alog": ((nh,), ("none",), 1.0),     # A = -exp(alog)
+        f"{prefix}_dtb": ((nh,), ("none",), 0.0),      # dt bias
+        f"{prefix}_d": ((nh,), ("none",), 1.0),        # skip D
+        f"{prefix}_gnorm": ((di,), ("none",), 0.0),    # gated RMSNorm
+        f"{prefix}_out": ((di, d), ("heads", "embed"), fan_in(di)),
+    }
+
+
+def _split_in(cfg: ModelConfig, zxbcdt):
+    di = cfg.d_inner
+    g, ns, nh = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di:di + di + 2 * g * ns]
+    dt = zxbcdt[..., -nh:]
+    return z, xbc, dt
+
+
+def _causal_conv(xbc, w, b, *, state=None):
+    """Depthwise causal conv over time, then SiLU.  xbc: (B, L, C); w:
+    (K, C); b: (C,).
+
+    state: (B, K-1, C) previous inputs (decode, chunked prefill), or None
+    for zeros.  Returns (out, new_state): the new state is the last K-1
+    inputs (None when K == 1)."""
+    K = w.shape[0]
+    if state is None:
+        pad = xbc.new_zeros(xbc.shape[:1] + (K - 1,) + xbc.shape[2:])
+    else:
+        pad = state.to(xbc.dtype)
+    full = torch.cat([pad, xbc], dim=1)                   # (B, L+K-1, C)
+    L = xbc.shape[1]
+    out = full[:, 0:L] * w[0]
+    for i in range(1, K):
+        out = out + full[:, i:i + L] * w[i]
+    new_state = full[:, -(K - 1):] if K > 1 else None
+    return F.silu(out + b), new_state
+
+
+def segsum(x):
+    """Stable segment sum: out[..., i, j] = sum_{j < k <= i} x[..., k],
+    -inf above the diagonal."""
+    L = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    out = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    return out.masked_fill(~mask, float("-inf"))
+
+
+def _softplus(x):
+    """``jax.nn.softplus`` (``logaddexp(x, 0)``): no threshold switch."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def ssd_chunked(x, dt, a, b, c, *, chunk: int, h0=None):
+    """SSD forward.  x: (B, L, nh, hp); dt: (B, L, nh) (post-softplus);
+    a: (nh,) negative; b, c: (B, L, g, N); h0: (B, nh, hp, N) or None.
+    Returns (y in x's dtype, h_last (B, nh, hp, N) float32).
+
+    At most two (B, L/Q, nh, Q, Q) float32 tensors are live at a time:
+    the decay matrix and the scores, multiplied in place."""
+    B, L, nh, hp = x.shape
+    g, N = b.shape[2], b.shape[3]
+    Q = min(chunk, L)
+    L_real = L
+    if L % Q:
+        # zero padding: dt = 0 gives unit decay and zero input, so the
+        # result and the final state are exact
+        pad = Q - L % Q
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        b = F.pad(b, (0, 0, 0, 0, 0, pad))
+        c = F.pad(c, (0, 0, 0, 0, 0, pad))
+        L = L + pad
+    nc = L // Q
+    rep = nh // g
+
+    f32 = torch.float32
+    xc = x.reshape(B, nc, Q, nh, hp).to(f32)
+    dtc = dt.reshape(B, nc, Q, nh).to(f32)
+    bc = torch.repeat_interleave(b.reshape(B, nc, Q, g, N), rep, dim=3).to(f32)
+    cc = torch.repeat_interleave(c.reshape(B, nc, Q, g, N), rep, dim=3).to(f32)
+    da = dtc * a.to(f32)                                  # (B, nc, Q, nh)
+    xdt = xc * dtc[..., None]
+
+    # intra-chunk: (C B^T * decay) (x dt), the decay matrix formed first
+    lmat = torch.exp(segsum(da.permute(0, 1, 3, 2)))      # (B, nc, nh, Q, Q)
+    scores = torch.einsum("bcqhn,bckhn->bchqk", cc, bc)
+    scores.mul_(lmat)
+    del lmat
+    y = torch.einsum("bchqk,bckhp->bcqhp", scores, xdt)
+    del scores
+
+    # chunk states: S_c = sum_j exp(sum_{k>j} da_k) b_j x_j^T
+    cum = torch.cumsum(da, dim=2)
+    decay_to_end = torch.exp(cum[:, :, -1:] - cum)        # (B, nc, Q, nh)
+    states = torch.einsum("bcqhn,bcqhp->bchpn", bc,
+                          xdt * decay_to_end[..., None])
+
+    # inter-chunk recurrence over the running state
+    chunk_decay = torch.exp(cum[:, :, -1])                # (B, nc, nh)
+    h = (torch.zeros((B, nh, hp, N), dtype=f32, device=x.device)
+         if h0 is None else h0.to(f32))
+    h_befores = torch.empty((B, nc, nh, hp, N), dtype=f32, device=x.device)
+    for i in range(nc):
+        h_befores[:, i] = h
+        h = h * chunk_decay[:, i, :, None, None] + states[:, i]
+
+    in_decay = torch.exp(cum)                             # (B, nc, Q, nh)
+    y = y + torch.einsum("bcqhn,bchpn->bcqhp", cc * in_decay[..., None],
+                         h_befores)
+    y = y.reshape(B, L, nh, hp)[:, :L_real]
+    return y.to(x.dtype), h
+
+
+def ssd_recurrent_ref(x, dt, a, b, c, *, h0=None):
+    """The per-step recurrence (the plain oracle, and the decode step's
+    semantics).  Shapes as in :func:`ssd_chunked`."""
+    B, L, nh, hp = x.shape
+    g, N = b.shape[2], b.shape[3]
+    rep = nh // g
+    f32 = torch.float32
+    bf = torch.repeat_interleave(b, rep, dim=2).to(f32)
+    cf = torch.repeat_interleave(c, rep, dim=2).to(f32)
+    dtf = dt.to(f32)
+    af = a.to(f32)
+    h = (torch.zeros((B, nh, hp, N), dtype=f32, device=x.device)
+         if h0 is None else h0.to(f32))
+    ys = []
+    for t in range(L):
+        dec = torch.exp(dtf[:, t] * af)                   # (B, nh)
+        xt = x[:, t].to(f32) * dtf[:, t, :, None]         # (B, nh, hp)
+        h = h * dec[..., None, None] + xt[..., None] * bf[:, t, :, None, :]
+        ys.append(torch.einsum("bhn,bhpn->bhp", cf[:, t], h))
+    return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+def mamba2_block(cfg: ModelConfig, p, x, *, prefix="ssm", cache=None):
+    """The Mamba2 block.  x: (B, L, d).  ``cache`` is None or one layer's
+    ``{"conv": (B, K-1, conv_dim), "h": (B, nh, hp, N)}``, read as the
+    state before this call and written in place with the state after it
+    (decode, chunked prefill).  Returns (out, cache)."""
+    B, L, d = x.shape
+    dt_ = x.dtype
+    di = cfg.d_inner
+    g, ns, nh = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads
+    hp = cfg.ssm_headdim
+
+    zxbcdt = x @ p[f"{prefix}_in"].to(dt_)
+    z, xbc, dtr = _split_in(cfg, zxbcdt)
+    xbc, new_conv = _causal_conv(
+        xbc, p[f"{prefix}_conv"].to(dt_), p[f"{prefix}_conv_b"].to(dt_),
+        state=None if cache is None else cache["conv"])
+    xs = xbc[..., :di].reshape(B, L, nh, hp)
+    bmat = xbc[..., di:di + g * ns].reshape(B, L, g, ns)
+    cmat = xbc[..., di + g * ns:].reshape(B, L, g, ns)
+    dt = _softplus(dtr.float() + p[f"{prefix}_dtb"].float())
+    a = -torch.exp(p[f"{prefix}_alog"].float())
+
+    h0 = None if cache is None else cache["h"]
+    if L == 1:  # decode: one recurrence step, no chunking
+        y, h = ssd_recurrent_ref(xs, dt, a, bmat, cmat, h0=h0)
+    else:
+        y, h = ssd_chunked(xs, dt, a, bmat, cmat, chunk=cfg.ssm_chunk,
+                           h0=h0)
+    y = y + xs * p[f"{prefix}_d"].to(dt_)[None, None, :, None]
+    y = rmsnorm(y.reshape(B, L, di) * F.silu(z), p[f"{prefix}_gnorm"],
+                cfg.norm_eps)
+    out = y @ p[f"{prefix}_out"].to(dt_)
+    if cache is not None:
+        cache["conv"].copy_(new_conv)
+        cache["h"].copy_(h)
+    return out, cache
+
+
+def ssm_cache_shape(cfg: ModelConfig, batch: int):
+    di = cfg.d_inner
+    conv_dim = di + 2 * cfg.ssm_ngroups * cfg.ssm_state
+    return {
+        "conv": (batch, cfg.ssm_conv - 1, conv_dim),
+        "h": (batch, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state),
+    }

@@ -1,22 +1,27 @@
-"""Model assembly of the LM zoo: the decoder-only families, with and
-without the serve path's KV cache.
+"""Model assembly of the LM zoo, with and without the serve path's cache,
+for every family:
 
-Port of ``repro.models.transformer`` for the dense, MoE and vlm
-families.  The reference keeps its parameters as a pytree with the
-layers stacked for ``lax.scan``; the port keeps them in a
-:class:`DecoderLM` module whose ``blocks`` is a ``ModuleList`` of one
+  * decoder-only (dense / moe / vlm), with gemma2's per-layer windows;
+  * ssm (mamba2): a stack of Mamba2 blocks;
+  * hybrid (zamba2): groups, each one invocation of the SHARED attention
+    block (a single parameter set, its own KV ring per group) followed
+    by ``shared_every`` Mamba2 layers;
+  * audio enc-dec (whisper): a bidirectional encoder over stub frame
+    embeddings and a causal decoder with cross-attention.
+
+Port of ``repro.models.transformer``.  The reference keeps its
+parameters as a pytree with the layers stacked for ``lax.scan``; the port
+keeps them in a :class:`DecoderLM` module whose stacked groups
+(``blocks``, Whisper's ``enc``) are ``ModuleList``\\ s of one
 :class:`ParamBlock` per layer, each holding the schema's names as its
-parameters, and runs the layers in a Python loop.  ``forward``,
-``lm_head``, ``init_params`` and ``init_cache`` keep the reference's
-names.
+parameters, and runs the layers in Python loops.  ``forward``,
+``encode``, ``lm_head``, ``init_params`` and ``init_cache`` keep the
+reference's names.
 
-The cache is the reference's stacked tree, ``{"k", "v": (n_layers, B,
-Hkv, W, hd), "pos": (n_layers, W)}``; each layer writes its slice in
-place, so the cache is never double-buffered (the reference's
-``_serve_loop`` carries it through a ``fori_loop`` for the same end).
-
-The SSM, hybrid and enc-dec families belong to later slices and raise
-``NotImplementedError``.
+The cache is the reference's stacked tree (:func:`init_cache`); each
+layer writes its slice in place, so the cache is never double-buffered
+(the reference's ``_serve_loop`` carries it through a ``fori_loop`` for
+the same end).
 """
 from __future__ import annotations
 
@@ -25,26 +30,13 @@ from torch import nn
 
 from ..device import resolve_device
 from . import layers as L
+from . import ssm as S
 from .config import ModelConfig
-
-_FAMILY_SLICE = {
-    "ssm": "the SSM slice (models/ssm.py, Mamba2 blocks)",
-    "hybrid": "the hybrid slice (Zamba2's shared attention over Mamba2)",
-    "audio": "the Whisper slice (encoder, cross-attention)",
-}
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    fam = "audio" if cfg.enc_dec else cfg.family
-    if fam in _FAMILY_SLICE:
-        raise NotImplementedError(
-            f"{cfg.name}: the {fam} family belongs to {_FAMILY_SLICE[fam]}; "
-            f"the port runs the dense, MoE and vlm decoders")
-
 
 # ---------------------------------------------------------------------------
 # schemas
 # ---------------------------------------------------------------------------
+
 
 def decoder_block_schema(cfg: ModelConfig):
     s = {}
@@ -61,10 +53,37 @@ def decoder_block_schema(cfg: ModelConfig):
     return s
 
 
+def ssm_block_schema(cfg: ModelConfig):
+    s = {}
+    s.update(L.norm_schema(cfg, "ln1"))
+    s.update(S.ssm_schema(cfg))
+    return s
+
+
+def enc_block_schema(cfg: ModelConfig):
+    s = {}
+    s.update(L.norm_schema(cfg, "ln1"))
+    s.update(L.norm_schema(cfg, "ln2"))
+    s.update(L.attn_schema(cfg))
+    s.update(L.mlp_schema(cfg))
+    return s
+
+
+def xdec_block_schema(cfg: ModelConfig):
+    """Whisper decoder block: self-attn + cross-attn + mlp."""
+    s = {}
+    s.update(L.norm_schema(cfg, "ln1"))
+    s.update(L.norm_schema(cfg, "ln2"))
+    s.update(L.norm_schema(cfg, "ln3"))
+    s.update(L.attn_schema(cfg, "attn"))
+    s.update(L.attn_schema(cfg, "xattn"))
+    s.update(L.mlp_schema(cfg))
+    return s
+
+
 def model_schema(cfg: ModelConfig, max_len: int = 0):
-    """The reference's schema tree for the decoder-only families, with
-    ``blocks`` stacked over the layers."""
-    _check_family(cfg)
+    """The reference's schema tree, with ``blocks`` (and Whisper's
+    ``enc``) stacked over the layers."""
     d, V = cfg.d_model, cfg.vocab_pad
     tree = {
         "embed": {"tok": ((V, d), ("vocab", "embed"), 1e-2)},
@@ -72,10 +91,32 @@ def model_schema(cfg: ModelConfig, max_len: int = 0):
     }
     if not cfg.tie_embeddings:
         tree["embed"]["unembed"] = ((V, d), ("vocab", "embed"), 1e-2)
-    if cfg.rope_theta == 0:  # learned absolute positions
+    if cfg.rope_theta == 0:  # learned absolute positions (whisper)
         tree["embed"]["pos"] = ((max_len, d), ("none", "embed"), 1e-2)
-    tree["blocks"] = L.stack_schema(decoder_block_schema(cfg), cfg.n_layers)
+    if cfg.family == "ssm":
+        tree["blocks"] = L.stack_schema(ssm_block_schema(cfg), cfg.n_layers)
+    elif cfg.family == "hybrid":
+        tree["blocks"] = L.stack_schema(ssm_block_schema(cfg), cfg.n_layers)
+        shared = {}
+        shared.update(L.norm_schema(cfg, "ln1"))
+        shared.update(L.norm_schema(cfg, "ln2"))
+        shared.update(L.attn_schema(cfg))
+        shared.update(L.mlp_schema(cfg))
+        tree["shared"] = shared
+    elif cfg.enc_dec:
+        tree["embed"]["pos_enc"] = ((cfg.enc_len, d), ("none", "embed"), 1e-2)
+        tree["enc"] = L.stack_schema(enc_block_schema(cfg), cfg.n_enc_layers)
+        tree["enc_final"] = L.norm_schema(cfg, "efn")
+        tree["blocks"] = L.stack_schema(xdec_block_schema(cfg), cfg.n_layers)
+    else:
+        tree["blocks"] = L.stack_schema(decoder_block_schema(cfg),
+                                        cfg.n_layers)
     return tree
+
+
+def stacked_groups(cfg: ModelConfig) -> dict:
+    """The groups kept as one block per layer, and their layer counts."""
+    return {"blocks": cfg.n_layers, "enc": cfg.n_enc_layers}
 
 
 class ParamBlock(nn.Module):
@@ -101,24 +142,35 @@ class ParamBlock(nn.Module):
 
 
 class DecoderLM(nn.Module):
-    """Parameters of a decoder-only LM: ``embed`` (tok, unembed, pos),
-    ``final`` (the final norm) and ``blocks`` (one per layer).
-    ``tree`` is ``{"embed": {...}, "final": {...}, "blocks": [{...} per
-    layer]}``."""
+    """Parameters of an LM of the zoo, one attribute per group of the
+    schema: ``embed`` (tok, unembed, pos, pos_enc) and ``final`` (the
+    final norm) always; ``blocks`` (one per layer); Zamba2's ``shared``
+    attention block; Whisper's ``enc`` (one per encoder layer) and
+    ``enc_final``.  ``tree`` is ``{group: {name: tensor}}``, a list of
+    such dicts for the stacked groups."""
 
     def __init__(self, cfg: ModelConfig, tree: dict):
         super().__init__()
-        _check_family(cfg)
-        if len(tree["blocks"]) != cfg.n_layers:
-            raise ValueError(f"{cfg.name} has {cfg.n_layers} layers, got "
-                             f"{len(tree['blocks'])} blocks")
-        self.embed = ParamBlock(tree["embed"])
-        self.final = ParamBlock(tree["final"])
-        self.blocks = nn.ModuleList(ParamBlock(b) for b in tree["blocks"])
+        want = set(model_schema(cfg))
+        if set(tree) != want:
+            raise ValueError(f"{cfg.name} has the groups {sorted(want)}, "
+                             f"got {sorted(tree)}")
+        stacked = stacked_groups(cfg)
+        for name in sorted(tree):
+            if name in stacked:
+                if len(tree[name]) != stacked[name]:
+                    raise ValueError(
+                        f"{cfg.name} has {stacked[name]} layers in "
+                        f"{name}, got {len(tree[name])}")
+                setattr(self, name,
+                        nn.ModuleList(ParamBlock(b) for b in tree[name]))
+            else:
+                setattr(self, name, ParamBlock(tree[name]))
 
     def tree(self) -> dict:
-        return {"embed": self.embed.tensors(), "final": self.final.tensors(),
-                "blocks": [b.tensors() for b in self.blocks]}
+        return {name: ([b.tensors() for b in m]
+                       if isinstance(m, nn.ModuleList) else m.tensors())
+                for name, m in self.named_children()}
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, max_len: int = 0,
@@ -127,18 +179,19 @@ def init_params(cfg: ModelConfig, seed: int = 0, max_len: int = 0,
     (default: the CUDA card; ``device="cpu"`` for the host) from a
     ``torch.Generator`` seeded with ``seed``: one generator for the
     whole model, its groups drawn in sorted order and the layers in
-    order."""
+    order.  ``max_len`` sizes Whisper's learned positions."""
     dev = resolve_device(device)
     schema = model_schema(cfg, max_len)
     dtype = getattr(torch, cfg.param_dtype)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
-    block = {name: (shape[1:], lg[1:], scale)
-             for name, (shape, lg, scale) in schema["blocks"].items()}
+    stacked = stacked_groups(cfg)
     tree = {}
     for name in sorted(schema):
-        if name == "blocks":
-            tree[name] = [L.build_params(block, gen, dtype, dev)
-                          for _ in range(cfg.n_layers)]
+        if name in stacked:
+            layer = {k: (shape[1:], lg[1:], scale)
+                     for k, (shape, lg, scale) in schema[name].items()}
+            tree[name] = [L.build_params(layer, gen, dtype, dev)
+                          for _ in range(stacked[name])]
         else:
             tree[name] = L.build_params(schema[name], gen, dtype, dev)
     return DecoderLM(cfg, tree)
@@ -180,6 +233,39 @@ def apply_decoder_block(cfg: ModelConfig, p, h, positions, window,
     return h + m, new_cache, aux
 
 
+def apply_ssm_block(cfg: ModelConfig, p, h, cache=None):
+    x = L.apply_norm(cfg, p, "ln1", h)
+    y, new_cache = S.mamba2_block(cfg, p, x, cache=cache)
+    return h + y, new_cache
+
+
+def apply_shared_block(cfg: ModelConfig, p, h, positions, cache=None,
+                       fresh_kv=True):
+    """Zamba2's shared attention + MLP block (plain ``attention``, never
+    the flash route, as in the reference)."""
+    x = L.apply_norm(cfg, p, "ln1", h)
+    a, new_cache = L.attention(cfg, p, x, positions, cache=cache,
+                               fresh_kv=fresh_kv)
+    h = h + a
+    x = L.apply_norm(cfg, p, "ln2", h)
+    return h + L.apply_mlp(cfg, p, x), new_cache
+
+
+def apply_xdec_block(cfg: ModelConfig, p, h, positions, enc_out,
+                     cache=None):
+    """Whisper decoder block; ``cache`` is None or ``{"self": ring}``."""
+    x = L.apply_norm(cfg, p, "ln1", h)
+    a, _ = L.attention(cfg, p, x, positions, prefix="attn",
+                       cache=None if cache is None else cache["self"])
+    h = h + a
+    x = L.apply_norm(cfg, p, "ln2", h)
+    a, _ = L.attention(cfg, p, x, positions, prefix="xattn", kv_x=enc_out)
+    h = h + a
+    x = L.apply_norm(cfg, p, "ln3", h)
+    h = h + L.apply_mlp(cfg, p, x)
+    return h, cache
+
+
 # ---------------------------------------------------------------------------
 # forward passes
 # ---------------------------------------------------------------------------
@@ -196,26 +282,77 @@ def _embed(cfg: ModelConfig, params, tokens, positions):
     return h
 
 
+def encode(cfg: ModelConfig, params: DecoderLM, frames):
+    """Whisper's encoder over stub frame embeddings (B, enc_len, d):
+    learned positions, bidirectional attention, the final ``efn`` norm."""
+    dt = getattr(torch, cfg.dtype)
+    h = frames.to(dt) + params.embed["pos_enc"].to(dt)
+    positions = torch.arange(h.shape[1], device=h.device)
+    for p in params.enc:
+        x = L.apply_norm(cfg, p, "ln1", h)
+        a, _ = L.attention(cfg, p, x, positions, causal=False)
+        h = h + a
+        x = L.apply_norm(cfg, p, "ln2", h)
+        h = h + L.apply_mlp(cfg, p, x)
+    return L.apply_norm(cfg, params.enc_final, "efn", h)
+
+
 def forward(cfg: ModelConfig, params: DecoderLM, tokens, positions, *,
-            caches=None, fresh_kv=True):
+            caches=None, enc_frames=None, enc_out=None, fresh_kv=True):
     """Token ids -> final hidden states.
 
     Returns (hidden, caches, aux_loss) as the reference does.  ``caches``
     is None (the cache-free forward) or the tree from :func:`init_cache`,
     written in place and returned; the cached path returns a zero aux
-    loss, as the reference's does.  The non-decoder families raise
-    ``NotImplementedError``."""
-    _check_family(cfg)
+    loss, as the reference's does.  An enc-dec model takes its encoder
+    output from ``enc_out``, else from ``enc_frames`` (encoded here),
+    else from ``caches["enc_out"]``, in that order; a cached call stores
+    it in the cache."""
     h = _embed(cfg, params, tokens, positions)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for layer, (p, w) in enumerate(zip(params.blocks, window_pattern(cfg))):
-        if caches is None:
-            h, _, a = apply_decoder_block(cfg, p, h, positions, w)
-            aux = aux + a
-        else:
-            h, _, _ = apply_decoder_block(
-                cfg, p, h, positions, w, cache=layer_cache(caches, layer),
+
+    if cfg.enc_dec:
+        if enc_out is None:
+            if enc_frames is not None:
+                enc_out = encode(cfg, params, enc_frames)
+            elif caches is not None:
+                enc_out = caches["enc_out"].to(h.dtype)
+            else:
+                raise ValueError("enc-dec forward needs frames or enc_out")
+        for layer, p in enumerate(params.blocks):
+            c = (None if caches is None
+                 else layer_cache(caches["layers"], layer))
+            h, _ = apply_xdec_block(cfg, p, h, positions, enc_out, cache=c)
+        if caches is not None and enc_out is not caches["enc_out"]:
+            caches["enc_out"].copy_(enc_out)
+    elif cfg.family == "ssm":
+        for layer, p in enumerate(params.blocks):
+            h, _ = apply_ssm_block(
+                cfg, p, h,
+                cache=None if caches is None else layer_cache(caches, layer))
+    elif cfg.family == "hybrid":
+        per = cfg.shared_every
+        for grp in range(cfg.n_layers // per):
+            h, _ = apply_shared_block(
+                cfg, params.shared, h, positions,
+                cache=(None if caches is None
+                       else layer_cache(caches["shared"], grp)),
                 fresh_kv=fresh_kv)
+            for j in range(per):
+                c = (None if caches is None else
+                     layer_cache(layer_cache(caches["mamba"], grp), j))
+                h, _ = apply_ssm_block(cfg, params.blocks[grp * per + j], h,
+                                       cache=c)
+    else:
+        for layer, (p, w) in enumerate(zip(params.blocks,
+                                           window_pattern(cfg))):
+            if caches is None:
+                h, _, a = apply_decoder_block(cfg, p, h, positions, w)
+                aux = aux + a
+            else:
+                h, _, _ = apply_decoder_block(
+                    cfg, p, h, positions, w,
+                    cache=layer_cache(caches, layer), fresh_kv=fresh_kv)
     h = L.apply_norm(cfg, params.final, "fn", h)
     return h, caches, aux
 
@@ -239,10 +376,10 @@ def lm_head(cfg: ModelConfig, params: DecoderLM, h):
 # ---------------------------------------------------------------------------
 
 def cache_width(cfg: ModelConfig, max_len: int) -> int:
-    """Ring slots per layer: ``max_len``; under a sliding window, window +
-    the chunked-prefill segment (a segment is written before any of its
-    queries reads, so the ring must hold both); under ``local_global``
-    the widest layer's width."""
+    """Ring slots per attention layer: ``max_len``; under a sliding
+    window, window + the chunked-prefill segment (a segment is written
+    before any of its queries reads, so the ring must hold both); under
+    ``local_global`` the widest layer's width."""
     if cfg.local_global:
         widths = [cfg.local_window if layer % 2 == 0 else max_len
                   for layer in range(cfg.n_layers)]
@@ -253,23 +390,54 @@ def cache_width(cfg: ModelConfig, max_len: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    """The serve path's cache on ``device`` (default: the CUDA card):
-    ``{"k", "v": zeros (n_layers, batch, Hkv, W, hd) in the compute
-    dtype, "pos": (n_layers, W) int32 of -1 (empty)}``, W from
-    :func:`cache_width`.  A sliding-window model ring-buffers only its
-    window, which is what makes long decodes fit."""
-    _check_family(cfg)
+    """The serve path's cache on ``device`` (default: the CUDA card), the
+    reference's tree, zeros (``pos = -1``: an empty slot):
+
+      * decoders: ``{"k", "v": (n_layers, batch, Hkv, W, hd), "pos":
+        (n_layers, W) int32}``, W from :func:`cache_width` (a sliding-
+        window model ring-buffers only its window);
+      * ssm: ``{"conv": (n_layers, batch, K-1, conv_dim), "h":
+        (n_layers, batch, nh, hp, N) float32}``;
+      * hybrid: ``{"shared": one ring per group (G, ...), "mamba": the
+        ssm state (G, shared_every, ...)}``;
+      * enc-dec: ``{"layers": {"self": rings (n_layers, ...)}, "enc_out":
+        (batch, enc_len, d)}``.
+
+    K/V, ``conv`` and ``enc_out`` are in the compute dtype."""
     dev = resolve_device(device)
     dt = getattr(torch, cfg.dtype)
-    width = cache_width(cfg, max_len)
-    shape = (cfg.n_layers, batch, cfg.n_kv, width, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev),
-            "pos": torch.full((cfg.n_layers, width), -1, dtype=torch.int32,
-                              device=dev)}
+
+    def rings(n: int) -> dict:
+        width = cache_width(cfg, max_len)
+        shape = (n, batch, cfg.n_kv, width, cfg.hd)
+        return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev),
+                "pos": torch.full((n, width), -1, dtype=torch.int32,
+                                  device=dev)}
+
+    def ssm_state(*lead) -> dict:
+        shp = S.ssm_cache_shape(cfg, batch)
+        return {"conv": torch.zeros(lead + shp["conv"], dtype=dt,
+                                    device=dev),
+                "h": torch.zeros(lead + shp["h"], dtype=torch.float32,
+                                 device=dev)}
+
+    if cfg.family == "ssm":
+        return ssm_state(cfg.n_layers)
+    if cfg.family == "hybrid":
+        groups = cfg.n_layers // cfg.shared_every
+        return {"shared": rings(groups),
+                "mamba": ssm_state(groups, cfg.shared_every)}
+    if cfg.enc_dec:
+        return {"layers": {"self": rings(cfg.n_layers)},
+                "enc_out": torch.zeros((batch, cfg.enc_len, cfg.d_model),
+                                       dtype=dt, device=dev)}
+    return rings(cfg.n_layers)
 
 
-def layer_cache(caches, layer: int) -> dict:
-    """Views of one layer's ring in the stacked cache; writes to them land
-    in the stack."""
-    return {name: caches[name][layer] for name in ("k", "v", "pos")}
+def layer_cache(caches: dict, layer: int) -> dict:
+    """Views of entry ``layer`` of a stacked cache tree (every leaf indexed
+    on its leading axis); writes to them land in the stack."""
+    return {name: (layer_cache(t, layer) if isinstance(t, dict)
+                   else t[layer])
+            for name, t in caches.items()}

@@ -2,16 +2,18 @@
 ``--workload concord`` micro-batching drain (bucketing, tail padding,
 dropped padding, the batched-vs-sequential agreement), its parity with
 ``repro.launch.serve`` on the same arguments, the obs latency split, and
-the CLI's ``--workload lm`` (its parity with the reference is in
-``test_torch_lm_serve.py``), which refuses the families of later
-slices."""
+the CLI's ``--workload lm`` on every family (its ``serve_batch``
+parity with the reference is in ``test_torch_lm_serve.py``; here the
+CLI's tokens against the reference CLI's)."""
 import argparse
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
 import repro_torch.estimator as est_mod
+from repro.launch import serve as jserve
 from repro_torch.launch.serve import ConcordServeStats, main, serve_concord
 
 import _torch_parity  # noqa: F401  (one torch thread per test worker)
@@ -138,7 +140,7 @@ def test_serve_obs_latency_split():
         trace.get_tracer().clear()
 
 
-def test_main_runs_concord_and_refuses_lm():
+def test_main_runs_concord_and_refuses_lm(monkeypatch):
     stats = main(["--workload", "concord", "--requests", "3", "--batch",
                   "2", "--p", "12", "--n", "40", "--max-iters", "40"],
                  device="cpu")
@@ -148,6 +150,54 @@ def test_main_runs_concord_and_refuses_lm():
     assert bool(((toks >= 0) & (toks < 256)).all())
     with pytest.raises(SystemExit):                 # --arch is required
         main([], device="cpu")
-    with pytest.raises(NotImplementedError, match="SSM slice"):
-        main(["--arch", "mamba2-130m", "--smoke"], device="cpu")
+    # the SSM family serves too: the reference CLI's tokens
+    argv = ["--arch", "mamba2-130m", "--smoke"]
+    got, want = _lm_mains_on_reference_weights(monkeypatch, argv)
+    assert got.shape == (4, 32)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "whisper-small"])
+def test_main_lm_serves_hybrid_and_enc_dec(monkeypatch, arch):
+    """The CLI on the hybrid and on Whisper (its stub frames: zeros of
+    (B, enc_len, d) in the compute dtype, as the reference builds them):
+    the reference CLI's tokens."""
+    argv = ["--arch", arch, "--smoke", "--batch", "2", "--prompt-len", "12",
+            "--gen", "8"]
+    got, want = _lm_mains_on_reference_weights(monkeypatch, argv)
+    assert got.shape == (2, 8)
+    np.testing.assert_array_equal(got, want)
+
+
+def _lm_mains_on_reference_weights(monkeypatch, argv):
+    """(port tokens, reference tokens) of ``main(argv)`` in both packages,
+    the port's on the CPU with ``init_params`` drawing the reference's
+    weights (at the CLI's seed and max_len).  Both run the smoke config
+    at float32: at its bfloat16 the greedy tokens of two libraries part
+    at the first near-tie of random weights (mamba2's after 3 of 8
+    tokens, from logits that agree to bf16 ulps)."""
+    import jax
+    from repro import configs as jconfigs
+    from repro.models import transformer as jT
+    from repro_torch import configs as tconfigs
+    from repro_torch import convert
+    from repro_torch.models import transformer as tT
+
+    jget, tget = jconfigs.get_smoke, tconfigs.get_smoke
+    monkeypatch.setattr(jconfigs, "get_smoke",
+                        lambda name: jget(name).with_(dtype="float32"))
+    monkeypatch.setattr(tconfigs, "get_smoke",
+                        lambda name: tget(name).with_(dtype="float32"))
+
+    def reference_init(cfg, seed=0, max_len=0, device=None):
+        jcfg = jconfigs.get_smoke(argv[argv.index("--arch") + 1])
+        assert dataclasses.asdict(jcfg) == dataclasses.asdict(cfg)
+        params = jT.init_params(jcfg, jax.random.PRNGKey(seed), max_len)
+        return convert.lm_params_from_numpy(
+            cfg, jax.tree.map(np.asarray, params), device=device)
+
+    monkeypatch.setattr(tT, "init_params", reference_init)
+    toks = main(argv, device="cpu")
+    assert toks.dtype == torch.int32
+    return toks.numpy(), np.asarray(jserve.main(argv))
 
