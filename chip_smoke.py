@@ -262,6 +262,23 @@ MAMBA_ARCH, MAMBA_B, MAMBA_PROMPT, MAMBA_GEN = "mamba2_130m", 8, 4096, 128
 WHISPER_ARCH, WHISPER_B, WHISPER_PROMPT, WHISPER_GEN, WHISPER_CTX = (
     "whisper_small", 8, 64, 192, 448)
 ZOO_CROSS_B, ZOO_CROSS_PROMPT, ZOO_F32_TOL = 2, 4095, 2e-3
+#: the train phase: (a) TRAIN_ARCH at full width and depth, its own remat
+#: and n_micro, TRAIN_STEPS steps of ``train()`` at TRAIN_B x TRAIN_L (the
+#: reference's train_4k length; its global batch of 256 cut to fit one
+#: card); (b) its weights cut to GRAD_LAYERS layers in f32 at
+#: GRAD_B x GRAD_L, ``loss_fn``'s gradients through the chunked route
+#: against the "ref" route within GRAD_TOL of each leaf's max |g|; (c)
+#: examples/torch_lm_train.py's 300 steps, checkpoints under TRAIN_DIR,
+#: the step-300 checkpoint restored bit for bit, RESUME_STEPS steps
+#: resumed from step RESUME_FROM within RESUME_TOL of the first run's
+#: losses; (d) FAMILY_TRAIN: (arch, batch, length) at full width and
+#: depth, their own n_micro, FAMILY_STEPS steps each
+TRAIN_ARCH, TRAIN_B, TRAIN_L, TRAIN_STEPS = "h2o_danube_1p8b", 4, 4096, 4
+GRAD_LAYERS, GRAD_B, GRAD_L, GRAD_TOL = 2, 1, 2048, 1e-3
+TRAIN_DIR = ROOT / "build" / "train_phase"
+RESUME_FROM, RESUME_STEPS, RESUME_TOL = 200, 20, 1e-3
+FAMILY_TRAIN = (("mamba2_130m", 8, 2048), ("whisper_small", 8, 448))
+FAMILY_STEPS = 2
 #: the flash kernel's shape on that path: (B, Hq, Hkv, L, D, window)
 FLASH_MAIN = (LM_B, 32, 8, LM_L, 80, 4096)
 #: the main shape's tolerance beside rtol, in units of each output row's
@@ -895,7 +912,7 @@ def profile_decode(torch, cfg, out: dict, tag: str, steps: int = 8) -> None:
     run's final cache, and the card's idle share."""
     from repro_torch.models import lm
     pc, cache, b, pos0 = out["pc"], out["cache"], out["b"], out["pos0"]
-    dev = next(pc.parameters()).device
+    dev = pc.embed["tok"].device
     decode = lm.make_decode_step(cfg)
     tok = torch.zeros(b, dtype=torch.int32, device=dev)
     pos = torch.arange(pos0, pos0 + steps, device=dev)
@@ -1185,6 +1202,229 @@ def zoo_phase(torch, dev, ops, profile: bool) -> None:
         del model
         torch.cuda.empty_cache()
         print(f"zoo {tag}: part wall {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# the train phase: the LM train step (AdamW, micro-batches, remat, the
+# chunked attention's backward, checkpoint and resume)
+# ---------------------------------------------------------------------------
+
+def train_flops(cfg, b: int, length: int) -> tuple[float, float]:
+    """(model flops of one train step, of which attention): 6 N per token
+    (N the parameters less the input embedding, a lookup) and 12 hd H per
+    visible (query, key) pair per layer (QK^T and PV, forward and
+    backward), the pairs of this run's causal window, not L^2."""
+    n = cfg.param_count() - cfg.vocab * cfg.d_model
+    w = cfg.window or length
+    pos = np.arange(length)
+    pairs = int((pos - np.maximum(pos - w + 1, 0) + 1).sum())
+    attn = 12.0 * cfg.hd * cfg.n_heads * pairs * cfg.n_layers * b
+    return 6.0 * n * b * length + attn, attn
+
+
+def train_run(torch, cfg, dev, b: int, length: int, steps: int, tag: str,
+              ops):
+    """``train()`` of ``cfg`` at full width and depth for ``steps`` steps
+    of (b, length) tokens on seeded random weights: per step wall,
+    tokens/s, loss, grad norm and lr; the peak; no kernel launched; the
+    losses finite.  Returns (result, peak bytes)."""
+    from repro_torch.models import lm, transformer
+    from repro_torch.train import optim
+    from repro_torch.train.loop import TrainerConfig, train
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=0, max_len=length, device=dev)
+    state = lm.init_train_state(params, optim.AdamW(weight_decay=0.1,
+                                                    clip_norm=1.0))
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    print(f"train {tag}: {cfg.name} {cfg.n_layers} layers, d {cfg.d_model},"
+          f" {n / 1e9:.3f}e9 f32 parameters + AdamW moments on the card in "
+          f"{time.perf_counter() - t0:.1f} s; remat {cfg.remat} "
+          f"(group {cfg.remat_group}), n_micro {cfg.n_micro}, attention "
+          f"{cfg.attention_impl}, compute {cfg.dtype}")
+    tc = TrainerConfig(seq_len=length, global_batch=b, n_micro=cfg.n_micro,
+                       steps=steps, log_every=0)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    res = train(cfg, tc, state=state, log=print, device=dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launched = dict(ops.LAUNCHES)
+    for i, (loss, wall, m) in enumerate(zip(res.losses, res.step_s,
+                                            res.metrics)):
+        print(f"train {tag} step {i}: wall {wall:.3f} s "
+              f"({'first' if i == 0 else 'warm'}), "
+              f"{b * length / wall:.0f} tokens/s, loss {loss:.6f}, grad "
+              f"norm {float(m['grad_norm']):.4f}, lr {float(m['lr']):.3e}")
+    print(f"train {tag}: peak {peak / 2**30:.2f} GiB, kernel-4 launches "
+          f"{launched['flash_attention']}")
+    check(res.final_step == steps and len(res.losses) == steps,
+          f"train {tag}: {res.final_step} steps of {steps}")
+    check(all(np.isfinite(x) for x in res.losses),
+          f"train {tag}: a loss is not finite: {res.losses}")
+    check(peak < 80e9, f"train {tag}: peak {peak / 1e9:.1f} GB >= 80 GB")
+    check(not any(launched.values()),
+          f"train {tag}: a kernel launched: {launched}")
+    return res, peak
+
+
+def train_grad_check(torch, cfg0, params) -> None:
+    """The trained weights cut to GRAD_LAYERS layers in f32: ``loss_fn``'s
+    gradients at GRAD_B x GRAD_L through the chunked attention (its
+    custom backward) against the "ref" route (the materialised softmax,
+    plain autograd), every leaf within GRAD_TOL of its max |g|."""
+    from repro_torch.models import lm, transformer
+    from repro_torch.train import optim
+    tree = params.tree()
+    (tokens, targets), = lm_batches(cfg0, 1, GRAD_B, GRAD_L, seed=9)
+    dev = tree["embed"]["tok"].device
+    batch = lm.Batch(torch.as_tensor(tokens, device=dev),
+                     torch.as_tensor(targets, device=dev))
+    grads = {}
+    for impl in ("chunked", "ref"):
+        cfg = cfg0.with_(n_layers=GRAD_LAYERS, attention_impl=impl,
+                         dtype="float32", remat=False, n_micro=1)
+        cut = transformer.DecoderLM(cfg, {**tree, "blocks":
+                                          tree["blocks"][:GRAD_LAYERS]})
+        cut.requires_grad_(True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (loss, _), g = optim.accumulate_gradients(
+            lambda p, bt: lm.loss_fn(cfg, p, bt), cut, batch, 1)
+        torch.cuda.synchronize()
+        print(f"train (b) {impl}: {GRAD_LAYERS} layers f32, {GRAD_B} x "
+              f"{GRAD_L}: loss {float(loss):.6f}, wall "
+              f"{time.perf_counter() - t0:.3f} s, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        grads[impl] = optim.tree_leaves(g)
+        del cut, g
+    worst = 0.0
+    for a, r in zip(grads["chunked"], grads["ref"]):
+        scale = float(r.abs().max())
+        worst = max(worst, float((a - r).abs().max()) / max(scale, 1e-30))
+    print(f"train (b): {len(grads['ref'])} leaves, max over leaves of "
+          f"max |g_chunked - g_ref| / max |g_ref| = {worst:.3e} "
+          f"(tolerance {GRAD_TOL})")
+    check(worst <= GRAD_TOL, f"train (b): the chunked backward differs "
+          f"from the ref route by {worst:.3e} of a leaf's max |g|")
+
+
+def train_example(torch, dev) -> None:
+    """examples/torch_lm_train.py at its size (300 steps, its gate), its
+    checkpoints under TRAIN_DIR; the step-300 checkpoint restored into a
+    fresh state equals the run's final state bit for bit; RESUME_STEPS
+    steps resumed from the step-RESUME_FROM checkpoint (the loop's own
+    step, schedule and data source) against the first run's losses."""
+    from repro_torch import convert
+    from repro_torch.models import lm, transformer
+    from repro_torch.train import checkpoint as ckpt, optim
+    from repro_torch.train.data import make_source
+    ex = load_example("torch_lm_train")
+    out = TRAIN_DIR / "example"
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    res = ex.main(["--ckpt-dir", str(out)], device=dev)
+    wall = time.perf_counter() - t0
+    cfg = ex.model_config()
+    tc = ex.trainer_config(res.final_step, str(out))
+    warm = np.asarray(res.step_s[1:])
+    print(f"train (c): {cfg.name} {res.final_step} steps of "
+          f"{tc.global_batch} x {tc.seq_len} in {wall:.1f} s (checkpoints "
+          f"included), warm step mean {1e3 * warm.mean():.1f} ms p50 "
+          f"{1e3 * np.median(warm):.1f} ms, loss {res.losses[0]:.4f} -> "
+          f"{res.losses[-1]:.4f} (drop {res.losses[0] - res.losses[-1]:.4f})"
+          f"; checkpoints {sorted(os.listdir(out))}")
+    check(res.losses[-1] < res.losses[0] - 0.5, "train (c): no 0.5 drop")
+
+    def fresh():
+        return lm.init_train_state(
+            transformer.init_params(cfg, seed=1, max_len=tc.seq_len,
+                                    device=dev), optim.AdamW())
+    back, manifest = ckpt.restore(str(out), fresh(), step=res.final_step)
+    mine = optim.tree_leaves(convert.train_state_to_numpy(res.state))
+    theirs = optim.tree_leaves(convert.train_state_to_numpy(back))
+    same = len(mine) == len(theirs) and all(
+        a.dtype == b.dtype and np.array_equal(a, b)
+        for a, b in zip(mine, theirs))
+    print(f"train (c): step-{manifest['step']} checkpoint restored, "
+          f"{len(mine)} leaves, bit-equal to the run's state: {same}")
+    check(same, "train (c): the restored checkpoint differs from the state")
+
+    state, _ = ckpt.restore(str(out), fresh(), step=RESUME_FROM)
+    opt = optim.AdamW(weight_decay=0.1, clip_norm=1.0)
+    step = lm.make_train_step(cfg, opt, optim.cosine_schedule(
+        tc.peak_lr, tc.warmup, tc.steps), n_micro=tc.n_micro)
+    source = make_source(cfg, tc.seq_len, tc.global_batch, tc.seed, dev)
+    again = []
+    for s in range(RESUME_FROM, RESUME_FROM + RESUME_STEPS):
+        state, m = step(state, source(s))
+        again.append(float(m["loss"]))
+    first = res.losses[RESUME_FROM:RESUME_FROM + RESUME_STEPS]
+    gap = float(np.abs(np.asarray(again) - np.asarray(first)).max())
+    print(f"train (c): resumed at step {RESUME_FROM} for {RESUME_STEPS} "
+          f"steps: max |loss - first run's| = {gap:.3e}")
+    check(gap <= RESUME_TOL, f"train (c): resume differs by {gap:.3e}")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+
+def profile_train(torch, cfg, res) -> None:
+    """Device time by kernel over one more warm step of (a), and the
+    card's idle share."""
+    from repro_torch.models import lm
+    from repro_torch.train import optim
+    from repro_torch.train.data import make_source
+    step = lm.make_train_step(cfg, optim.AdamW(weight_decay=0.1,
+                                               clip_norm=1.0),
+                              lambda s: 1e-5, n_micro=cfg.n_micro)
+    dev = res.state.step.device
+    batch = make_source(cfg, TRAIN_L, TRAIN_B, 0, dev)(TRAIN_STEPS)
+    _, wall, busy, rows = _profile(torch, lambda: step(res.state, batch))
+    print(f"profile: train step {TRAIN_B} x {TRAIN_L} wall={wall:.3f} s "
+          f"(profiled), device busy {busy:.3f} s, idle share "
+          f"{1.0 - busy / wall:.3f}")
+    for secs, n, key in rows[:20]:
+        print(f"  {100 * secs / wall:5.1f}% {1e3 * secs:9.2f} ms x{n:<6d} "
+              f"{key[:90]}")
+
+
+def train_phase(torch, dev, ops, profile: bool) -> None:
+    """(a) danube at full width and depth, ``train()`` for TRAIN_STEPS
+    steps; (b) the chunked backward against the ref route; (c) the
+    example, its checkpoint and a resume; (d) Mamba2 and Whisper at full
+    width, FAMILY_STEPS steps each."""
+    from repro_torch import configs
+    cfg = configs.get(TRAIN_ARCH)
+    t0 = time.perf_counter()
+    res, peak = train_run(torch, cfg, dev, TRAIN_B, TRAIN_L, TRAIN_STEPS,
+                          "(a)", ops)
+    flops, attn = train_flops(cfg, TRAIN_B, TRAIN_L)
+    warm = float(np.median(res.step_s[1:]))
+    print(f"train (a): model flops per step {flops:.4e} (attention "
+          f"{attn:.3e}); warm step {warm:.3f} s = {flops / warm / 1e12:.1f} "
+          f"TFLOP/s = {100 * flops / warm / PEAK_FLOPS['bfloat16']:.2f}% of "
+          f"the {PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s bf16 peak; "
+          f"{TRAIN_B * TRAIN_L / warm:.0f} tokens/s; peak "
+          f"{peak / 2**30:.2f} GiB")
+    if profile:
+        profile_train(torch, cfg, res)
+    params = res.state.params
+    del res
+    torch.cuda.empty_cache()
+    train_grad_check(torch, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    print(f"train (a)+(b): part wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_example(torch, dev)
+    torch.cuda.empty_cache()
+    print(f"train (c): part wall {time.perf_counter() - t0:.1f} s")
+    for arch, b, length in FAMILY_TRAIN:
+        t0 = time.perf_counter()
+        train_run(torch, configs.get(arch), dev, b, length, FAMILY_STEPS,
+                  "(d)", ops)
+        torch.cuda.empty_cache()
+        print(f"train (d) {arch}: part wall {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -2915,7 +3155,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="all",
                     help="comma list of kernels,main,batched,adaptive,obs,"
                          "gram,lm,dist,telemetry,serve,pathmode,cross,"
-                         "timing,calibrate,brain,lmserve,zoo (default: "
+                         "timing,calibrate,brain,lmserve,zoo,train (default: "
                          "all; "
                          "device and build always run; telemetry and "
                          "pathmode need main)")
@@ -2927,7 +3167,8 @@ def main(argv=None) -> int:
                          "the serve phase); the gram phase profiles one "
                          "prep's streaming pass, the lmserve phase 8 "
                          "decode steps of danube and of OLMoE, the zoo "
-                         "phase 8 decode steps of each of its models")
+                         "phase 8 decode steps of each of its models, the "
+                         "train phase one warm danube train step")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script",
@@ -3037,6 +3278,10 @@ def main(argv=None) -> int:
     if run("zoo"):
         phase("zoo")
         zoo_phase(torch, dev, ops, args.profile)
+        torch.cuda.empty_cache()
+    if run("train"):
+        phase("train")
+        train_phase(torch, dev, ops, args.profile)
     if measured:
         rows = kernel_rows(kman, measured, errs, launches, smi)
         print(json.dumps({"kernels": rows}))

@@ -103,6 +103,42 @@ def lm_params_from_numpy(cfg, tree, device=None):
     return DecoderLM(cfg, out)
 
 
+def lm_params_to_numpy(params) -> dict:
+    """The inverse of :func:`lm_params_from_numpy`: the reference's
+    parameter tree as nested dicts of numpy arrays, the stacked groups
+    (``blocks``, ``enc``) stacked on a leading layer axis.  ``params`` is
+    a ``DecoderLM``, a ``Weights``, or a tree of the same structure (an
+    optimizer's moments); bfloat16 leaves widen exactly to float32."""
+    from .train.optim import as_tree
+    tree = as_tree(params)
+
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    out = {}
+    for name, group in tree.items():
+        if isinstance(group, list):
+            out[name] = {k: np.stack([leaf(b[k]) for b in group])
+                         for k in group[0]}
+        else:
+            out[name] = {k: leaf(v) for k, v in group.items()}
+    return out
+
+
+def train_state_to_numpy(state) -> dict:
+    """An ``lm.TrainState`` (AdamW's or SGDM's state) as the reference's
+    tree in numpy: ``{"params", "opt": {"step", "m", "v"}, "step"}``,
+    the moments in :func:`lm_params_to_numpy`'s layout (``v`` is {} for
+    SGDM), the step counters as int32 scalars."""
+    opt = state.opt
+    return {"params": lm_params_to_numpy(state.params),
+            "opt": {"step": np.asarray(int(opt.step), np.int32),
+                    "m": lm_params_to_numpy(opt.m),
+                    "v": lm_params_to_numpy(opt.v) if opt.v else {}},
+            "step": np.asarray(int(state.step), np.int32)}
+
+
 def cache_from_numpy(cfg, tree, device=None):
     """The port's serve cache (``transformer.init_cache``'s layout) from
     the reference's cache tree of any family as numpy arrays: ``pos`` as

@@ -50,7 +50,9 @@ solve's device (``torch.matmul``), ``"host"`` runs it through
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import sys
 from typing import NamedTuple
 
 import numpy as np
@@ -82,6 +84,23 @@ DEFAULT_CHUNK = 32
 #: product routes of the flat step: "xla" on the solve's device, "host"
 #: through np.matmul on a host copy (bit-stable across waves and lanes)
 BATCH_GEMMS = ("xla", "host")
+
+
+def _obs_span(name: str, **attrs):
+    """A tracer span if the obs package is active (``repro_torch.obs.trace``
+    already imported by the caller's backend), else a no-op context: the
+    engine never imports ``repro_torch.obs``, so ``obs="off"`` runs the
+    untraced code path."""
+    tr = sys.modules.get("repro_torch.obs.trace")
+    if tr is None:
+        return contextlib.nullcontext()
+    return tr.get_tracer().span(name, cat="batch", level="trace", **attrs)
+
+
+def _obs_event(name: str, **attrs) -> None:
+    tr = sys.modules.get("repro_torch.obs.trace")
+    if tr is not None:
+        tr.get_tracer().event(name, cat="batch", level="trace", **attrs)
 
 
 class _Lanes(NamedTuple):
@@ -491,6 +510,7 @@ def _solve_lanes(arr, spec, ridge, omega0, *, variant, tol, max_iters,
     for wave_idx, wave in enumerate(waves):
         ids = np.asarray(wave, np.int64)
         cap = b if monolithic else _capacity(len(ids), b)
+        _obs_event("batch.wave", wave=wave_idx, lanes=len(ids))
         pad_idx = np.concatenate(
             [ids, np.full(cap - len(ids), ids[-1], np.int64)])
         idx = torch.as_tensor(pad_idx, device=dev)
@@ -506,10 +526,13 @@ def _solve_lanes(arr, spec, ridge, omega0, *, variant, tol, max_iters,
         cur_ids[len(ids):] = -1
 
         while True:
-            n_real = np.count_nonzero(cur_ids >= 0)
-            state, done, occ = _run_segment(
-                state, done, data, spec_w, trial=trial, variant=variant,
-                steps=steps, statics=statics)
+            # a host numpy array: no device sync
+            n_real = int(np.count_nonzero(cur_ids >= 0))  # ca: allow=CA106
+            with _obs_span("batch.segment", segment=segments,
+                           wave=wave_idx, lanes=n_real, cap=cap):
+                state, done, occ = _run_segment(
+                    state, done, data, spec_w, trial=trial, variant=variant,
+                    steps=steps, statics=statics)
             segments += 1
             occupancy.extend(min(v, n_real) for v in occ)
             capacities.extend([cap] * len(occ))

@@ -154,14 +154,11 @@ def _softcap(s, softcap):
     return s if softcap is None else softcap * torch.tanh(s / softcap)
 
 
-def mea_attention(q, k, v, qpos, kpos, window, causal, scale, softcap,
-                  chunk):
-    """Forward of the reference's memory-efficient attention: an online
-    softmax over kv chunks of ``chunk`` keys, all in float32.
-
-    q: (B, H, Lq, D); k, v: (B, H, Lk, D); qpos: (Lq,); kpos: (Lk,).
-    ``window`` <= 0 means no window.  Returns (B, H, Lq, D) in q's dtype.
-    """
+def _mea_forward(q, k, v, qpos, kpos, window, causal, scale, softcap,
+                 chunk, *, with_lse: bool = False):
+    """The online-softmax loop of :func:`mea_attention`; with
+    ``with_lse`` also the (B, H, Lq) float32 log-sum-exp of each row's
+    scaled, capped and masked logits."""
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
     nc = max(1, Lk // chunk)
@@ -185,7 +182,90 @@ def mea_attention(q, k, v, qpos, kpos, window, causal, scale, softcap,
         acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vc)
         m = m_new
     l = torch.clamp_min(l, 1e-30)
-    return (acc / l[..., None]).to(q.dtype)
+    out = (acc / l[..., None]).to(q.dtype)
+    return (out, m + torch.log(l)) if with_lse else out
+
+
+def _mea_backward(q, k, v, qpos, kpos, out, lse, dout, window, causal,
+                  scale, softcap, chunk):
+    """The reference's ``_mea_vjp_bwd``: each kv chunk's probabilities
+    recomputed from the saved log-sum-exp, ``delta = sum(dO * O)`` per
+    row, the softcap's derivative ``1 - t^2``; float32 throughout, the
+    gradients cast back to their inputs' dtypes."""
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    nc = max(1, Lk // chunk)
+    ck = Lk // nc
+    qf = q.float()
+    dof = dout.float()
+    delta = torch.sum(dof * out.float(), dim=-1)               # (B, H, Lq)
+    dq = torch.zeros((B, H, Lq, D), dtype=torch.float32, device=q.device)
+    dk = torch.empty((B, H, Lk, D), dtype=torch.float32, device=q.device)
+    dv = torch.empty((B, H, Lk, D), dtype=torch.float32, device=q.device)
+    for c in range(nc):
+        sl = slice(c * ck, (c + 1) * ck)
+        kc, vc = k[:, :, sl].float(), v[:, :, sl].float()
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kc) * scale
+        t = None
+        if softcap is not None:
+            t = torch.tanh(s / softcap)
+            s = softcap * t
+        keep = _attn_mask(qpos, kpos[sl], causal=causal, window=window)
+        s = torch.where(keep[None, None], s, NEG_INF)
+        p = torch.exp(s - lse[..., None])                      # exact probs
+        del s
+        dp = torch.einsum("bhqd,bhkd->bhqk", dof, vc)
+        ds = p * (dp - delta[..., None])
+        del dp
+        if t is not None:
+            ds = ds * (1.0 - t * t)                            # d tanh
+            del t
+        dv[:, :, sl] = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+        del p
+        dk[:, :, sl] = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+        dq += torch.einsum("bhqk,bhkd->bhqd", ds, kc) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _MeaAttention(torch.autograd.Function):
+    """:func:`mea_attention` with the reference's custom VJP: the forward
+    saves q, k, v, the output and the log-sum-exp, never a chunk's
+    probabilities, so the backward's memory stays O(L * chunk)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qpos, kpos, window, causal, scale, softcap,
+                chunk):
+        out, lse = _mea_forward(q, k, v, qpos, kpos, window, causal, scale,
+                                softcap, chunk, with_lse=True)
+        ctx.save_for_backward(q, k, v, qpos, kpos, out, lse)
+        ctx.statics = (window, causal, scale, softcap, chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, qpos, kpos, out, lse = ctx.saved_tensors
+        dq, dk, dv = _mea_backward(q, k, v, qpos, kpos, out, lse, dout,
+                                   *ctx.statics)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def mea_attention(q, k, v, qpos, kpos, window, causal, scale, softcap,
+                  chunk):
+    """The reference's memory-efficient attention: an online softmax over
+    kv chunks of ``chunk`` keys, all in float32.
+
+    q: (B, H, Lq, D); k, v: (B, H, Lk, D); qpos: (Lq,); kpos: (Lk,).
+    ``window`` <= 0 means no window.  Returns (B, H, Lq, D) in q's dtype.
+    When gradients flow to q, k or v it runs as a
+    ``torch.autograd.Function`` whose backward is the reference's custom
+    VJP (:func:`_mea_backward`); autograd through the chunk loop would
+    save every chunk's probabilities, O(L^2) memory."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _MeaAttention.apply(q, k, v, qpos, kpos, window, causal,
+                                   scale, softcap, chunk)
+    return _mea_forward(q, k, v, qpos, kpos, window, causal, scale, softcap,
+                        chunk)
 
 
 def _pick_chunk(lk: int, target: int) -> int:
@@ -346,6 +426,10 @@ def attention_flash(cfg: ModelConfig, p, x, positions, *, prefix="attn",
     the same layout, so neither side copies."""
     B, L, _ = x.shape
     dt = x.dtype
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise ValueError("the flash-attention kernel has no backward (nor "
+                         "has the reference's); take gradients through "
+                         "attention_impl='chunked' or 'ref'")
     q, k, v = _project_qkv(cfg, p, x, prefix)
     if cfg.rope_theta > 0:
         q = rope(q, positions, cfg.rope_theta)

@@ -16,7 +16,17 @@ keeps them in a :class:`DecoderLM` module whose stacked groups
 :class:`ParamBlock` per layer, each holding the schema's names as its
 parameters, and runs the layers in Python loops.  ``forward``,
 ``encode``, ``lm_head``, ``init_params`` and ``init_cache`` keep the
-reference's names.
+reference's names.  The forward reads its weights from a
+:class:`DecoderLM` or from a :class:`Weights` (``lm.cast_params``'s
+compute-dtype copy, whose tensors stay on the master's autograd graph).
+
+With ``cfg.remat`` and gradients on, the cache-free forward checkpoints
+every layer (``torch.utils.checkpoint``), as the reference's
+``_maybe_remat`` does, and with ``cfg.remat_group`` > 1 (dividing the
+layer count) groups of layers as well, as its ``_grouped_scan``: only
+the residual stream between groups is kept for the backward, at about
+one extra forward of recompute.  Serving (a cache, or no gradients)
+never recomputes.
 
 The cache is the reference's stacked tree (:func:`init_cache`); each
 layer writes its slice in place, so the cache is never double-buffered
@@ -25,8 +35,11 @@ the same end).
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import layers as L
@@ -121,9 +134,10 @@ def stacked_groups(cfg: ModelConfig) -> dict:
 
 class ParamBlock(nn.Module):
     """A flat group of named tensors (one schema), read as a mapping:
-    ``p["attn_wq"]``, ``"attn_qnorm" in p``.  The tensors are parameters
-    without gradients: the port evaluates the loss and serves, and the
-    train step that differentiates it is a later slice."""
+    ``p["attn_wq"]``, ``"attn_qnorm" in p``.  The parameters are made
+    frozen, so evaluating the loss or serving builds no autograd graph;
+    ``lm.init_train_state`` turns them into trainable leaves
+    (``requires_grad_()``)."""
 
     def __init__(self, tensors: dict):
         super().__init__()
@@ -171,6 +185,23 @@ class DecoderLM(nn.Module):
         return {name: ([b.tensors() for b in m]
                        if isinstance(m, nn.ModuleList) else m.tensors())
                 for name, m in self.named_children()}
+
+
+class Weights:
+    """An LM's tensors with :class:`DecoderLM`'s access (``w.embed["tok"]``,
+    ``w.blocks[i]["attn_wq"]``, ``w.tree()``), as plain tensors: a dict
+    per group, a list of dicts for the stacked groups.  What
+    ``lm.cast_params`` returns.  A module would wrap each cast in a new
+    leaf parameter and cut the autograd graph back to the master
+    weights; plain tensors keep it."""
+
+    def __init__(self, tree: dict):
+        self._names = sorted(tree)
+        for name in self._names:
+            setattr(self, name, tree[name])
+
+    def tree(self) -> dict:
+        return {name: getattr(self, name) for name in self._names}
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, max_len: int = 0,
@@ -282,18 +313,58 @@ def _embed(cfg: ModelConfig, params, tokens, positions):
     return h
 
 
+def _remat(cfg: ModelConfig, h) -> bool:
+    """Whether the cache-free forward checkpoints its layers: under
+    ``cfg.remat`` when gradients are on and the residual stream carries
+    them."""
+    return cfg.remat and torch.is_grad_enabled() and h.requires_grad
+
+
+def _ckpt(fn, *args):
+    # the forward draws no random numbers, so there is no RNG state to
+    # carry into the recompute
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _run_layers(layer, carry, items, remat: bool, group: int = 0):
+    """``carry = layer(*carry, *item)`` over ``items`` in order; with
+    ``remat`` each call checkpointed, and with ``group`` > 1 dividing the
+    count, each run of ``group`` calls checkpointed around its
+    checkpointed layers (the reference's ``_grouped_scan``)."""
+    if not remat:
+        for item in items:
+            carry = layer(*carry, *item)
+        return carry
+
+    def run(*c, members):
+        for item in members:
+            c = _ckpt(layer, *c, *item)
+        return c
+
+    if group <= 1 or len(items) % group:
+        return run(*carry, members=items)
+    for i in range(0, len(items), group):
+        carry = _ckpt(partial(run, members=items[i:i + group]), *carry)
+    return carry
+
+
 def encode(cfg: ModelConfig, params: DecoderLM, frames):
     """Whisper's encoder over stub frame embeddings (B, enc_len, d):
     learned positions, bidirectional attention, the final ``efn`` norm."""
     dt = getattr(torch, cfg.dtype)
     h = frames.to(dt) + params.embed["pos_enc"].to(dt)
     positions = torch.arange(h.shape[1], device=h.device)
-    for p in params.enc:
+
+    def layer(h, p):
         x = L.apply_norm(cfg, p, "ln1", h)
         a, _ = L.attention(cfg, p, x, positions, causal=False)
         h = h + a
         x = L.apply_norm(cfg, p, "ln2", h)
-        h = h + L.apply_mlp(cfg, p, x)
+        return (h + L.apply_mlp(cfg, p, x),)
+
+    (h,) = _run_layers(layer, (h,), [(p,) for p in params.enc],
+                       _remat(cfg, h))
     return L.apply_norm(cfg, params.enc_final, "efn", h)
 
 
@@ -307,9 +378,13 @@ def forward(cfg: ModelConfig, params: DecoderLM, tokens, positions, *,
     loss, as the reference's does.  An enc-dec model takes its encoder
     output from ``enc_out``, else from ``enc_frames`` (encoded here),
     else from ``caches["enc_out"]``, in that order; a cached call stores
-    it in the cache."""
+    it in the cache.  The cache-free forward checkpoints its layers
+    under ``cfg.remat`` (see the module's docstring): each decoder,
+    Mamba2 or Whisper layer, and each Zamba2 group (the shared block and
+    its Mamba2 layers), as the reference does."""
     h = _embed(cfg, params, tokens, positions)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    remat = caches is None and _remat(cfg, h)
 
     if cfg.enc_dec:
         if enc_out is None:
@@ -319,37 +394,61 @@ def forward(cfg: ModelConfig, params: DecoderLM, tokens, positions, *,
                 enc_out = caches["enc_out"].to(h.dtype)
             else:
                 raise ValueError("enc-dec forward needs frames or enc_out")
-        for layer, p in enumerate(params.blocks):
-            c = (None if caches is None
-                 else layer_cache(caches["layers"], layer))
-            h, _ = apply_xdec_block(cfg, p, h, positions, enc_out, cache=c)
-        if caches is not None and enc_out is not caches["enc_out"]:
-            caches["enc_out"].copy_(enc_out)
+        if caches is None:
+            (h,) = _run_layers(
+                lambda h, p: (apply_xdec_block(
+                    cfg, p, h, positions, enc_out)[0],),
+                (h,), [(p,) for p in params.blocks], remat)
+        else:
+            for layer, p in enumerate(params.blocks):
+                h, _ = apply_xdec_block(
+                    cfg, p, h, positions, enc_out,
+                    cache=layer_cache(caches["layers"], layer))
+            if enc_out is not caches["enc_out"]:
+                caches["enc_out"].copy_(enc_out)
     elif cfg.family == "ssm":
-        for layer, p in enumerate(params.blocks):
-            h, _ = apply_ssm_block(
-                cfg, p, h,
-                cache=None if caches is None else layer_cache(caches, layer))
+        if caches is None:
+            (h,) = _run_layers(
+                lambda h, p: (apply_ssm_block(cfg, p, h)[0],), (h,),
+                [(p,) for p in params.blocks], remat)
+        else:
+            for layer, p in enumerate(params.blocks):
+                h, _ = apply_ssm_block(cfg, p, h,
+                                       cache=layer_cache(caches, layer))
     elif cfg.family == "hybrid":
         per = cfg.shared_every
-        for grp in range(cfg.n_layers // per):
-            h, _ = apply_shared_block(
-                cfg, params.shared, h, positions,
-                cache=(None if caches is None
-                       else layer_cache(caches["shared"], grp)),
-                fresh_kv=fresh_kv)
-            for j in range(per):
-                c = (None if caches is None else
-                     layer_cache(layer_cache(caches["mamba"], grp), j))
-                h, _ = apply_ssm_block(cfg, params.blocks[grp * per + j], h,
-                                       cache=c)
+        groups = [params.blocks[grp * per:(grp + 1) * per]
+                  for grp in range(cfg.n_layers // per)]
+        if caches is None:
+            def group(h, members):
+                h, _ = apply_shared_block(cfg, params.shared, h, positions,
+                                          fresh_kv=fresh_kv)
+                for p in members:
+                    h, _ = apply_ssm_block(cfg, p, h)
+                return (h,)
+            # the reference checkpoints each group, not its Mamba2 layers
+            (h,) = _run_layers(group, (h,), [(m,) for m in groups], remat)
+        else:
+            for grp, members in enumerate(groups):
+                h, _ = apply_shared_block(
+                    cfg, params.shared, h, positions,
+                    cache=layer_cache(caches["shared"], grp),
+                    fresh_kv=fresh_kv)
+                for j, p in enumerate(members):
+                    h, _ = apply_ssm_block(
+                        cfg, p, h,
+                        cache=layer_cache(layer_cache(caches["mamba"], grp),
+                                          j))
     else:
-        for layer, (p, w) in enumerate(zip(params.blocks,
-                                           window_pattern(cfg))):
-            if caches is None:
+        layers = list(zip(params.blocks, window_pattern(cfg)))
+        if caches is None:
+            def layer(h, aux, p, w):
                 h, _, a = apply_decoder_block(cfg, p, h, positions, w)
-                aux = aux + a
-            else:
+                return h, aux + a
+            h, aux = _run_layers(layer, (h, aux), layers, remat,
+                                 cfg.remat_group)
+        else:
+            for layer, (p, w) in enumerate(layers):
                 h, _, _ = apply_decoder_block(
                     cfg, p, h, positions, w,
                     cache=layer_cache(caches, layer), fresh_kv=fresh_kv)

@@ -367,3 +367,59 @@ def test_clustering_and_examples_run_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_train_entry_points_do_not_fall_back_to_the_cpu(no_cuda, tmp_path):
+    """``train()``, ``launch.train``, the example, the data sources and
+    ``init_params`` raise without a card unless asked for the CPU."""
+    import importlib.util
+    from repro_torch import configs
+    from repro_torch.launch import train as cli
+    from repro_torch.train import data, loop
+    cfg = configs.get_smoke("mamba2_130m")
+    tc = loop.TrainerConfig(seq_len=16, global_batch=2, steps=1,
+                            log_every=0)
+    spec = importlib.util.spec_from_file_location(
+        "torch_lm_train", REPO / "examples" / "torch_lm_train.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    src = data.SyntheticLM(vocab=64, seq_len=8, global_batch=2)
+    for call in (lambda: loop.train(cfg, tc),
+                 lambda: cli.main(["--arch", "mamba2-130m", "--smoke",
+                                   "--steps", "1", "--seq-len", "16"]),
+                 lambda: example.main(["--steps", "1", "--ckpt-dir",
+                                       str(tmp_path)]),
+                 lambda: src.batch_at(0),
+                 lambda: src.device_batch_at(0),
+                 lambda: data.SyntheticFrames(4, 8, 2).frames_at(0),
+                 lambda: data.make_source(cfg, 8, 2)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert loop.train(cfg, tc, device="cpu", log=lambda *a: None
+                      ).final_step == 1
+
+
+def test_train_slice_runs_with_jax_blocked(tmp_path):
+    """``launch.train`` trains, checkpoints and resumes with JAX and the
+    JAX package blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import math\n"
+        "from repro_torch.launch import train\n"
+        f"argv = ['--arch', 'whisper-small', '--smoke', '--seq-len', '16',\n"
+        f"        '--batch', '2', '--ckpt-dir', {str(tmp_path)!r}]\n"
+        "res = train.main(argv + ['--steps', '2'], device='cpu')\n"
+        "res = train.main(argv + ['--steps', '3'], device='cpu')\n"
+        "assert res.final_step == 3 and len(res.losses) == 1\n"
+        "assert all(math.isfinite(x) for x in res.losses)\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO / "src")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")

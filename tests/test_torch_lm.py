@@ -323,8 +323,9 @@ def test_lm_params_from_numpy_unstacks_layers():
 
 def test_cached_paths_and_moe_raise():
     """The cached paths and the MoE layer run (their parity with the
-    reference is in ``test_torch_lm_serve.py`` and ``test_torch_moe.py``);
-    only the train step still raises."""
+    reference is in ``test_torch_lm_serve.py`` and ``test_torch_moe.py``),
+    and so does the train step (its parity is in
+    ``test_torch_lm_train.py``)."""
     cfg = tconfigs.get_smoke("h2o_danube_1p8b").with_(dtype="float32")
     model = tT.init_params(cfg, device="cpu")
     tok = torch.zeros((1, 8), dtype=torch.long)
@@ -350,8 +351,11 @@ def test_cached_paths_and_moe_raise():
     assert logits.shape == (1, cfg.vocab_pad)
     caches, nxt = tlm.make_decode_step(cfg)(model, caches, tok[:, 0], 8)
     assert nxt.shape == (1,) and bool(caches["pos"][0, 8] == 8)
-    with pytest.raises(NotImplementedError, match="train-step"):
-        tlm.make_train_step(cfg)
+    from repro_torch.train.optim import AdamW
+    step = tlm.make_train_step(cfg, AdamW(), lambda s: 1e-3)
+    state, metrics = step(tlm.init_train_state(model, AdamW()),
+                          tlm.Batch(tok, tok))
+    assert int(state.step) == 1 and bool(torch.isfinite(metrics["loss"]))
 
 
 def test_flash_route_counts_no_launch_on_the_cpu():

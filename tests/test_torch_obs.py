@@ -405,6 +405,54 @@ def test_fit_path_telemetry_and_span():
     assert tracer.mode == "off"
 
 
+def _batched_path(pkg, obs, s):
+    cfg = pkg.SolverConfig(backend="reference", variant="cov", tol=1e-5,
+                           max_iters=80, obs=obs,
+                           **({"device": "cpu"} if pkg is test_ else {}))
+    est = pkg.ConcordEstimator(penalty="l1", config=cfg)
+    return est.fit_path(s=s, lam1_grid=[0.4, 0.3, 0.2], n_samples=80,
+                        mode="batched", score_bic=False)
+
+
+def _batch_records(tracer):
+    return [(s.name, s.phase, s.args) for s in tracer.snapshot()
+            if s.cat == "batch"]
+
+
+def test_batched_path_wave_and_segment_records_match_the_reference(x64):
+    """The batched engine's ``batch.wave`` events and ``batch.segment``
+    spans under ``obs="trace"``: the same names, order and attributes as
+    the reference's trace of the same f64 path; ``obs="off"`` is
+    bit-identical, with the same iteration counts and kernel launches."""
+    from repro import estimator as jest
+    from repro_torch.kernels import ops
+    s = np.asarray(graphs.make_problem("chain", 24, 80, seed=0).s,
+                   np.float64)
+    jtr, ttr = jtrace.get_tracer(), ttrace.get_tracer()
+    jtr.clear()
+    ttr.clear()
+    _batched_path(jest, "trace", s)
+    ops.reset_launches()
+    traced = _batched_path(test_, "trace", s)
+    traced_launches = dict(ops.LAUNCHES)
+    want, got = _batch_records(jtr), _batch_records(ttr)
+    assert [r[0] for r in want].count("batch.wave") >= 1
+    assert [r[0] for r in want].count("batch.segment") >= 1
+    assert got == want
+    for name, phase, args in got:
+        keys = ({"wave", "lanes"} if name == "batch.wave"
+                else {"segment", "wave", "lanes", "cap"})
+        assert set(args) == keys, (name, args)
+    ttr.clear()
+    ops.reset_launches()
+    off = _batched_path(test_, "off", s)
+    assert dict(ops.LAUNCHES) == traced_launches
+    assert len(ttr) == 0
+    for a, b in zip(off.reports, traced.reports):
+        assert torch.equal(a.omega, b.omega)
+        assert (a.iters, a.ls_total) == (b.iters, b.ls_total)
+
+
 def test_gram_chunk_spans_only_when_traced():
     from repro_torch.data import compute_gram
     x = np.random.default_rng(0).standard_normal((90, 6))
