@@ -128,6 +128,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 Prefill wall, ms per decode step (mean, p99), decode
                 tokens/s, peak, the cache by part, kernel-4 launches (0:
                 the reference routes none of them through flash)
+ 15. trainmp    multi-rank training (``train(mesh=)``): (a) danube-1.8b at
+                full width and depth on the (1, 1) mesh of a one-rank NCCL
+                group, 3 steps of 4 x 4096, against one process (the train
+                phase's run), and ``torchrun --nproc-per-node 1 -m
+                repro_torch.launch.train --mesh host`` on a smoke config
+                against ``--mesh none``; (b) P_DIST gloo ranks sharing the
+                card, danube at 4 layers on mesh (2, 2), 3 steps of 4 x
+                4096, against one process; (c) OLMoE-1B-7B at 1 layer on
+                mesh (4, 1) (the per-shard MoE dispatch), 2 steps of 8 x
+                2048, its step-1 loss against one process dispatching the
+                same token blocks in turn; (d) the int8 ring and the bf16
+                psum of 16M float32 per rank, their error and wire bytes.
+                Step walls, state bytes per rank, gloo host copies and
+                wire bytes per step, peaks, MoE drops; no kernel launches
 
 The kernels phase also holds the flash kernel against its plain version
 at every manifest config (f32, bf16) and at the LM path's shape (B 2,
@@ -279,6 +293,26 @@ TRAIN_DIR = ROOT / "build" / "train_phase"
 RESUME_FROM, RESUME_STEPS, RESUME_TOL = 200, 20, 1e-3
 FAMILY_TRAIN = (("mamba2_130m", 8, 2048), ("whisper_small", 8, 448))
 FAMILY_STEPS = 2
+#: the trainmp phase (multi-rank training): (a) TRAIN_ARCH at full width
+#: and depth on a one-rank NCCL group, mesh (1, 1), TRAINMP_STEPS steps of
+#: TRAIN_B x TRAIN_L, held within MP_W1_TOL (relative) of a one-process
+#: ``train()`` (the train phase's, whose first steps run the same
+#: warm-up learning rates); (b) P_DIST gloo ranks sharing the card on
+#: MP_DENSE_MESH, the same at MP_DENSE_LAYERS layers, against one process
+#: within MP_STEP1_TOL at step 1 and MP_LATER_TOL later (bf16 compute,
+#: other summation orders); (c) OLMOE_ARCH cut to MP_MOE_LAYERS layer(s)
+#: on MP_MOE_MESH (the per-shard MoE dispatch), MP_MOE_STEPS steps of
+#: MP_MOE_B x MP_MOE_L in MP_MOE_MICRO micro-batches, its step-1 loss
+#: against one process dispatching the same token blocks in turn within
+#: MP_MOE_TOL; (d) the int8 ring and the bf16 psum on P_DIST ranks, CUDA
+#: tensors of MP_COLL_N float32 each, within the reference test's bounds
+MP_DIR = ROOT / "build" / "trainmp_phase"
+TRAINMP_STEPS, MP_W1_TOL = 3, 1e-6
+MP_DENSE_MESH, MP_DENSE_LAYERS = (2, 2), 4
+MP_STEP1_TOL, MP_LATER_TOL = 1e-4, 2e-3
+MP_MOE_MESH, MP_MOE_LAYERS, MP_MOE_STEPS = (4, 1), 1, 2
+MP_MOE_B, MP_MOE_L, MP_MOE_MICRO, MP_MOE_TOL = 8, 2048, 2, 2e-3
+MP_COLL_N, MP_RING_BOUND, MP_PSUM_BOUND = 1 << 24, 0.15, 2e-2
 #: the flash kernel's shape on that path: (B, Hq, Hkv, L, D, window)
 FLASH_MAIN = (LM_B, 32, 8, LM_L, 80, 4096)
 #: the main shape's tolerance beside rtol, in units of each output row's
@@ -1388,11 +1422,11 @@ def profile_train(torch, cfg, res) -> None:
               f"{key[:90]}")
 
 
-def train_phase(torch, dev, ops, profile: bool) -> None:
+def train_phase(torch, dev, ops, profile: bool) -> list:
     """(a) danube at full width and depth, ``train()`` for TRAIN_STEPS
     steps; (b) the chunked backward against the ref route; (c) the
     example, its checkpoint and a resume; (d) Mamba2 and Whisper at full
-    width, FAMILY_STEPS steps each."""
+    width, FAMILY_STEPS steps each.  Returns (a)'s losses."""
     from repro_torch import configs
     cfg = configs.get(TRAIN_ARCH)
     t0 = time.perf_counter()
@@ -1408,7 +1442,7 @@ def train_phase(torch, dev, ops, profile: bool) -> None:
           f"{peak / 2**30:.2f} GiB")
     if profile:
         profile_train(torch, cfg, res)
-    params = res.state.params
+    params, losses = res.state.params, res.losses
     del res
     torch.cuda.empty_cache()
     train_grad_check(torch, cfg, params)
@@ -1425,6 +1459,362 @@ def train_phase(torch, dev, ops, profile: bool) -> None:
                   "(d)", ops)
         torch.cuda.empty_cache()
         print(f"train (d) {arch}: part wall {time.perf_counter() - t0:.1f} s")
+    return losses
+
+
+# ---------------------------------------------------------------------------
+# phase 15: multi-rank training
+# ---------------------------------------------------------------------------
+
+def mp_train_config(steps: int, b: int, length: int, n_micro: int):
+    from repro_torch.train.loop import TrainerConfig
+    return TrainerConfig(seq_len=length, global_batch=b, n_micro=n_micro,
+                         steps=steps, log_every=0)
+
+
+def state_bytes(state) -> int:
+    """Bytes of a train state's tensors on this rank (params, moments)."""
+    from repro_torch.train import optim
+    leaves = (optim.tree_leaves(state.params.tree())
+              + optim.tree_leaves(state.opt.m) + optim.tree_leaves(
+                  state.opt.v))
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def trainmp_world1(torch, dev, ops, want) -> None:
+    """(a) ``train(mesh=)`` on the (1, 1) mesh of a one-rank NCCL group
+    (every team of one rank: each collective the identity), held against
+    the one-process losses ``want`` of the same seed, card and steps."""
+    from repro_torch import configs
+    from repro_torch.comm import group
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.loop import train
+    cfg = configs.get(TRAIN_ARCH)
+    tc = mp_train_config(TRAINMP_STEPS, TRAIN_B, TRAIN_L, cfg.n_micro)
+    if want is None:
+        torch.cuda.reset_peak_memory_stats()
+        want = train(cfg, tc, log=print, device=dev).losses
+        torch.cuda.empty_cache()
+    want = list(want[:TRAINMP_STEPS])
+    group.init_process_group(dev, world_size=1, rank=0,
+                             init_method=f"tcp://localhost:{free_port()}")
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        res = train(cfg, tc, mesh=mesh, log=print, device=dev)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launched = dict(ops.LAUNCHES)
+        sb = state_bytes(res.state)
+        del res.state
+    finally:
+        group.destroy_process_group()
+    torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(res.losses, want))
+    for i, (loss, wall) in enumerate(zip(res.losses, res.step_s)):
+        print(f"trainmp (a) step {i}: wall {wall:.3f} s "
+              f"({'first' if i == 0 else 'warm'}), "
+              f"{TRAIN_B * TRAIN_L / wall:.0f} tokens/s, loss {loss:.6f} "
+              f"(one process {want[i]:.6f})")
+    print(f"trainmp (a): {cfg.name} on mesh (1, 1) of a one-rank NCCL "
+          f"group, {TRAINMP_STEPS} steps of {TRAIN_B} x {TRAIN_L}: max "
+          f"relative loss difference to one process {rel:.3e} (tolerance "
+          f"{MP_W1_TOL}); state {sb / 2**30:.2f} GiB; peak "
+          f"{peak / 2**30:.2f} GiB; kernel launches {launched}")
+    check(rel <= MP_W1_TOL, f"trainmp (a): losses differ by {rel:.3e}")
+    check(not any(launched.values()), "trainmp (a): a kernel launched")
+
+
+def _moe_blocks(n: int):
+    """``apply_moe`` with the reference's per-shard dispatch run in one
+    process: the tokens in ``n`` contiguous blocks, each dispatched into
+    its own capacity slice, the aux loss from the blocks' summed
+    statistics (the semantics the ranks of a data team of ``n`` run
+    between them)."""
+    import torch
+    from repro_torch.models import layers
+
+    def apply_moe(cfg, p, x, prefix="moe"):
+        b, length, d = x.shape
+        t = b * length
+        c_loc = layers.moe_capacity(cfg, t) // n
+        parts = [layers._moe_dispatch_local(cfg, blk, p[f"{prefix}_router"],
+                                            c_loc)
+                 for blk in x.reshape(t, d).chunk(n)]
+        me = sum(part[4][0] for part in parts)
+        ce = sum(part[4][1] for part in parts)
+        aux = cfg.n_experts * torch.sum((me / t) * (ce / t))
+        outs = [layers._moe_experts(cfg, p, buf, slot, gates, keep, prefix,
+                                    x.dtype)
+                for buf, slot, gates, keep, _ in parts]
+        return torch.cat(outs).reshape(b, length, d), aux
+
+    return apply_moe
+
+
+def mp_moe_reference(torch, dev, cfg, n: int) -> float:
+    """The step-1 loss the ranks report for (c), in one process: the last
+    micro-batch's ``loss_fn`` with the dispatch run block by block."""
+    from repro_torch.models import layers, lm, transformer
+    from repro_torch.train.data import make_source
+    params = transformer.init_params(cfg, seed=0, max_len=MP_MOE_L,
+                                     device=dev)
+    batch = make_source(cfg, MP_MOE_L, MP_MOE_B, 0, dev)(0)
+    micro = MP_MOE_B // MP_MOE_MICRO
+    last = lm.Batch(batch.tokens[-micro:], batch.targets[-micro:])
+    real = layers.apply_moe
+    layers.apply_moe = _moe_blocks(n)
+    try:
+        with torch.no_grad():
+            _, aux = lm.loss_fn(cfg, params, last)
+    finally:
+        layers.apply_moe = real
+    return float(aux["loss"])
+
+
+def _mp_watch(fn):
+    """(fn(), watched wire bytes as a Fraction)."""
+    from repro_torch.comm.group import set_collective_watcher
+    seen = []
+    prev = set_collective_watcher(lambda prim, axes, nb: seen.append(nb))
+    try:
+        out = fn()
+    finally:
+        set_collective_watcher(prev)
+    return out, sum(seen, Fraction(0))
+
+
+def _mp_train(torch, dev, cfg, shape, tc, tag):
+    """``train(mesh=)`` on a (data, model) mesh of ``shape`` of the
+    group's ranks: losses, step walls, state bytes, host copies and wire
+    bytes per step, peak, MoE drops."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers
+    from repro_torch.train.loop import train
+    mesh = make_mesh(shape, ("data", "model"), device=dev)
+    copies0 = mesh.host_copies
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with layers.count_moe_drops() as tally:
+        res, wire = _mp_watch(lambda: train(cfg, tc, mesh=mesh,
+                                            log=lambda *a: None, device=dev))
+    torch.cuda.synchronize()
+    out = dict(tag=tag, losses=res.losses, step_s=res.step_s,
+               grad_norm=[float(m["grad_norm"]) for m in res.metrics],
+               state_bytes=state_bytes(res.state),
+               copies=(mesh.host_copies - copies0) / tc.steps,
+               wire=str(wire / tc.steps), coords=mesh.coords,
+               peak=torch.cuda.max_memory_allocated(),
+               dropped=tally.dropped, assigned=tally.assigned)
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mp_collectives(torch, dev, world: int, n: int) -> dict:
+    """(d) the int8 ring and the bf16 psum of ``n`` seeded float32 per
+    rank on a one-axis mesh of the world: relative error to the exact
+    sum, watched bytes, wall (after a warm-up call)."""
+    from repro_torch.comm import collectives as cc
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((world,), ("d",), device=dev)
+    rank = mesh.rank
+
+    def draw(r):
+        gen = torch.Generator(device=dev).manual_seed(1000 + r)
+        return torch.randn(n, generator=gen, device=dev)
+    x = draw(rank)
+    exact = sum(draw(r) for r in range(world))
+    out = {}
+    for name, fn in (
+            ("ring", lambda: cc.ring_allreduce_int8(x, mesh, ("d",))),
+            ("psum", lambda: cc.compressed_psum(
+                {"g": x}, mesh, ("d",), method="bf16")[0]["g"])):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, wire = _mp_watch(fn)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rel = float((got - exact).abs().max() / exact.abs().max())
+        out[name] = dict(rel=rel, wall=wall, wire=str(wire))
+    return out
+
+
+def _trainmp_rank(rank, cfg, out_q):
+    """One of ``cfg["world"]`` gloo ranks sharing ``cfg["device"]``: (b)
+    the dense model on MP_DENSE_MESH, (c) the MoE on MP_MOE_MESH, (d) the
+    collectives."""
+    import datetime
+    import traceback
+    sys.path.insert(0, str(SRC))
+    import torch
+    from repro_torch import configs
+    from repro_torch.comm import group
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = group.init_process_group(
+            cfg["device"], backend="gloo", world_size=cfg["world"],
+            rank=rank, init_method=f"file://{cfg['init_file']}",
+            timeout=datetime.timedelta(seconds=600))
+        dense = configs.get(TRAIN_ARCH).with_(n_layers=MP_DENSE_LAYERS)
+        moe = configs.get(OLMOE_ARCH).with_(n_layers=MP_MOE_LAYERS)
+        out = {
+            "b": _mp_train(torch, dev, dense, MP_DENSE_MESH, mp_train_config(
+                TRAINMP_STEPS, TRAIN_B, TRAIN_L, dense.n_micro), "(b)"),
+            "c": _mp_train(torch, dev, moe, MP_MOE_MESH, mp_train_config(
+                MP_MOE_STEPS, MP_MOE_B, MP_MOE_L, MP_MOE_MICRO), "(c)"),
+            "d": _mp_collectives(torch, dev, cfg["world"], MP_COLL_N)}
+        out_q.put((rank, True, out))
+    except BaseException:
+        out_q.put((rank, False, traceback.format_exc()))
+        raise
+    finally:
+        group.destroy_process_group()
+
+
+def trainmp_ranks(torch, dev) -> None:
+    """(b)-(d) on P_DIST gloo ranks sharing the card, each held against
+    one process on the card (b, c) or the exact sum (d)."""
+    from repro_torch import configs
+    from repro_torch.core import costmodel
+    from repro_torch.train.loop import train
+    dense = configs.get(TRAIN_ARCH).with_(n_layers=MP_DENSE_LAYERS)
+    moe = configs.get(OLMOE_ARCH).with_(n_layers=MP_MOE_LAYERS)
+    tc = mp_train_config(TRAINMP_STEPS, TRAIN_B, TRAIN_L, dense.n_micro)
+    torch.cuda.reset_peak_memory_stats()
+    one = train(dense, tc, log=lambda *a: None, device=dev)
+    one_bytes, one_peak = state_bytes(one.state), \
+        torch.cuda.max_memory_allocated()
+    want_b, one_steps = one.losses, one.step_s
+    del one
+    torch.cuda.empty_cache()
+    want_c = mp_moe_reference(torch, dev, moe, MP_MOE_MESH[0])
+    torch.cuda.empty_cache()
+    cfg = dict(device=str(dev), world=P_DIST, init_file=str(MP_DIR / "pg"))
+    t0 = time.perf_counter()
+    results = spawn_ranks(_trainmp_rank, cfg, "trainmp")
+    print(f"trainmp: {P_DIST} gloo ranks on one card, (b)-(d) in "
+          f"{time.perf_counter() - t0:.1f} s (process start included)")
+    rows = [results[r] for r in range(P_DIST)]
+
+    # (b) the dense model on (2, 2)
+    b0 = rows[0]["b"]
+    print(f"trainmp (b): {dense.name} at {MP_DENSE_LAYERS} layers on mesh "
+          f"{MP_DENSE_MESH}, {TRAINMP_STEPS} steps of {TRAIN_B} x {TRAIN_L}"
+          f", n_micro {dense.n_micro}; one process: state "
+          f"{one_bytes / 2**30:.3f} GiB, peak {one_peak / 2**30:.2f} GiB, "
+          f"steps {', '.join(f'{w:.3f}' for w in one_steps)} s")
+    for i, want in enumerate(want_b):
+        rel = max(abs(r["b"]["losses"][i] - want) / abs(want) for r in rows)
+        tol = MP_STEP1_TOL if i == 0 else MP_LATER_TOL
+        print(f"trainmp (b) step {i}: loss {b0['losses'][i]:.6f} vs one "
+              f"process {want:.6f}: max relative {rel:.3e} (tolerance "
+              f"{tol}); wall {max(r['b']['step_s'][i] for r in rows):.3f} s"
+              f" (slowest rank)")
+        check(rel <= tol, f"trainmp (b) step {i}: loss differs by {rel:.3e}")
+    for r, row in enumerate(rows):
+        b = row["b"]
+        print(f"  rank {r} {b['coords']}: state "
+              f"{b['state_bytes'] / 2**30:.3f} GiB "
+              f"({b['state_bytes'] / one_bytes:.3f} of one process), gloo "
+              f"host copies {b['copies']:.0f} and wire bytes "
+              f"{float(Fraction(b['wire'])):.4e} per step, peak "
+              f"{b['peak'] / 2**30:.2f} GiB")
+        check(b["losses"] == b0["losses"], "trainmp (b): ranks disagree")
+
+    # (c) the MoE on (4, 1): the per-shard dispatch
+    c0 = rows[0]["c"]
+    rel = abs(c0["losses"][0] - want_c) / abs(want_c)
+    print(f"trainmp (c): {moe.name} at {MP_MOE_LAYERS} layer(s) on mesh "
+          f"{MP_MOE_MESH}, {MP_MOE_STEPS} steps of {MP_MOE_B} x {MP_MOE_L}, "
+          f"n_micro {MP_MOE_MICRO}: step-1 loss {c0['losses'][0]:.6f} vs "
+          f"one process dispatching {MP_MOE_MESH[0]} token blocks "
+          f"{want_c:.6f}: relative {rel:.3e} (tolerance {MP_MOE_TOL}); "
+          f"losses {[round(x, 6) for x in c0['losses']]}")
+    for r, row in enumerate(rows):
+        c = row["c"]
+        print(f"  rank {r} {c['coords']}: steps "
+              f"{', '.join(f'{w:.3f}' for w in c['step_s'])} s, dropped "
+              f"{c['dropped']} of {c['assigned']} assignments, state "
+              f"{c['state_bytes'] / 2**30:.3f} GiB, gloo host copies "
+              f"{c['copies']:.0f} and wire bytes "
+              f"{float(Fraction(c['wire'])):.4e} per step, peak "
+              f"{c['peak'] / 2**30:.2f} GiB")
+        check(c["losses"] == c0["losses"], "trainmp (c): ranks disagree")
+    check(rel <= MP_MOE_TOL, f"trainmp (c): step-1 loss differs by {rel:.3e}")
+
+    # (d) the collectives
+    for name, bound, vol in (
+            ("ring", MP_RING_BOUND, costmodel.ring_allreduce_int8_volume(
+                MP_COLL_N, P_DIST, dtype="float32")),
+            ("psum", MP_PSUM_BOUND, costmodel.compressed_psum_volume(
+                MP_COLL_N, P_DIST, method="bf16"))):
+        got = [row["d"][name] for row in rows]
+        walls = ", ".join(f"{1e3 * g['wall']:.1f}" for g in got)
+        print(f"trainmp (d) {name}: {MP_COLL_N} float32 per rank, relative "
+              f"error {max(g['rel'] for g in got):.3e} (bound {bound}), wall "
+              f"{walls} ms by rank, wire bytes {got[0]['wire']} (cost model "
+              f"{vol})")
+        check(all(g["rel"] < bound for g in got),
+              f"trainmp (d) {name}: error beyond {bound}")
+        check(all(Fraction(g["wire"]) == vol for g in got),
+              f"trainmp (d) {name}: wire bytes differ from the cost model")
+
+
+def trainmp_cli() -> None:
+    """``torchrun --nproc-per-node 1 -m repro_torch.launch.train --mesh
+    host`` (the CLI joins a one-rank NCCL group and trains on its (1, 1)
+    mesh) against ``--mesh none`` in this process: the same losses, and
+    the checkpoint's manifest naming the mesh."""
+    import re
+    from repro_torch.launch import train as train_cli
+    argv = ["--arch", "olmoe-1b-7b", "--smoke", "--steps", "3", "--seq-len",
+            "256", "--batch", "4"]
+    want = train_cli.main(argv + ["--mesh", "none"])
+    ckpt_dir = MP_DIR / "cli"
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "repro_torch.launch.train", *argv,
+           "--mesh", "host", "--ckpt-dir", str(ckpt_dir)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=300, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    line = next((ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("done:")), "")
+    print(f"trainmp torchrun CLI --mesh host (exit {proc.returncode}, "
+          f"{wall:.1f} s with start-up): {line}")
+    check(proc.returncode == 0,
+          f"trainmp torchrun CLI failed:\n{proc.stderr[-3000:]}")
+    m = re.search(r"loss ([\d.]+) -> ([\d.]+)", line)
+    check(m is not None and (m[1], m[2]) == (f"{want.losses[0]:.4f}",
+                                             f"{want.losses[-1]:.4f}"),
+          f"trainmp torchrun CLI: losses differ from --mesh none's "
+          f"{want.losses}")
+    with open(ckpt_dir / "step_00000003" / "manifest.json") as f:
+        shape = json.load(f)["mesh_shape"]
+    print(f"trainmp torchrun CLI: --mesh none losses {want.losses}; the "
+          f"checkpoint's mesh {shape}")
+    check(shape == {"data": 1, "model": 1},
+          f"trainmp torchrun CLI: checkpoint mesh {shape}")
+
+
+def trainmp_phase(torch, dev, ops, want) -> None:
+    """(a) at world size 1 through NCCL and the torchrun CLI, (b)-(d) on
+    gloo ranks."""
+    shutil.rmtree(MP_DIR, ignore_errors=True)
+    MP_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    trainmp_world1(torch, dev, ops, want)
+    trainmp_cli()
+    torch.cuda.empty_cache()
+    print(f"trainmp (a): part wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    trainmp_ranks(torch, dev)
+    print(f"trainmp (b)-(d): part wall {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(MP_DIR, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3155,7 +3545,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="all",
                     help="comma list of kernels,main,batched,adaptive,obs,"
                          "gram,lm,dist,telemetry,serve,pathmode,cross,"
-                         "timing,calibrate,brain,lmserve,zoo,train (default: "
+                         "timing,calibrate,brain,lmserve,zoo,train,trainmp "
+                         "(default: "
                          "all; "
                          "device and build always run; telemetry and "
                          "pathmode need main)")
@@ -3279,9 +3670,15 @@ def main(argv=None) -> int:
         phase("zoo")
         zoo_phase(torch, dev, ops, args.profile)
         torch.cuda.empty_cache()
+    train_losses = None
     if run("train"):
         phase("train")
-        train_phase(torch, dev, ops, args.profile)
+        train_losses = train_phase(torch, dev, ops, args.profile)
+        torch.cuda.empty_cache()
+    if run("trainmp"):
+        phase("trainmp")
+        trainmp_phase(torch, dev, ops, train_losses)
+        torch.cuda.empty_cache()
     if measured:
         rows = kernel_rows(kman, measured, errs, launches, smi)
         print(json.dumps({"kernels": rows}))

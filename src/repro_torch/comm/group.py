@@ -19,6 +19,8 @@ axis team:
 ``Comm`` wraps them with the reference's semantics: ``ppermute`` over a
 table of (source, destination) ranks, ``all_gather`` stacking the team's
 shards in team order, ``psum`` / ``pmin``, and the tiled ``all_to_all``.
+The collectives over a team live in :class:`Teams`, which ``Comm`` and
+``launch.mesh.Mesh`` (the LM's meshes of ranks) share.
 
 Set-up (:func:`init_process_group`): a CUDA device means NCCL and
 ``device="cpu"`` means gloo, chosen by the caller, never as a fallback;
@@ -150,27 +152,217 @@ class _Pending:
         return self._out
 
 
-class Comm:
+class Teams:
+    """A rank's process teams, keyed by axis tuples, and the collectives
+    over them: ``all_gather`` stacking the team's shards in team order,
+    ``psum`` / ``pmin``, the tiled ``all_to_all``, ``reduce_scatter`` and
+    a ``ppermute`` within a team.  A subclass fills ``_teams`` with
+    ``{axes: (group, members)}``, ``members`` the team's global ranks in
+    team order; a team whose group is None has one member (or there is
+    no process group), and every collective over it is the identity."""
+
+    def __init__(self, device, rank: int, backend: str | None):
+        self.device = torch.device(device)
+        self.rank = rank
+        self.backend = backend
+        #: host copies made by gloo collectives on CUDA tensors
+        self.host_copies = 0
+        #: collectives issued on the backend, by primitive
+        self.calls: Counter = Counter()
+        self._teams: dict = {}
+
+    def team(self, axes) -> list[int]:
+        """The global ranks of this rank's team over ``axes``, in team
+        order."""
+        return self._teams[tuple(axes)][1]
+
+    def position(self, axes) -> int:
+        """This rank's index in its team over ``axes``."""
+        return self.team(axes).index(self.rank)
+
+    # -- bookkeeping ---------------------------------------------------
+
+    def _announce(self, prim, axes, x, extent, moves=True):
+        if _WATCHER is not None:
+            nbytes = x.numel() * x.element_size()
+            _WATCHER(prim, tuple(axes), collective_wire_bytes(
+                prim, nbytes, extent, moves=moves))
+
+    def _stage(self, op: str) -> bool:
+        """True when ``op`` must go through a host copy (gloo + CUDA)."""
+        return (self.backend == "gloo" and self.device.type == "cuda"
+                and op not in GLOO_CUDA_NATIVE)
+
+    def _to_host(self, x):
+        self.host_copies += 1
+        return x.cpu()
+
+    def _to_device(self, x):
+        self.host_copies += 1
+        return x.to(self.device)
+
+    # -- collectives ---------------------------------------------------
+
+    def all_gather(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """(E, *x.shape): the team's shards stacked in team order."""
+        group, members = self._teams[tuple(axes)]
+        self._announce("all_gather", axes, x, len(members))
+        return self._all_gather(x, group, members)
+
+    def _all_gather(self, x, group, members):
+        if group is None:
+            return x.unsqueeze(0)
+        self.calls["all_gather"] += 1
+        x = x.contiguous()
+        if self.backend == "nccl":
+            out = torch.empty((len(members),) + tuple(x.shape),
+                              dtype=x.dtype, device=x.device)
+            dist.all_gather_into_tensor(out, x, group=group)
+            return out
+        stage = self._stage("all_gather")
+        if stage:
+            x = self._to_host(x)
+        parts = [torch.empty_like(x) for _ in members]
+        dist.all_gather(parts, x, group=group)
+        out = torch.stack(parts)
+        return self._to_device(out) if stage else out
+
+    def _all_reduce(self, x, axes, prim, op):
+        group, members = self._teams[tuple(axes)]
+        self._announce(prim, axes, x, len(members))
+        if group is None:
+            return x
+        self.calls[prim] += 1
+        out = x.clone(memory_format=torch.contiguous_format)
+        stage = self._stage("all_reduce")
+        if stage:
+            out = self._to_host(out)
+        dist.all_reduce(out, op=op, group=group)
+        return self._to_device(out) if stage else out
+
+    def psum(self, x: torch.Tensor, axes, *,
+             accumulate: torch.dtype | None = None) -> torch.Tensor:
+        """The sum over the team.  With ``accumulate`` (a wider dtype),
+        the payload stays in ``x``'s dtype on the wire and the sum is
+        taken in ``accumulate``, rounded once: a reduce-scatter as an
+        all-to-all of the team's chunks, each rank summing its chunk in
+        team order, then an all-gather of the rounded chunks.  It is
+        announced as the one ``psum`` it stands for (the bytes of a
+        bandwidth-optimal all-reduce of ``x``)."""
+        if accumulate is None:
+            return self._all_reduce(x, axes, "psum", dist.ReduceOp.SUM)
+        group, members = self._teams[tuple(axes)]
+        self._announce("psum", axes, x, len(members))
+        if group is None:
+            return x
+        e = len(members)
+        flat = x.reshape(-1)
+        pad = (-flat.numel()) % e
+        rows = torch.nn.functional.pad(flat, (0, pad)).view(e, -1)
+        parts = self._all_to_all(rows, group)
+        acc = parts[0].to(accumulate)
+        for m in range(1, e):
+            acc = acc + parts[m].to(accumulate)
+        out = self._all_gather(acc.to(x.dtype), group, members).reshape(-1)
+        return out[:flat.numel()].view(x.shape)
+
+    def pmin(self, x: torch.Tensor, axes) -> torch.Tensor:
+        return self._all_reduce(x, axes, "pmin", dist.ReduceOp.MIN)
+
+    def reduce_scatter(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """Chunk ``position(axes)`` (along dim 0, which the team size
+        divides) of the sum of ``x`` over the team.  NCCL reduces and
+        scatters in one collective; gloo has none, so it all-reduces
+        (announced as the ``psum`` it is) and keeps the chunk."""
+        group, members = self._teams[tuple(axes)]
+        e = len(members)
+        if x.shape[0] % e:
+            raise ValueError(f"dim 0 of {tuple(x.shape)} does not split "
+                             f"over a team of {e}")
+        if self.backend != "nccl" or group is None:
+            full = self._all_reduce(x, axes, "psum", dist.ReduceOp.SUM)
+            return full.chunk(e)[members.index(self.rank)]
+        self._announce("reduce_scatter", axes, x, e)
+        self.calls["reduce_scatter"] += 1
+        x = x.contiguous()
+        out = torch.empty((x.shape[0] // e,) + tuple(x.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        dist.reduce_scatter_tensor(out, x, group=group)
+        return out
+
+    def all_to_all(self, x: torch.Tensor, axes, split_axis: int,
+                   concat_axis: int) -> torch.Tensor:
+        """``lax.all_to_all(..., tiled=True)``: ``x`` split into E chunks
+        along ``split_axis``, chunk e sent to team member e, the chunks
+        received concatenated along ``concat_axis`` in team order."""
+        group, members = self._teams[tuple(axes)]
+        e = len(members)
+        self._announce("all_to_all", axes, x, e)
+        if group is None:
+            return x
+        xs = x.movedim(split_axis, 0)
+        xs = xs.reshape((e, xs.shape[0] // e) + tuple(xs.shape[1:]))
+        out = self._all_to_all(xs, group)
+        return torch.cat([out[m].movedim(0, split_axis) for m in range(e)],
+                         dim=concat_axis)
+
+    def _all_to_all(self, xs, group):
+        """Row m of ``xs`` (E, ...) to team member m; row m of the result
+        from member m."""
+        self.calls["all_to_all"] += 1
+        xs = xs.contiguous()
+        stage = self._stage("all_to_all")
+        if stage:
+            xs = self._to_host(xs)
+        out = torch.empty_like(xs)
+        dist.all_to_all_single(out, xs, group=group)
+        return self._to_device(out) if stage else out
+
+    def ppermute_team(self, x: torch.Tensor, axes, perm) -> torch.Tensor:
+        """``lax.ppermute(x, axes, perm)`` within this rank's team over
+        ``axes``, ``perm`` a table of (source, destination) team
+        positions."""
+        group, members = self._teams[tuple(axes)]
+        moves = any(s != d for s, d in perm)
+        self._announce("ppermute", axes, x, len(members), moves)
+        me = members.index(self.rank)
+        dst, src = dict(perm)[me], {d: s for s, d in perm}[me]
+        if group is None or dst == me:
+            return x
+        return self._send_recv(x, members[dst], members[src]).wait()
+
+    def _send_recv(self, x, dst: int, src: int) -> "_Pending":
+        stage = self._stage("p2p")
+        x = x.contiguous()
+        if stage:
+            x = self._to_host(x)
+        out = torch.empty_like(x)
+        self.calls["ppermute"] += 1
+        works = dist.batch_isend_irecv([dist.P2POp(dist.isend, x, dst),
+                                        dist.P2POp(dist.irecv, out, src)])
+        return _Pending(out, works, self, self.device if stage else None)
+
+
+class Comm(Teams):
     """This rank's position in a :class:`Grid1p5D` and the process teams
     of its axes, with the collectives the 1.5D products post."""
 
     def __init__(self, grid: Grid1p5D, device):
         self.grid = grid
-        self.device = torch.device(device)
         if dist.is_initialized():
             if dist.get_world_size() != grid.n_devices:
                 raise ValueError(
                     f"grid of {grid.n_devices} processes in a process "
                     f"group of {dist.get_world_size()}")
-            self.rank = dist.get_rank()
-            self.backend = dist.get_backend()
+            rank, backend = dist.get_rank(), dist.get_backend()
         else:
             if grid.n_devices != 1:
                 raise ValueError(
                     f"a grid of {grid.n_devices} processes needs a process "
                     f"group: start under torchrun or call "
                     f"comm.group.init_process_group first")
-            self.rank, self.backend = 0, None
+            rank, backend = 0, None
+        super().__init__(device, rank, backend)
         self.i, self.j, self.k = grid.flat_to_coords(self.rank)
         #: X-like block of this rank (t = i*c_omega + j)
         self.block_x = self.i * grid.c_omega + self.j
@@ -178,10 +370,6 @@ class Comm:
         self.block_om = self.i * grid.c_x + self.k
         #: position on the omega-major ring
         self.ring_pos_om = self.block_om * grid.c_omega + self.j
-        #: host copies made by gloo collectives on CUDA tensors
-        self.host_copies = 0
-        #: collectives issued on the backend, by primitive
-        self.calls: Counter = Counter()
         self._teams = {axes: self._team(axes) for axes in TEAM_AXES}
         if self.backend is not None:
             # every rank has joined every team; a first collective on
@@ -216,31 +404,10 @@ class Comm:
             raise AssertionError("group ranks are not in team order")
         return group, mine
 
-    # -- bookkeeping ---------------------------------------------------
-
-    def _announce(self, prim, axes, x, extent, moves=True):
-        if _WATCHER is not None:
-            nbytes = x.numel() * x.element_size()
-            _WATCHER(prim, tuple(axes), collective_wire_bytes(
-                prim, nbytes, extent, moves=moves))
-
-    def _stage(self, op: str) -> bool:
-        """True when ``op`` must go through a host copy (gloo + CUDA)."""
-        return (self.backend == "gloo" and self.device.type == "cuda"
-                and op not in GLOO_CUDA_NATIVE)
-
-    def _to_host(self, x):
-        self.host_copies += 1
-        return x.cpu()
-
-    def _to_device(self, x):
-        self.host_copies += 1
-        return x.to(self.device)
-
     # -- collectives ---------------------------------------------------
 
     def ppermute_start(self, x: torch.Tensor, perm) -> _Pending:
-        """Issue ``lax.ppermute(x, AXES, perm)``: rank ``src`` sends to
+        """Start ``lax.ppermute(x, AXES, perm)``: rank ``src`` sends to
         ``dst`` for every (src, dst) pair, all in one batch.  A rank whose
         pair is (r, r) gets its own tensor back: no bytes move, and the
         ring never writes into its operands."""
@@ -250,79 +417,7 @@ class Comm:
         src = {d: s for s, d in perm}[self.rank]
         if dst == self.rank:
             return _Pending(x)
-        stage = self._stage("p2p")
-        x = x.contiguous()
-        if stage:
-            x = self._to_host(x)
-        out = torch.empty_like(x)
-        self.calls["ppermute"] += 1
-        works = dist.batch_isend_irecv([dist.P2POp(dist.isend, x, dst),
-                                        dist.P2POp(dist.irecv, out, src)])
-        return _Pending(out, works, self, self.device if stage else None)
+        return self._send_recv(x, dst, src)
 
     def ppermute(self, x: torch.Tensor, perm) -> torch.Tensor:
         return self.ppermute_start(x, perm).wait()
-
-    def all_gather(self, x: torch.Tensor, axes) -> torch.Tensor:
-        """(E, *x.shape): the team's shards stacked in team order."""
-        group, members = self._teams[tuple(axes)]
-        self._announce("all_gather", axes, x, len(members))
-        if self.backend is None:
-            return x.unsqueeze(0)
-        self.calls["all_gather"] += 1
-        x = x.contiguous()
-        if self.backend == "nccl":
-            out = torch.empty((len(members),) + tuple(x.shape),
-                              dtype=x.dtype, device=x.device)
-            dist.all_gather_into_tensor(out, x, group=group)
-            return out
-        stage = self._stage("all_gather")
-        if stage:
-            x = self._to_host(x)
-        parts = [torch.empty_like(x) for _ in members]
-        dist.all_gather(parts, x, group=group)
-        out = torch.stack(parts)
-        return self._to_device(out) if stage else out
-
-    def _all_reduce(self, x, axes, prim, op):
-        group, members = self._teams[tuple(axes)]
-        self._announce(prim, axes, x, len(members))
-        if self.backend is None:
-            return x
-        self.calls[prim] += 1
-        out = x.clone(memory_format=torch.contiguous_format)
-        stage = self._stage("all_reduce")
-        if stage:
-            out = self._to_host(out)
-        dist.all_reduce(out, op=op, group=group)
-        return self._to_device(out) if stage else out
-
-    def psum(self, x: torch.Tensor, axes) -> torch.Tensor:
-        return self._all_reduce(x, axes, "psum", dist.ReduceOp.SUM)
-
-    def pmin(self, x: torch.Tensor, axes) -> torch.Tensor:
-        return self._all_reduce(x, axes, "pmin", dist.ReduceOp.MIN)
-
-    def all_to_all(self, x: torch.Tensor, axes, split_axis: int,
-                   concat_axis: int) -> torch.Tensor:
-        """``lax.all_to_all(..., tiled=True)``: ``x`` split into E chunks
-        along ``split_axis``, chunk e sent to team member e, the chunks
-        received concatenated along ``concat_axis`` in team order."""
-        group, members = self._teams[tuple(axes)]
-        e = len(members)
-        self._announce("all_to_all", axes, x, e)
-        if self.backend is None:
-            return x
-        self.calls["all_to_all"] += 1
-        xs = x.movedim(split_axis, 0)
-        xs = xs.reshape((e, xs.shape[0] // e) + tuple(xs.shape[1:]))
-        xs = xs.contiguous()
-        stage = self._stage("all_to_all")
-        if stage:
-            xs = self._to_host(xs)
-        out = torch.empty_like(xs)
-        dist.all_to_all_single(out, xs, group=group)
-        if stage:
-            out = self._to_device(out)
-        return torch.cat([out[m].movedim(0, split_axis) for m in range(e)],
-                         dim=concat_axis)

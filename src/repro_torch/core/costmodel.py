@@ -599,31 +599,33 @@ def comm_volume(p: int, n: int, n_devices: int, c_x: int, c_omega: int, *,
     return CommVolume(flavor, rounds, ring, finish)
 
 
-def ring_allreduce_int8_volume(size: int, extent: int) -> Fraction:
-    """Exact bytes of the reference's ``comm.collectives.ring_allreduce_int8``
-    (not ported yet) on a float64 input of ``size`` elements over a ring
-    of ``extent`` devices.
+def ring_allreduce_int8_volume(size: int, extent: int, *,
+                               dtype: str = "float64") -> Fraction:
+    """Exact bytes of ``comm.collectives.ring_allreduce_int8`` on an input
+    of ``size`` elements of ``dtype`` (the reference's: float64) over a
+    ring of ``extent`` devices.
 
     (extent-1) reduce-scatter rounds each ship one int8 chunk plus its
-    f64 scale scalar; the finishing all_gather ships the REDUCED chunk at
-    full f64 — int8 compression buys its 8x only on the reduce-scatter
-    phase, which is the phase that repeats.
+    scale scalar in ``dtype``; the finishing all_gather ships the REDUCED
+    chunk at full width — int8 compression buys its 8x (float64; 4x at
+    float32) only on the reduce-scatter phase, which is the phase that
+    repeats.
     """
     if extent <= 1:
         return Fraction(0)
     pad = (-size) % extent
     chunk = (size + pad) // extent
-    rs = (extent - 1) * (chunk * DTYPE_BYTES["int8"] + DTYPE_BYTES["float64"])
-    ag = collective_wire_bytes(
-        "all_gather", chunk * DTYPE_BYTES["float64"], extent)
+    width = DTYPE_BYTES[dtype]
+    rs = (extent - 1) * (chunk * DTYPE_BYTES["int8"] + width)
+    ag = collective_wire_bytes("all_gather", chunk * width, extent)
     return Fraction(rs) + ag
 
 
 def compressed_psum_volume(size: int, extent: int, *,
                            method: str = "bf16") -> Fraction:
-    """Exact bytes of the reference's ``comm.collectives.compressed_psum``
-    (not ported yet): one bandwidth-optimal all-reduce of ``size``
-    elements at the method's wire width (bf16 = 2 bytes; the int8 method
+    """Exact bytes of ``comm.collectives.compressed_psum``: one
+    bandwidth-optimal all-reduce of ``size`` elements at the method's
+    wire width (bf16 = 2 bytes; the int8 method
     psums the DEQUANTIZED float32 values — its 1-byte wire only exists in
     the explicit ring)."""
     wire = {"bf16": DTYPE_BYTES["bfloat16"], "int8": DTYPE_BYTES["float32"],

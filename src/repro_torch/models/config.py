@@ -3,15 +3,54 @@
 Port of ``repro.models.config``: one ``ModelConfig`` describes every
 assigned architecture (dense GQA transformers, MoE, early-fusion VLM,
 Mamba2 SSM, Zamba2 hybrid, Whisper enc-dec), with the reference's fields
-and defaults.  The logical-to-mesh sharding rules (``DEFAULT_RULES``,
-``logical_to_spec``, ``constrain``, ``tree_shardings``) belong to the
-distributed slice; ``constrain`` is a no-op on one device, so the
-single-device forward calls nothing in its place.
+and defaults, and the logical-to-mesh sharding rules: a tensor's
+dimensions carry LOGICAL axis names, ``DEFAULT_RULES`` maps each to mesh
+axes, and ``logical_to_spec`` resolves them on a mesh, falling back to
+replication where a dimension does not divide its mapped axes.
+
+A spec is a tuple with one entry per dimension: None (replicated), an
+axis name, or a tuple of axis names (sharded over their product, the
+first axis major), the entries of the reference's ``PartitionSpec``.
+A mesh is anything with a ``.shape`` mapping axis name to size
+(``launch.mesh.Mesh``, or a plain stand-in in the tests).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass, field
+from typing import Sequence
+
+# ---------------------------------------------------------------------------
+# logical axes
+# ---------------------------------------------------------------------------
+# batch   — global batch            -> ("pod", "data") (DP)
+# embed   — d_model                 -> "data"  (FSDP shards weights on embed)
+# heads   — attention heads / d_ff  -> "model" (TP)
+# kv      — kv heads                -> "model"
+# vocab   — vocabulary              -> "model"
+# expert  — MoE experts             -> "model" (EP) or None (TP-in-expert)
+# seq     — sequence                -> None in train
+# layers / conv / state / none      -> replicated
+
+DEFAULT_RULES: dict[str, tuple[str, ...]] = {
+    "batch": ("pod", "data"),
+    "embed": ("data",),
+    "heads": ("model",),
+    "kv": ("model",),
+    "q_heads": ("model",),
+    "mlp": ("model",),
+    "vocab": ("model",),
+    "expert": ("model",),
+    "expert_mlp": (),       # d_ff inside an expert; EP archs keep it local
+    "capacity": ("pod", "data"),  # MoE dispatch-buffer slot axis
+    "seq": (),
+    # decode KV-cache sequence axis: sequence-parallel fallback — takes the
+    # first axis (pod > data > model) not already used by batch/kv-heads
+    "kv_seq": ("pod", "data", "model"),
+    "layers": (),
+    "none": (),
+}
 
 VOCAB_PAD = 256  # embedding tables padded so "vocab" shards over any axis
 
@@ -114,6 +153,14 @@ class ModelConfig:
             return self.d_ff_expert // self.virtual_split
         return self.d_ff_expert
 
+    def rules(self) -> dict[str, tuple[str, ...]]:
+        r = dict(DEFAULT_RULES)
+        r.update(self.sharding_overrides)
+        if self.n_experts and self.expert_sharding == "tp":
+            r["expert"] = ()
+            r["expert_mlp"] = ("model",)
+        return r
+
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -153,3 +200,73 @@ class ModelConfig:
         conv = self.ssm_conv * (di + 2 * g * ns)
         out_proj = di * d
         return in_proj + conv + out_proj + 2 * nh + di
+
+
+# ---------------------------------------------------------------------------
+# logical specs -> mesh specs
+# ---------------------------------------------------------------------------
+
+def _fits(size: int, axes: tuple[str, ...], mesh) -> bool:
+    n = math.prod(mesh.shape[a] for a in axes)
+    return n > 0 and size % n == 0
+
+
+def logical_to_spec(logical: Sequence[str], shape: Sequence[int], mesh,
+                    rules: dict[str, tuple[str, ...]]) -> tuple:
+    """Map logical axis names to a spec, dropping any mapping the
+    dimension size cannot honor and never using a mesh axis twice: the
+    longest usable prefix of a name's mapped axes (those on the mesh and
+    not yet used), else the first single axis that divides the size,
+    else None (replicated)."""
+    used: set[str] = set()
+    out = []
+    for name, size in zip(logical, shape):
+        axes = tuple(a for a in rules.get(name, ())
+                     if a in mesh.shape and a not in used)
+        placed = False
+        for k in range(len(axes), 0, -1):
+            cand = axes[:k]
+            if _fits(size, cand, mesh):
+                out.append(cand if len(cand) > 1 else cand[0])
+                used.update(cand)
+                placed = True
+                break
+        if not placed:
+            for a in axes:
+                if size % mesh.shape[a] == 0:
+                    out.append(a)
+                    used.add(a)
+                    placed = True
+                    break
+        if not placed:
+            out.append(None)
+    return tuple(out)
+
+
+def spec_axes(entry) -> tuple[str, ...]:
+    """The mesh axes of one spec entry: () for None, else its names."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def constrain(x, logical: Sequence[str], rules: dict):
+    """The reference's ``with_sharding_constraint`` hint, a no-op here.
+
+    The port computes each layer whole on every rank (the weights are
+    gathered at the start of a train step; see ``lm.make_train_step``),
+    so an activation has no layout to constrain: a rank holds its own
+    rows of the batch, and nothing in a layer is split over ``"model"``
+    (ROADMAP A1c)."""
+    return x
+
+
+def tree_shardings(logical_tree, shape_tree, mesh,
+                   rules: dict[str, tuple[str, ...]]):
+    """A tree of specs from a tree of logical-axes tuples and a tree of
+    the same structure whose leaves have a ``.shape`` (or are shapes)."""
+    if isinstance(logical_tree, dict):
+        return {k: tree_shardings(logical_tree[k], shape_tree[k], mesh,
+                                  rules) for k in logical_tree}
+    shape = getattr(shape_tree, "shape", shape_tree)
+    return logical_to_spec(logical_tree, tuple(shape), mesh, rules)

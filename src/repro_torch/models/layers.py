@@ -11,8 +11,10 @@ a :class:`~repro_torch.models.transformer.ParamBlock`).
 The reference's numerics are kept: norms and RoPE in float32 and cast
 back to the compute dtype, rmsnorm's ``1 + scale``, RoPE on halves (not
 interleaved), attention logits in float32 and the ``-1e30`` mask
-sentinel.  On one device the MoE dispatch is the reference's unsharded
-branch (its ``shard_map`` branch comes with the sharding helpers).
+sentinel.  The MoE dispatch is the reference's unsharded branch, or,
+inside :func:`batch_shards` (a train step on a mesh), its per-data-shard
+branch: each shard of the batch dispatches its own tokens into its own
+slice of the capacity.
 """
 from __future__ import annotations
 
@@ -51,6 +53,11 @@ def build_params(schema: dict, gen: torch.Generator, dtype: torch.dtype,
                             device=device)
             out[name] = t.mul_(scale).to(dtype)
     return out
+
+
+def build_logical(schema: dict) -> dict:
+    """Each entry's logical axis names."""
+    return {name: tuple(spec[1]) for name, spec in schema.items()}
 
 
 def stack_schema(schema: dict, n: int):
@@ -566,6 +573,62 @@ def count_moe_drops():
         tally.close()
 
 
+def batch_axes(cfg: ModelConfig, mesh) -> tuple[str, ...]:
+    """The mesh axes the batch rule shards over (``("pod", "data")`` by
+    default, those the mesh has), in the mesh's order."""
+    rule = cfg.rules().get("batch", ("pod", "data"))
+    return tuple(a for a in mesh.axis_names if a in rule)
+
+
+def moe_shardable(cfg: ModelConfig, n_tokens: int, n: int) -> bool:
+    """The reference's condition for the per-shard dispatch of
+    ``n_tokens`` tokens over ``n`` shards: both the tokens and the
+    capacity split evenly (a model without experts: always)."""
+    if not cfg.n_experts:
+        return True
+    return n_tokens % n == 0 and moe_capacity(cfg, n_tokens) % n == 0
+
+
+#: (mesh, rows_sharded) inside :func:`batch_shards`, else None
+_BATCH_SHARDS: tuple | None = None
+
+
+@contextlib.contextmanager
+def batch_shards(mesh, rows_sharded: bool):
+    """Inside the block, :func:`apply_moe` dispatches per shard of the
+    batch team of ``mesh`` (:func:`batch_axes`), as the reference does
+    under a mesh.  ``rows_sharded``: the batch a forward sees is this
+    rank's contiguous block of the team's rows; else every rank sees the
+    whole batch (rows that do not divide the team) and dispatches the
+    team's token blocks one after the other itself."""
+    global _BATCH_SHARDS
+    prev = _BATCH_SHARDS
+    _BATCH_SHARDS = (mesh, rows_sharded)
+    try:
+        yield
+    finally:
+        _BATCH_SHARDS = prev
+
+
+class _TeamSum(torch.autograd.Function):
+    """The sum of ``x`` over a mesh team, its gradient ``n`` times the
+    incoming one.  The adjoint of the sum is the team sum of the
+    gradients; inside the MoE aux loss every rank's incoming gradient is
+    the same (the loss reads only team sums), so that sum is ``n`` times
+    the rank's own, with no collective in the backward.  The train step
+    then averages the ranks' gradients over the team, which leaves each
+    rank's tokens their exact share."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.n = mesh.axes_size(axes)
+        return mesh.psum(x, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.n, None, None
+
+
 def _moe_dispatch_local(cfg: ModelConfig, xt, router, c_loc: int):
     """Router -> top-k -> positions within each expert -> scatter into a
     (E, c_loc, d) capacity buffer.  Kept slots are distinct; dropped
@@ -623,22 +686,77 @@ def apply_moe(cfg: ModelConfig, p, x, prefix: str = "moe"):
     The reference's unsharded branch: one dispatch over all B * L tokens
     into an (E, C, d) buffer, every expert's MLP over its C slots as one
     batched product, and the combine.  ``expert_sharding`` "ep" and "tp"
-    differ only in how the reference shards the weights, so on one device
-    they run alike; "ep_virtual" dispatches to the f-slices."""
+    differ only in how the reference shards the weights, so they run
+    alike here; "ep_virtual" dispatches to the f-slices.
+
+    Inside :func:`batch_shards` with a batch team of n > 1 ranks whose
+    tokens and capacity C split evenly (the reference's condition, on
+    the team's T tokens), the per-shard branch runs instead: each of the
+    n contiguous blocks of T / n tokens dispatches into its own (E, C /
+    n, d) buffer, the aux loss's statistics are summed over the team,
+    and each block combines from its own buffer, so which tokens are
+    dropped depends on the blocks, as in the reference."""
     B, L, d = x.shape
+    T = B * L
+    if _BATCH_SHARDS is not None:
+        mesh, rows_sharded = _BATCH_SHARDS
+        axes = batch_axes(cfg, mesh)
+        n = mesh.axes_size(axes)
+        t_team = T * n if rows_sharded else T
+        if n > 1 and moe_shardable(cfg, t_team, n):
+            return _apply_moe_sharded(cfg, p, x, prefix, mesh, axes, n,
+                                      t_team, rows_sharded)
+        if rows_sharded and n > 1:
+            raise ValueError(
+                f"{t_team} tokens do not dispatch per shard over {n} "
+                f"ranks (capacity {moe_capacity(cfg, t_team)}); replicate "
+                f"the batch over the team (lm.make_train_step does)")
     dt = x.dtype
     E, K = cfg.n_experts, cfg.top_k
-    K_comb = K * (cfg.virtual_split
-                  if cfg.expert_sharding == "ep_virtual" else 1)
-    T = B * L
     C = moe_capacity(cfg, T)
     buf, slot, gates, keep, (me_s, ce_s) = _moe_dispatch_local(
         cfg, x.reshape(T, d), p[f"{prefix}_router"], C)
     if _DROP_TALLY is not None:
         _DROP_TALLY.add(keep)
     aux = E * torch.sum((me_s / T) * (ce_s / T))
+    out = _moe_experts(cfg, p, buf, slot, gates, keep, prefix, dt)
+    return out.reshape(B, L, d), aux
+
+
+def _moe_experts(cfg: ModelConfig, p, buf, slot, gates, keep, prefix, dt):
+    """Every expert's MLP over its slots of ``buf`` (E, c, d), then the
+    combine of each token's assignments: (tokens, d)."""
+    K_comb = cfg.top_k * (cfg.virtual_split
+                          if cfg.expert_sharding == "ep_virtual" else 1)
     wg, wu, wd = (p[f"{prefix}_{w}"].to(dt) for w in ("wg", "wu", "wd"))
     h = F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
-    out_e = torch.bmm(h, wd)                              # (E, C, d)
-    out = _moe_combine_local(out_e, slot, gates, keep, K_comb)
-    return out.reshape(B, L, d), aux
+    out_e = torch.bmm(h, wd)                              # (E, c, d)
+    return _moe_combine_local(out_e, slot, gates, keep, K_comb)
+
+
+def _apply_moe_sharded(cfg: ModelConfig, p, x, prefix, mesh, axes, n: int,
+                       t_team: int, rows_sharded: bool):
+    """The per-shard branch of :func:`apply_moe` over the team's
+    ``t_team`` tokens: this rank's block alone when the rows are
+    sharded (the statistics summed over the team), else all n blocks in
+    turn."""
+    B, L, d = x.shape
+    dt = x.dtype
+    c_loc = moe_capacity(cfg, t_team) // n
+    router = p[f"{prefix}_router"]
+    xt = x.reshape(B * L, d)
+    blocks = [xt] if rows_sharded else list(xt.chunk(n))
+    parts = [_moe_dispatch_local(cfg, blk, router, c_loc) for blk in blocks]
+    me_s = sum(part[4][0] for part in parts)
+    ce_s = sum(part[4][1] for part in parts)
+    if rows_sharded:
+        me_s = _TeamSum.apply(me_s, mesh, axes)
+        ce_s = mesh.psum(ce_s, axes)
+    aux = cfg.n_experts * torch.sum((me_s / t_team) * (ce_s / t_team))
+    outs = []
+    for buf, slot, gates, keep, _ in parts:
+        if _DROP_TALLY is not None:
+            _DROP_TALLY.add(keep)
+        outs.append(_moe_experts(cfg, p, buf, slot, gates, keep, prefix,
+                                 dt))
+    return torch.cat(outs).reshape(B, L, d), aux

@@ -7,8 +7,15 @@ batch and its mean next-token cross entropy; the train step (gradients
 accumulated over micro-batches, AdamW); and the serve path's prefill
 (single-shot or chunked) and greedy decode step over the cache (the KV
 rings, the Mamba2 state, Whisper's encoder output), for every family of
-the zoo.  The sharding helpers (``*_shardings``) belong to the
-multi-rank training slice.
+the zoo.
+
+On a mesh of ranks (``launch.mesh.Mesh``): the spec trees of the
+parameters, the optimizer state, the serve cache and the batch
+(``param_shardings``, ``opt_shardings``, ``cache_shardings``,
+``batch_shardings``, from the config's logical rules), each rank's
+blocks of a tree (``shard_tree``, ``shard_params_``) and the whole tree
+back (``gather_tree``), and the sharded train step
+(``make_train_step(..., mesh=)``).
 """
 from __future__ import annotations
 
@@ -16,11 +23,13 @@ from functools import partial
 from typing import NamedTuple
 
 import torch
+from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..train.optim import AdamW, accumulate_gradients
+from ..train.optim import AdamW, accumulate_gradients, as_tree
+from . import layers as Lyr
 from . import transformer as T
-from .config import ModelConfig
+from .config import ModelConfig, logical_to_spec, spec_axes, tree_shardings
 
 
 class Batch(NamedTuple):
@@ -104,15 +113,25 @@ def init_train_state(params: T.DecoderLM, optimizer) -> TrainState:
 
 
 def make_train_step(cfg: ModelConfig, optimizer: AdamW, lr_schedule,
-                    n_micro: int | None = None):
+                    n_micro: int | None = None, *, mesh=None, specs=None,
+                    max_len: int = 0):
     """Returns ``train_step(state, batch) -> (state, metrics)``: the
     gradients of :func:`loss_fn` averaged over ``n_micro`` equal splits of
     the batch (default ``cfg.n_micro``), then the optimizer's update at
     ``lr_schedule(state.step)``.  The parameters are updated in place
     (the reference donates its state to the jitted step); metrics
     ``loss``, ``aux_loss``, ``grad_norm`` and ``lr`` are device scalars,
-    the loss and aux of the last micro-batch, as the reference's."""
+    the loss and aux of the last micro-batch, as the reference's.
+
+    With a ``mesh`` the state holds this rank's blocks under ``specs``
+    (default :func:`param_shardings` at ``max_len``) and every rank gets
+    the whole global batch; see :func:`_sharded_step`."""
     n_micro = n_micro if n_micro is not None else cfg.n_micro
+    if mesh is not None:
+        if specs is None:
+            specs = param_shardings(cfg, mesh, max_len)
+        return partial(_sharded_step, cfg, optimizer, lr_schedule, n_micro,
+                       mesh, specs)
 
     def train_step(state: TrainState, batch: Batch):
         (total, aux), grads = accumulate_gradients(
@@ -125,6 +144,89 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, lr_schedule,
         return TrainState(state.params, new_opt, state.step + 1), metrics
 
     return train_step
+
+
+def _sharded_step(cfg: ModelConfig, optimizer, lr_schedule, n_micro: int,
+                  mesh, specs, state: TrainState, batch: Batch):
+    """One train step on ``mesh``, computing what the reference computes
+    on that mesh:
+
+      * the parameters are gathered whole (one all-gather per sharded
+        dimension of each leaf), and every rank runs the whole model;
+      * the global batch splits into ``n_micro`` contiguous micro-batches
+        of B_m rows; rank r of the batch team (D ranks over the batch
+        rule's axes) takes rows [r B_m / D, (r + 1) B_m / D) of each.  If
+        D does not divide B_m, or the MoE's tokens or capacity would not
+        split per shard, every rank takes all the rows (the reference's
+        fallback to replication) and dispatches the team's token blocks
+        itself; the MoE dispatches per shard either way
+        (``layers.batch_shards``);
+      * the float32 gradient accumulated over the micro-batches is summed
+        over the batch team and divided by D, keeping this rank's block
+        of each leaf (a reduce-scatter where the leaf's spec splits one
+        dimension over exactly the batch team and the backend has one,
+        else an all-reduce);
+      * the optimizer updates this rank's blocks of the parameters and
+        its moments, with the global norm counted once per element.
+
+    ``loss`` and ``aux_loss`` are the last micro-batch's, averaged over
+    the batch team when the rows are split."""
+    axes = Lyr.batch_axes(cfg, mesh)
+    team, n_team = mesh.key(axes), mesh.axes_size(axes)
+    b, length = batch.tokens.shape
+    b_micro = b // n_micro
+    rows = (b_micro % n_team == 0
+            and Lyr.moe_shardable(cfg, b_micro * length, n_team))
+    local = batch
+    if rows and n_team > 1:
+        r = mesh.axes_index(team)
+
+        def my_rows(x):     # rank r's rows of each micro-batch, in order
+            rest = tuple(x.shape[1:])
+            return x.reshape((n_micro, n_team, -1) + rest)[:, r].reshape(
+                (-1,) + rest)
+        local = Batch(*(None if x is None else my_rows(x) for x in batch))
+    with torch.no_grad():
+        full = T.DecoderLM(cfg, gather_tree(state.params, specs, mesh))
+    full.requires_grad_(True)
+    with Lyr.batch_shards(mesh, rows):
+        (_, aux), grads = accumulate_gradients(partial(loss_fn, cfg), full,
+                                               local, n_micro)
+    del full
+    # each whole gradient is replaced by its block (and freed) in turn
+    _replace_leaves(lambda g, spec: _team_mean_block(g, spec, mesh, team,
+                                                     n_team), grads, specs)
+    loss, aux_loss = aux["loss"], aux["aux_loss"]
+    if rows and n_team > 1:
+        both = mesh.psum(torch.stack([loss, aux_loss]), team) / n_team
+        loss, aux_loss = both[0], both[1]
+    lr = lr_schedule(state.step)
+    _, new_opt, gnorm = optimizer.update(grads, state.opt, state.params,
+                                         lr=lr, mesh=mesh, specs=specs)
+    metrics = {"loss": loss, "aux_loss": aux_loss, "grad_norm": gnorm,
+               "lr": lr}
+    return TrainState(state.params, new_opt, state.step + 1), metrics
+
+
+def _replace_leaves(fn, tree, specs) -> None:
+    """Each leaf of a tree of dicts and lists replaced, in place, by
+    ``fn(leaf, spec)``."""
+    for k in (sorted(tree) if isinstance(tree, dict) else range(len(tree))):
+        if isinstance(tree[k], (dict, list)):
+            _replace_leaves(fn, tree[k], specs[k])
+        else:
+            tree[k] = fn(tree[k], specs[k])
+
+
+def _team_mean_block(g, spec, mesh, team, n_team: int):
+    """This rank's block under ``spec`` of the mean of ``g`` over the
+    batch team."""
+    dim = next((i for i, e in enumerate(spec) if spec_axes(e) == team), None)
+    if dim is None:
+        return mesh.shard(mesh.psum(g, team), spec) / n_team
+    rest = tuple(None if i == dim else e for i, e in enumerate(spec))
+    g = mesh.shard(g, rest).movedim(dim, 0)
+    return mesh.reduce_scatter(g, team).movedim(0, dim) / n_team
 
 
 def make_prefill(cfg: ModelConfig, max_len: int):
@@ -179,3 +281,97 @@ def make_decode_step(cfg: ModelConfig):
         return cache, nxt
 
     return decode
+
+
+# ---------------------------------------------------------------------------
+# shardings
+# ---------------------------------------------------------------------------
+
+def param_shardings(cfg: ModelConfig, mesh, max_len: int = 0) -> dict:
+    """The parameters' specs on ``mesh`` from the config's rules, as a
+    tree beside :meth:`DecoderLM.tree` (a list of per-layer dicts for the
+    stacked groups, each layer's spec the reference's stacked spec less
+    its leading ``"layers"`` entry, which never takes an axis)."""
+    rules = cfg.rules()
+    schema = T.model_schema(cfg, max_len)
+    stacked = T.stacked_groups(cfg)
+    out = {}
+    for group, entries in schema.items():
+        specs = {k: logical_to_spec(lg, shape, mesh, rules)
+                 for k, (shape, lg, _) in entries.items()}
+        if group in stacked:
+            out[group] = [{k: s[1:] for k, s in specs.items()}
+                          for _ in range(stacked[group])]
+        else:
+            out[group] = specs
+    return out
+
+
+def opt_shardings(cfg: ModelConfig, mesh, optimizer, max_len: int = 0):
+    """The optimizer state's specs: the moments as their parameters, the
+    step counter replicated (``()``); SGDM's ``v`` is ``{}``."""
+    ps = param_shardings(cfg, mesh, max_len)
+    probe = optimizer.init({"x": torch.zeros(1)})
+    return type(probe)(step=(), m=ps, v=ps if probe.v else {})
+
+
+def cache_shardings(cfg: ModelConfig, mesh, batch: int, max_len: int):
+    """The serve cache's specs, a tree beside :func:`T.init_cache`'s."""
+    shapes = T.init_cache(cfg, batch, max_len, device="meta")
+    return tree_shardings(T.cache_logical_axes(cfg), shapes, mesh,
+                          cfg.rules())
+
+
+def batch_shardings(cfg: ModelConfig, mesh) -> Batch:
+    """The batch's specs: rows over the batch rule's axes."""
+    rules = cfg.rules()
+    big = 1 << 30
+    tok = logical_to_spec(("batch", "seq"), (big, big), mesh, rules)
+    fr = (logical_to_spec(("batch", "seq", "embed"), (big, big, big), mesh,
+                          rules) if cfg.enc_dec else None)
+    return Batch(tokens=tok, targets=tok, frames=fr)
+
+
+def map_with_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree of tensors (dicts, lists,
+    NamedTuples, modules with a ``tree()`` view) and its spec tree (spec
+    tuples are leaves there), in ``optim.tree_leaves``' order."""
+    tree = as_tree(tree)
+    if isinstance(tree, dict):
+        return {k: map_with_specs(fn, tree[k], specs[k])
+                for k in sorted(tree)}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(map_with_specs(fn, t, s)
+                            for t, s in zip(tree, specs)))
+    if isinstance(tree, list):
+        return [map_with_specs(fn, t, s) for t, s in zip(tree, specs)]
+    if tree is None:
+        return None
+    return fn(tree, specs)
+
+
+def shard_tree(tree, specs, mesh):
+    """This rank's block of each leaf of a tree of whole tensors."""
+    return map_with_specs(lambda t, s: mesh.shard(t.detach(), s), tree,
+                          specs)
+
+
+def gather_tree(tree, specs, mesh):
+    """Each leaf whole, all-gathered over its sharded axes."""
+    return map_with_specs(lambda t, s: mesh.gather(t.detach(), s), tree,
+                          specs)
+
+
+def shard_params_(params: T.DecoderLM, specs, mesh) -> T.DecoderLM:
+    """``params`` with each tensor replaced, in place, by this rank's
+    block (the whole tensors are freed)."""
+    with torch.no_grad():
+        for name, module in params.named_children():
+            if isinstance(module, nn.ModuleList):
+                pairs = zip(module, specs[name])
+            else:
+                pairs = [(module, specs[name])]
+            for block, spec in pairs:
+                for k, p in block._parameters.items():
+                    p.data = mesh.shard(p.data, spec[k])
+    return params

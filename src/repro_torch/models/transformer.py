@@ -127,6 +127,14 @@ def model_schema(cfg: ModelConfig, max_len: int = 0):
     return tree
 
 
+def logical_axes(cfg: ModelConfig, max_len: int = 0) -> dict:
+    """The reference's logical-axes tree of the parameters: each group's
+    names to their logical axes, the stacked groups with their leading
+    ``"layers"`` axis (one block of the port's holds ``[1:]`` of it)."""
+    return {name: L.build_logical(sub)
+            for name, sub in model_schema(cfg, max_len).items()}
+
+
 def stacked_groups(cfg: ModelConfig) -> dict:
     """The groups kept as one block per layer, and their layer counts."""
     return {"blocks": cfg.n_layers, "enc": cfg.n_enc_layers}
@@ -532,6 +540,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
                 "enc_out": torch.zeros((batch, cfg.enc_len, cfg.d_model),
                                        dtype=dt, device=dev)}
     return rings(cfg.n_layers)
+
+
+def cache_logical_axes(cfg: ModelConfig) -> dict:
+    """The logical-axes tree of :func:`init_cache`'s cache."""
+    attn = {"k": ("layers", "batch", "kv", "kv_seq", "none"),
+            "v": ("layers", "batch", "kv", "kv_seq", "none"),
+            "pos": ("layers", "none")}
+    ssm = {"conv": ("layers", "batch", "none", "heads"),
+           "h": ("layers", "batch", "heads", "none", "none")}
+    if cfg.family == "ssm":
+        return ssm
+    if cfg.family == "hybrid":
+        deep = {"conv": ("layers", "layers", "batch", "none", "heads"),
+                "h": ("layers", "layers", "batch", "heads", "none", "none")}
+        return {"shared": attn, "mamba": deep}
+    if cfg.enc_dec:
+        return {"layers": {"self": attn},
+                "enc_out": ("batch", "seq", "embed")}
+    return attn
 
 
 def layer_cache(caches: dict, layer: int) -> dict:

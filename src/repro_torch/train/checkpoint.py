@@ -4,7 +4,7 @@ Port of ``repro.train.checkpoint``; a checkpoint written by either
 package is restored by the other.  One directory per step holds
 
   * ``manifest.json``: the step, the data cursor, the mesh shape (None
-    here) and each leaf's file, shape and dtype;
+    off a mesh) and each leaf's file, shape and dtype;
   * ``<key>.npy``: one file per leaf, keyed by the reference's
     ``//``-flattened path (``params//blocks//attn_wq``,
     ``opt//m//embed//tok``, ``opt//step``, ``step``), ``//`` written as
@@ -20,6 +20,13 @@ Writes go to ``<dir>.tmp`` and end with one ``os.rename``: a crash
 mid-save never leaves a partial checkpoint under a step's name.
 ``restore`` writes into a template's tensors in place (the state a
 resumed run would start from), on whatever device they live.
+
+On a mesh (``launch.mesh.Mesh``) each rank holds its blocks of the state
+under a tree of specs (``shardings``): ``save`` gathers each leaf whole,
+one at a time, rank 0 writes it, and a barrier after the rename keeps
+every rank from reading the step before it is complete; ``restore``
+reads the whole leaves and keeps this rank's blocks, onto any mesh (the
+file format does not depend on the mesh the state was saved from).
 """
 from __future__ import annotations
 
@@ -71,20 +78,31 @@ def _from_numpy(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 
 def save(ckpt_dir: str, step: int, state, *, data_cursor: int = 0,
-         mesh=None, keep: int = 3) -> str:
+         mesh=None, shardings=None, keep: int = 3) -> str:
     """Atomically write ``state`` (dicts, NamedTuples such as
     ``lm.TrainState``, a ``DecoderLM``, tensors) as step ``step``, then
-    keep only the newest ``keep`` steps.  ``mesh`` is the reference's
-    argument; the port's single-device state records None."""
+    keep only the newest ``keep`` steps.  With ``shardings`` (a spec tree
+    beside ``state``) the state holds this rank's blocks on ``mesh``:
+    every rank calls ``save``, each leaf is gathered whole and rank 0
+    writes.  The manifest records ``mesh``'s shape (None without)."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = path + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp, exist_ok=True)
+    writer = mesh is None or mesh.rank == 0
+    specs = _flatten(shardings) if shardings is not None else {}
+    if writer:
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "data_cursor": data_cursor,
                 "mesh_shape": dict(mesh.shape) if mesh is not None else None,
                 "leaves": {}}
     for key, leaf in _flatten(state).items():
+        if key in specs:
+            spec = specs[key]
+            leaf = ([mesh.gather(t, s) for t, s in zip(leaf, spec)]
+                    if isinstance(leaf, list) else mesh.gather(leaf, spec))
+        if not writer:
+            continue
         if isinstance(leaf, list):
             parts = [_to_numpy(t) for t in leaf]
             arr, dtype_name = np.stack([a for a, _ in parts]), parts[0][1]
@@ -94,12 +112,15 @@ def save(ckpt_dir: str, step: int, state, *, data_cursor: int = 0,
         np.save(os.path.join(tmp, fname), arr)
         manifest["leaves"][key] = {"file": fname, "shape": list(arr.shape),
                                    "dtype": dtype_name}
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f, indent=1)
-    if os.path.exists(path):
-        shutil.rmtree(path)
-    os.rename(tmp, path)
-    _gc(ckpt_dir, keep)
+    if writer:
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=1)
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.rename(tmp, path)
+        _gc(ckpt_dir, keep)
+    if mesh is not None:
+        mesh.barrier()
     return path
 
 
@@ -111,12 +132,17 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, template, *, step: int | None = None):
+def restore(ckpt_dir: str, template, *, step: int | None = None,
+            shardings=None, mesh=None):
     """Load step ``step`` (default: the latest) into ``template``'s
     tensors in place; returns (template, manifest).  Every leaf of the
     template must be in the checkpoint with its shape and dtype (a
     stacked leaf: one slice per layer); leaves the template does not
-    have are ignored, as the reference ignores them."""
+    have are ignored, as the reference ignores them.  With
+    ``shardings`` (a spec tree beside ``template``) the template holds
+    this rank's blocks on ``mesh``, and each whole leaf read is cut to
+    the rank's block: the elastic restore, onto any mesh."""
+    specs = _flatten(shardings) if shardings is not None else {}
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
@@ -133,9 +159,14 @@ def restore(ckpt_dir: str, template, *, step: int | None = None):
                               info["dtype"])
             stacked = isinstance(dst, list)
             targets = dst if stacked else [dst]
-            want = ((len(dst),) if stacked else ()) + tuple(targets[0].shape)
             if not stacked:
                 src = src[None]
+            if key in specs:
+                spec = specs[key] if stacked else [specs[key]]
+                src = torch.stack([mesh.shard(layer, s)
+                                   for layer, s in zip(src, spec)])
+                info = dict(info, shape=list(src.shape[int(not stacked):]))
+            want = ((len(dst),) if stacked else ()) + tuple(targets[0].shape)
             if tuple(info["shape"]) != want or src.dtype != targets[0].dtype:
                 raise ValueError(
                     f"{key}: the checkpoint holds {info['dtype']} "

@@ -8,7 +8,11 @@ to the float32 value of each parameter, and the clip scale
 
 The parameters and the optimizer state are *trees*: nested dicts and
 lists of tensors, or a module with a ``tree()`` view (the LM's
-``DecoderLM``), whose leaves the state mirrors.  The state lives on the
+``DecoderLM``), whose leaves the state mirrors.  On a mesh
+(``launch.mesh.Mesh``) each rank holds its block of every leaf under
+the leaf's spec (a tree of specs beside the tree of tensors): the global
+norm counts each element once, and clipping and the update, being
+elementwise, run on the blocks unchanged.  The state lives on the
 parameters' device.  Where the reference returns new arrays (its jitted
 step donates the old ones), ``update`` writes the parameters and the
 state in place and returns them, so neither is ever held twice.
@@ -73,12 +77,14 @@ class AdamW(NamedTuple):
                      tree)
         return AdamWState(_step0(tree), z, tree_map(torch.clone, z))
 
-    def update(self, grads, state: AdamWState, params, lr=None):
+    def update(self, grads, state: AdamWState, params, lr=None, *,
+               mesh=None, specs=None):
         """(params, state, grad_norm): one AdamW step on the clipped
-        ``grads``, written into ``params`` and ``state`` in place."""
+        ``grads``, written into ``params`` and ``state`` in place.  On a
+        ``mesh`` the trees hold this rank's blocks under ``specs``."""
         lr = lr if lr is not None else self.lr
         tree = as_tree(params)
-        scale, gnorm = _clip_scale(grads, self.clip_norm)
+        scale, gnorm = _clip_scale(grads, self.clip_norm, mesh, specs)
         step = state.step + 1
         t = step.float()
         b1, b2 = self.b1, self.b2
@@ -126,14 +132,26 @@ def _step0(tree) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32, device=dev)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, *, mesh=None, specs=None) -> torch.Tensor:
+    """The float32 global norm of ``tree``.  On a ``mesh``, ``tree``
+    holds this rank's blocks under ``specs`` (a tree beside it): each
+    element is counted once (a block replicated along an axis its spec
+    does not use counts only at that axis's coordinate 0, see
+    ``Mesh.owns``), and the squares are summed over every rank."""
     with torch.no_grad():
-        return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
-                              for leaf in tree_leaves(tree)))
+        if mesh is None:
+            return torch.sqrt(sum(torch.sum(torch.square(leaf.float()))
+                                  for leaf in tree_leaves(tree)))
+        squares = tree_leaves(tree_map(
+            lambda leaf, spec: torch.sum(torch.square(leaf.float()))
+            if mesh.owns(spec) else None, tree, specs))
+        total = sum(squares) if squares else torch.zeros(
+            (), device=mesh.device)
+        return torch.sqrt(mesh.psum(total, mesh.axis_names))
 
 
-def _clip_scale(tree, max_norm: float):
-    g = global_norm(tree)
+def _clip_scale(tree, max_norm: float, mesh=None, specs=None):
+    g = global_norm(tree, mesh=mesh, specs=specs)
     return torch.clamp(max_norm / torch.clamp_min(g, 1e-9), max=1.0), g
 
 

@@ -448,8 +448,9 @@ def test_train_losses_match_reference():
 
 def test_launch_train_cli_resumes(tmp_path, capsys):
     """``launch.train`` on the host: 4 smoke steps with checkpoints, then
-    the same command to step 8 resumes from step 4 (4 more losses); the
-    sharded meshes are refused by name."""
+    the same command to step 8 on the one-process host mesh resumes from
+    step 4 (4 more losses); the production meshes raise, naming the
+    rank count they need."""
     from repro_torch.launch import train as cli
     argv = ["--arch", "mamba2-130m", "--smoke", "--seq-len", "32",
             "--batch", "2", "--ckpt-dir", str(tmp_path), "--ckpt-every",
@@ -460,8 +461,8 @@ def test_launch_train_cli_resumes(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "resumed from step 4" in out and "done: 8 steps" in out
     assert res2.final_step == 8 and len(res2.losses) == 4
-    for mesh in ("pod", "multipod"):
-        with pytest.raises(SystemExit, match="A1b"):
+    for mesh, need in (("pod", 256), ("multipod", 512)):
+        with pytest.raises(ValueError, match=f"needs {need} ranks"):
             cli.main(argv + ["--mesh", mesh], device="cpu")
 
 

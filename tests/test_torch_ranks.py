@@ -20,6 +20,7 @@ import os
 import queue
 import tempfile
 import traceback
+from fractions import Fraction
 
 import numpy as np
 import torch
@@ -360,3 +361,166 @@ def replication_sweep(rank):
     spec.loader.exec_module(mod)
     rows = mod.main([], device="cpu")
     return [dict(r, omega=r["omega"].numpy()) for r in rows]
+
+
+# ---------------------------------------------------------------------------
+# multi-rank LM training (repro_torch.launch.mesh, lm.make_train_step(mesh=))
+# ---------------------------------------------------------------------------
+
+def _lm_mesh(name, shape, axes=("data", "model")):
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh
+    cfg = configs.get_smoke(name).with_(dtype="float32")
+    return cfg, make_mesh(shape, axes, device="cpu")
+
+
+def _full_state(state, cfg, mesh, seq_len):
+    """The rank's train state gathered whole, as the reference's numpy
+    tree (``convert.train_state_to_numpy``'s layout)."""
+    from repro_torch import convert
+    from repro_torch.models import lm
+    from repro_torch.train import optim
+    from repro_torch.train.loop import _state_shardings
+    specs = _state_shardings(cfg, optim.AdamW(), mesh,
+                             type("tc", (), {"seq_len": seq_len}))
+    return convert.train_state_to_numpy(lm.gather_tree(state, specs, mesh))
+
+
+def train_mesh(rank, name, shape, params, kw, ckpt_dir=""):
+    """``train(mesh=)`` of the smoke config ``name`` (float32) from the
+    reference's weights ``params`` on a (data, model) mesh of ``shape``:
+    the losses, each rank's block shapes and state bytes, and (rank 0)
+    the final state gathered whole."""
+    from repro_torch import convert
+    from repro_torch.models import lm
+    from repro_torch.train import loop, optim
+    cfg, mesh = _lm_mesh(name, shape)
+    model = convert.lm_params_from_numpy(cfg, params, device="cpu")
+    specs = lm.param_shardings(cfg, mesh, max_len=kw["seq_len"])
+    lm.shard_params_(model, specs, mesh)
+    state = lm.init_train_state(model, optim.AdamW(weight_decay=0.1,
+                                                   clip_norm=1.0))
+    res = loop.train(cfg, loop.TrainerConfig(ckpt_dir=ckpt_dir, **kw),
+                     mesh=mesh, state=state, log=lambda *a: None,
+                     device="cpu")
+    leaves = optim.tree_leaves(res.state.params.tree())
+    out = {"losses": res.losses, "final_step": res.final_step,
+           "coords": mesh.coords,
+           "shapes": [tuple(t.shape) for t in leaves],
+           "grad_norm": [float(m["grad_norm"]) for m in res.metrics]}
+    whole = _full_state(res.state, cfg, mesh, kw["seq_len"])
+    out["state"] = whole if rank == 0 else None
+    return out
+
+
+def restore_mesh(rank, name, shape, ckpt_dir, seq_len):
+    """A sharded template on a (data, model) mesh of ``shape`` filled by
+    ``checkpoint.restore(shardings=)`` from ``ckpt_dir``: the state
+    gathered whole (rank 0) and each rank's step."""
+    import torch
+    from repro_torch.models import lm, transformer
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optim
+    from repro_torch.train.loop import _state_shardings
+    cfg, mesh = _lm_mesh(name, shape)
+    opt = optim.AdamW(weight_decay=0.1, clip_norm=1.0)
+    specs = _state_shardings(cfg, opt, mesh,
+                             type("tc", (), {"seq_len": seq_len}))
+    model = transformer.init_params(cfg, seed=9, max_len=seq_len,
+                                    device="cpu")
+    lm.shard_params_(model, specs.params, mesh)
+    template = lm.init_train_state(model, opt)
+    state, manifest = ckpt.restore(ckpt_dir, template, shardings=specs,
+                                   mesh=mesh)
+    whole = _full_state(state, cfg, mesh, seq_len)
+    return {"state": whole if rank == 0 else None,
+            "step": int(state.step), "mesh_shape": manifest["mesh_shape"],
+            "local": [tuple(t.shape) for t in optim.tree_leaves(
+                state.params.tree())],
+            "equal_blocks": all(torch.equal(a, b) for a, b in zip(
+                optim.tree_leaves(state.params.tree()),
+                optim.tree_leaves(lm.shard_tree(
+                    lm.gather_tree(state.params, specs.params, mesh),
+                    specs.params, mesh))))}
+
+
+def train_cli(rank, argv):
+    """``launch.train.main(argv, device="cpu")`` inside the group: the
+    mesh it trained on (via its result) and the losses."""
+    from repro_torch.launch import train as cli
+    res = cli.main(argv, device="cpu")
+    return {"losses": res.losses, "final_step": res.final_step}
+
+
+def train_cli_error(rank, argv):
+    """The message of the error ``launch.train.main(argv)`` raises."""
+    from repro_torch.launch import train as cli
+    try:
+        cli.main(argv, device="cpu")
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+# ---------------------------------------------------------------------------
+# the compressed collectives and the MoE's per-shard dispatch
+# ---------------------------------------------------------------------------
+
+def collectives(rank, kind, inputs):
+    """``compressed_psum`` (bf16) and ``ring_allreduce_int8`` of row
+    ``rank`` of each input over a team of every rank: a 1-axis mesh
+    (``kind="mesh"``) or a 1.5D grid's all-rank team (``"grid"``); the
+    results and each call's watched wire bytes (as str)."""
+    import torch
+    from repro_torch.comm import collectives as cc
+    world = len(inputs["psum"])
+    if kind == "mesh":
+        from repro_torch.launch.mesh import make_mesh
+        team, axes = make_mesh((world,), ("d",), device="cpu"), ("d",)
+    else:
+        from repro_torch.comm.grid import AXES
+        team, axes = _comm(world, 1, 1), AXES
+    out = {}
+    for name, fn in (
+            ("psum", lambda x: cc.compressed_psum(
+                {"g": x}, team, axes, method="bf16")[0]["g"]),
+            ("ring", lambda x: cc.ring_allreduce_int8(x, team, axes)),
+            ("ring_pad", lambda x: cc.ring_allreduce_int8(x, team, axes))):
+        x = torch.as_tensor(inputs[name][rank])
+        got, events = _watched(lambda: fn(x))
+        out[name] = got.numpy()
+        out[name + "_bytes"] = str(sum(Fraction(e[2]) for e in events))
+        out[name + "_prims"] = sorted({e[0] for e in events})
+    return out
+
+
+def moe_mesh(rank, shape, p, x, w):
+    """``layers.apply_moe`` of the OLMoE smoke config (float32) inside
+    ``batch_shards`` on a (data, model) mesh of ``shape``: each rank its
+    rows of ``x`` when they divide the data team, else all of them.  The
+    output, aux, drops and the gradients of sum(out * w) + 10 aux: the
+    weights' summed over the team (each rank's share of the aux taken
+    once), the input's for the rank's rows."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers
+    cfg = configs.get_smoke("olmoe_1b_7b").with_(dtype="float32")
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    team = layers.batch_axes(cfg, mesh)
+    n = mesh.axes_size(team)
+    b = x.shape[0]
+    rows = b % n == 0
+    lo, hi = ((b // n) * mesh.axes_index(team),
+              (b // n) * (mesh.axes_index(team) + 1)) if rows else (0, b)
+    pt = {k: torch.tensor(v, requires_grad=True) for k, v in p.items()}
+    xt = torch.tensor(x[lo:hi], requires_grad=True)
+    with layers.batch_shards(mesh, rows), layers.count_moe_drops() as tally:
+        out, aux = layers.apply_moe(cfg, pt, xt)
+    share = n if rows else 1
+    ((out * torch.as_tensor(w[lo:hi])).sum() + 10.0 * aux / share).backward()
+    grads = {k: (mesh.psum(t.grad, team) if rows else t.grad).numpy()
+             for k, t in pt.items()}
+    return {"rows": rows, "lo": lo, "hi": hi, "out": out.detach().numpy(),
+            "aux": float(aux), "grads": grads, "dx": xt.grad.numpy(),
+            "dropped": tally.dropped, "assigned": tally.assigned}
