@@ -143,6 +143,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 Step walls, state bytes per rank, gloo host copies and
                 wire bytes per step, peaks, MoE drops; no kernel launches
 
+ 16. analysis   ``repro_torch.analysis`` on the card: (a) the differential
+                fuzzer over every ``configs`` and ``card_configs`` entry of
+                the kernel manifest in each declared dtype (f64 / f32; f32 /
+                bf16 for flash) at 8 seeds, under its guard (NaN guard bands
+                around the inputs, a poisoned allocator, each case twice
+                bit for bit), every case passing and every kernel
+                launched; (b) with ``--sanitize`` only, ``compute-sanitizer``
+                memcheck, racecheck and initcheck over the seed-0 cases,
+                each with a clean summary (a tool that refuses the card
+                fails); (c) the CLI's default run on the card (AST engine,
+                dispatch engine, CA405), 0 findings against
+                ``analysis_baseline_torch.json``; (d) the dispatch engine
+                at f64 on the card (no CA201, no finding) and the host-sync
+                census held against PERF.md section 2
+
 The kernels phase also holds the flash kernel against its plain version
 at every manifest config (f32, bf16) and at the LM path's shape (B 2,
 Hq 32, Hkv 8, L 8192, D 80, causal, window 4096, bf16).
@@ -151,8 +166,9 @@ Hq 32, Hkv 8, L 8192, D 80, causal, window 4096, bf16).
 batched path, one prep's streaming pass at the gram phase's size, one
 ``loss_fn`` at the lm shape, one serve group against its requests one
 by one and 8 decode steps of each lmserve and zoo model (device time by
-kernel, the card's idle share); ``--phases`` runs a subset while iterating (e.g. ``--phases
-kernels,lm`` or ``--phases gram``).
+kernel, the card's idle share); ``--sanitize`` adds the analysis phase's
+compute-sanitizer runs; ``--phases`` runs a subset while iterating (e.g.
+``--phases kernels,lm`` or ``--phases gram``).
 
 The second-to-last line is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -319,6 +335,9 @@ FLASH_MAIN = (LM_B, 32, 8, LM_L, 80, 4096)
 #: rms: rounding P to bf16 moves an output by ~1.7e-3 of its row's rms
 #: (sd), whether the row sees 2 keys or 4096
 FLASH_MAIN_ROW_TOL = 3e-2
+#: phase analysis: seeds of the card fuzz; the sync census's problem
+FUZZ_SEEDS = 8
+CENSUS_P, CENSUS_BLOCK = 1024, 64
 
 
 def phase(name: str):
@@ -3355,6 +3374,160 @@ def brain_phase(torch, mods, dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 16: analysis (repro_torch.analysis on the card)
+# ---------------------------------------------------------------------------
+
+def analysis_fuzz(torch, kman, ops, dev) -> None:
+    """(a) the differential fuzzer over every configs and card_configs
+    entry in each declared dtype, at FUZZ_SEEDS seeds, each case under the
+    fuzzer's guard: every case passes and every kernel launched."""
+    from repro_torch.analysis import kernelfuzz
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    cases, worst, guarded = {}, {}, {}
+    failed = []
+    for seed in range(FUZZ_SEEDS):
+        results = kernelfuzz.fuzz_entries(kman.KERNEL_ENTRIES, seed=seed,
+                                          device=dev)
+        failed += kernelfuzz.failures(results)
+        for r in results:
+            cases[r.entry] = cases.get(r.entry, 0) + 1
+            worst[r.entry] = max(worst.get(r.entry, 0.0), r.max_abs_diff)
+            guarded[r.entry] = guarded.get(r.entry, 0) + (r.output
+                                                          == "<guard>")
+    secs = time.perf_counter() - t0
+    launched = dict(ops.LAUNCHES)
+    for e in kman.KERNEL_ENTRIES:
+        n = e["name"]
+        print(f"analysis fuzz {n}: {len(kernelfuzz.entry_cases(e))} cases "
+              f"x {FUZZ_SEEDS} seeds, {guarded[n]} guarded, {cases[n]} "
+              f"checks, largest max_abs_diff {worst[n]:.3e}, launches "
+              f"{launched[n]}")
+    print(f"analysis fuzz: {sum(cases.values())} checks, {len(failed)} "
+          f"failures, {secs:.1f} s")
+    for r in failed[:10]:
+        print(f"  {r.render()}")
+    check(not failed, f"{len(failed)} fuzz case(s) failed on the card")
+    check(all(guarded[e["name"]] == FUZZ_SEEDS * len(
+        kernelfuzz.entry_cases(e)) for e in kman.KERNEL_ENTRIES),
+          f"the fuzzer's guard did not run on every case: {guarded}")
+    check(all(launched[e["name"]] > 0 for e in kman.KERNEL_ENTRIES),
+          f"the fuzzer did not launch every kernel: {launched}")
+
+
+def analysis_sanitize(dev) -> None:
+    """(b) compute-sanitizer memcheck, racecheck and initcheck over the
+    seed-0 cases (``--sanitize`` only): each must print a clean summary;
+    an error, a tool that refuses the card or a missing tool fails."""
+    from repro_torch.analysis import kernelpass
+    for tool in kernelpass.SANITIZER_TOOLS:
+        res = kernelpass.sanitize(tool, seed=0, device=dev, root=ROOT)
+        print(f"analysis sanitize {res.render()}")
+        check(res.ok, f"compute-sanitizer {tool}: {res.status}, "
+                      f"{res.errors} error(s)\n{res.tail[-3000:]}")
+
+
+def analysis_static() -> None:
+    """(c) the CLI's default run (AST engine over the port, dispatch
+    engine on the card, CA405 over the registry): 0 new findings against
+    analysis_baseline_torch.json."""
+    from repro_torch.analysis import cli
+    rc = cli.main(["--root", str(ROOT)])
+    check(rc == 0, f"python -m repro_torch.analysis exited {rc}")
+
+
+def analysis_dispatch(torch, ops, dev) -> None:
+    """(d) the dispatch engine on the card at f64: no finding (no CA201
+    downcast, no broken entry, obs changes no op); its host-sync census
+    per entry."""
+    from repro_torch.analysis import dispatchpass, manifest
+    from repro_torch.analysis.rules import DEFAULT_PROFILE
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    findings, records = dispatchpass.run_entries(
+        manifest.load_entries(), DEFAULT_PROFILE, dev)
+    secs = time.perf_counter() - t0
+    for r in records:
+        print(f"analysis dispatch {r['entry']}: {r.get('ops', 0)} ops, "
+              f"{r.get('syncs', 0)} syncs")
+    print(f"analysis dispatch: {len(records)} entries on {dev} in "
+          f"{secs:.1f} s, kernel launches {dict(ops.LAUNCHES)}")
+    for f in findings:
+        print(f"  {f.render()}")
+    check(not findings, f"the dispatch engine found {len(findings)} "
+                        f"finding(s) on the card")
+
+
+def analysis_census(torch, dev) -> dict:
+    """PERF.md section 2's host syncs, counted by the dispatch engine on
+    the card: the sequential trial's syncs (the marginal count between
+    two solves of 3 and 6 iterations, sparse_matmul on and off) and the
+    batched engine's (1 per flat step in ``_apply_trial``, 1 per segment
+    that finishes a lane in ``harvest``, at most one per lane, and 1 per
+    solve: the lane order's read of the lam1 grid)."""
+    from repro_torch.analysis.dispatchpass import record
+    from repro_torch.core import batch, matops, prox
+    p = CENSUS_P
+    idx = torch.arange(p, device=dev)
+    band = (idx[:, None] - idx[None, :]).abs() <= 1
+    s = torch.eye(p, dtype=torch.float64, device=dev) + 0.3 * band
+    policy = matops.MatmulPolicy(mode="on", block_size=CENSUS_BLOCK,
+                                 threshold=0.5)
+    out = {}
+    for mode, pol, want in (("on", policy, 2), ("off", None, 1)):
+        runs = []
+        for iters in (3, 6):
+            res, c = record(prox.solve_reference, s, 0.1, tol=0.0,
+                            max_iters=iters, max_ls=8, sparse_matmul=pol,
+                            use_kernels=True)
+            runs.append((res.ls_total, c.syncs, dict(c.sync_sites)))
+        (t1, s1, _), (t2, s2, sites) = runs
+        rate = Fraction(s2 - s1, t2 - t1)
+        _, debug = count_syncs(torch, lambda: prox.solve_reference(
+            s, 0.1, tol=0.0, max_iters=6, max_ls=8, sparse_matmul=pol,
+            use_kernels=True))
+        print(f"analysis census sequential sparse_matmul={mode}: {t1} / {t2} "
+              f"trials, {s1} / {s2} syncs, {float(rate)} per trial "
+              f"(sync debug mode: {debug}); sites {sites}")
+        check(rate == want, f"sequential {mode}: {float(rate)} syncs per "
+                            f"trial, PERF.md section 2 says {want}")
+        out[mode] = {"trials": t2, "syncs": s2, "per_trial": float(rate),
+                     "debug": debug}
+    lanes = [0.3, 0.2, 0.15, 0.1]
+    (res, st), c = record(batch.solve_path_batched, s, lanes, tol=1e-6,
+                          max_iters=40, max_ls=8, schedule="compact",
+                          chunk=3, use_pallas=True, return_stats=True)
+    steps = len(st.capacities)
+    sites = dict(c.sync_sites)
+    per_step = sites.get("src/repro_torch/core/batch.py:_apply_trial", 0)
+    harvests = sites.get("src/repro_torch/core/batch.py:harvest", 0)
+    per_solve = c.syncs - per_step - harvests
+    print(f"analysis census batched: {len(lanes)} lanes, {steps} flat steps, "
+          f"{st.segments} segments, {c.syncs} syncs; sites {sites}")
+    check(per_step == steps and 1 <= harvests <= len(lanes)
+          and per_solve == 1,
+          f"batched: {per_step} step syncs for {steps} flat steps, "
+          f"{harvests} harvests, {per_solve} more per solve")
+    out["batched"] = {"steps": steps, "segments": st.segments,
+                      "harvests": harvests, "syncs": c.syncs}
+    return out
+
+
+def analysis_phase(torch, kman, ops, dev, sanitize: bool) -> None:
+    analysis_fuzz(torch, kman, ops, dev)
+    torch.cuda.empty_cache()
+    if sanitize:
+        analysis_sanitize(dev)
+    else:
+        print("analysis sanitize: not run (opt-in with --sanitize, on a "
+              "card compute-sanitizer supports; a refusal fails)")
+    analysis_static()
+    analysis_dispatch(torch, ops, dev)
+    analysis_census(torch, dev)
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 7: timing
 # ---------------------------------------------------------------------------
 
@@ -3545,7 +3718,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="all",
                     help="comma list of kernels,main,batched,adaptive,obs,"
                          "gram,lm,dist,telemetry,serve,pathmode,cross,"
-                         "timing,calibrate,brain,lmserve,zoo,train,trainmp "
+                         "timing,calibrate,brain,lmserve,zoo,train,trainmp,"
+                         "analysis "
                          "(default: "
                          "all; "
                          "device and build always run; telemetry and "
@@ -3560,6 +3734,10 @@ def main(argv=None) -> int:
                          "decode steps of danube and of OLMoE, the zoo "
                          "phase 8 decode steps of each of its models, the "
                          "train phase one warm danube train step")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="the analysis phase also runs compute-sanitizer "
+                         "memcheck, racecheck and initcheck over the fuzz "
+                         "cases; an error or a refused card fails")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script",
@@ -3679,6 +3857,9 @@ def main(argv=None) -> int:
         phase("trainmp")
         trainmp_phase(torch, dev, ops, train_losses)
         torch.cuda.empty_cache()
+    if run("analysis"):
+        phase("analysis")
+        analysis_phase(torch, kman, ops, dev, args.sanitize)
     if measured:
         rows = kernel_rows(kman, measured, errs, launches, smi)
         print(json.dumps({"kernels": rows}))

@@ -192,3 +192,33 @@ COMM_CONTRACT = {
     "ring_allreduce_int8": _ring_contract(),
     "compressed_psum_bf16": _bf16_psum_contract(),
 }
+
+
+# ---------------------------------------------------------------------------
+# analysis manifest (repro_torch.analysis.dispatchpass)
+# ---------------------------------------------------------------------------
+# On a one-process team, where the bf16 psum still compresses and
+# decompresses its payload.  The int8 ring has no entry: on one process it
+# is the identity and dispatches nothing (analysis.manifest.NO_ENTRY).
+
+def _one_process_team(device):
+    from .grid import AXES, Grid1p5D
+    from .group import comm_for
+    return comm_for(Grid1p5D(1, 1, 1), torch.device(device)), AXES
+
+
+def _entry_bf16_psum(device):
+    team, axes = _one_process_team(device)
+    g = {"grad": torch.linspace(0.0, 1.0, 24, dtype=torch.float64,
+                                device=device).reshape(6, 4)}
+    return {"fn": compressed_psum, "args": (g, team, axes),
+            "kwargs": {"method": "bf16"}}
+
+
+_PATH = "src/repro_torch/comm/collectives.py"
+ANALYSIS_ENTRIES = [
+    # f64 -> bf16 on the wire, summed in f32, is this path's declared
+    # compression
+    {"name": "comm.collectives.compressed_psum_bf16", "path": _PATH,
+     "build": _entry_bf16_psum, "skip": ("CA201",)},
+]

@@ -47,6 +47,7 @@ import datetime
 import math
 import os
 from collections import Counter
+from fractions import Fraction
 from typing import Callable
 
 import torch
@@ -117,6 +118,12 @@ def destroy_process_group() -> None:
     _COMMS.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def new_group(members: list[int]):
+    """The process group of ``members`` (global ranks).  Collective: every
+    rank of the world calls it with the same lists in the same order."""
+    return dist.new_group(members)
 
 
 def world_size() -> int:
@@ -202,6 +209,18 @@ class Teams:
         return x.to(self.device)
 
     # -- collectives ---------------------------------------------------
+
+    def barrier(self) -> None:
+        """Every rank of the process group waits for the others: announced
+        as a ``barrier`` of 0 wire bytes over every axis, counted in
+        ``calls``."""
+        axes = max(self._teams, key=len) if self._teams else ()
+        if _WATCHER is not None:
+            _WATCHER("barrier", tuple(axes), Fraction(0))
+        if self.backend is None or world_size() == 1:
+            return
+        self.calls["barrier"] += 1
+        dist.barrier()
 
     def all_gather(self, x: torch.Tensor, axes) -> torch.Tensor:
         """(E, *x.shape): the team's shards stacked in team order."""
@@ -396,7 +415,7 @@ class Comm(Teams):
             elif len(members) == g.n_devices:
                 pg = dist.group.WORLD
             else:
-                pg = dist.new_group(members)
+                pg = new_group(members)
             if self.rank in members:
                 mine, group = members, pg
         if group is not None and \

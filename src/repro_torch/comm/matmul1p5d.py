@@ -322,3 +322,65 @@ COMM_CONTRACT = {
         "comm.matmul1p5d.omega_xt_local", "omega_xt",
         kinds=("ppermute", "psum")),
 }
+
+
+# ---------------------------------------------------------------------------
+# analysis manifest (repro_torch.analysis.dispatchpass)
+# ---------------------------------------------------------------------------
+# The ring products on a one-process (1, 1, 1) grid: one round, the
+# team collectives the identity; the local products and the schedule's
+# bookkeeping run as they do on every rank.
+
+_TRACE_P, _TRACE_N = 8, 6
+
+
+def _one_process(device):
+    from .grid import Grid1p5D
+    from .group import comm_for
+    return comm_for(Grid1p5D(1, 1, 1), torch.device(device))
+
+
+def _f64(device, *shape, lo=0.0, hi=1.0):
+    n = int(np.prod(shape))
+    return torch.linspace(lo, hi, n, dtype=torch.float64,
+                          device=device).reshape(shape)
+
+
+def _entry_xtx(device):
+    return {"fn": xtx_local, "args": (_f64(device, _TRACE_N, _TRACE_P, lo=-1),
+                                      _one_process(device))}
+
+
+def _entry_omega_s(device):
+    return {"fn": omega_s_local,
+            "args": (_f64(device, _TRACE_P, _TRACE_P),
+                     _f64(device, _TRACE_P, _TRACE_P),
+                     _one_process(device)),
+            "kwargs": {"canonical": "omegalike"}}
+
+
+def _entry_y_x(device):
+    return {"fn": y_x_local,
+            "args": (_f64(device, _TRACE_P, _TRACE_N),
+                     _f64(device, _TRACE_N, _TRACE_P),
+                     _one_process(device))}
+
+
+def _entry_omega_xt(device):
+    return {"fn": omega_xt_local,
+            "args": (_f64(device, _TRACE_P, _TRACE_P),
+                     _f64(device, _TRACE_P, _TRACE_N),
+                     _one_process(device))}
+
+
+_PATH = "src/repro_torch/comm/matmul1p5d.py"
+ANALYSIS_ENTRIES = [
+    {"name": "comm.matmul1p5d.xtx_ring", "path": _PATH,
+     "build": _entry_xtx},
+    {"name": "comm.matmul1p5d.omega_s_ring", "path": _PATH,
+     "build": _entry_omega_s},
+    {"name": "comm.matmul1p5d.y_x_ring", "path": _PATH,
+     "build": _entry_y_x},
+    {"name": "comm.matmul1p5d.omega_xt_ring", "path": _PATH,
+     "build": _entry_omega_xt},
+]

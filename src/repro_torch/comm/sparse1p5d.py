@@ -26,6 +26,8 @@ summation order.
 """
 from __future__ import annotations
 
+import torch
+
 from ..core import matops
 from . import matmul1p5d as mm
 from .contract import CommContract
@@ -95,3 +97,42 @@ COMM_CONTRACT = {
     "omega_xt_local_sparse": _sparse_contract(
         "comm.sparse1p5d.omega_xt_local_sparse", "omega_xt"),
 }
+
+
+# ---------------------------------------------------------------------------
+# analysis manifest (repro_torch.analysis.dispatchpass)
+# ---------------------------------------------------------------------------
+
+_TRACE_BS = 4
+
+
+def _sparse_setup(device):
+    p, n = 16, 6
+    om = torch.eye(p, dtype=torch.float64, device=device)
+    policy = matops.MatmulPolicy(mode="on", block_size=_TRACE_BS,
+                                 threshold=0.5)
+    return (om, matops.block_mask(om, _TRACE_BS), policy,
+            mm._one_process(device), p, n)
+
+
+def _entry_omega_s_sparse(device):
+    om, mask, policy, comm, p, _ = _sparse_setup(device)
+    return {"fn": omega_s_local_sparse,
+            "args": (om, mask, mm._f64(device, p, p), comm),
+            "kwargs": {"policy": policy, "canonical": "omegalike"}}
+
+
+def _entry_omega_xt_sparse(device):
+    om, mask, policy, comm, p, n = _sparse_setup(device)
+    return {"fn": omega_xt_local_sparse,
+            "args": (om, mask, mm._f64(device, p, n), comm),
+            "kwargs": {"policy": policy}}
+
+
+_PATH = "src/repro_torch/comm/sparse1p5d.py"
+ANALYSIS_ENTRIES = [
+    {"name": "comm.sparse1p5d.omega_s_ring_sparse", "path": _PATH,
+     "build": _entry_omega_s_sparse},
+    {"name": "comm.sparse1p5d.omega_xt_ring_sparse", "path": _PATH,
+     "build": _entry_omega_xt_sparse},
+]

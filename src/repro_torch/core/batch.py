@@ -66,6 +66,7 @@ from .penalty import PenaltySpec, _as_numpy, lane_view, normalize_penalty
 from .prox import (
     ProxResult,
     VariantOps,
+    _analysis_cov,
     cov_ops,
     ls_trial,
     obs_ops,
@@ -216,7 +217,8 @@ def _lane_ops(variant: str, live: list[int]) -> VariantOps:
         for i in live:
             if host is not None:
                 h = host[i] if data["stacked"] else host
-                prod = np.matmul(omega[i].cpu().numpy(), h)
+                # gemm="host": the product runs on the host by design
+                prod = np.matmul(omega[i].cpu().numpy(), h)  # ca: allow=CA106
                 out[i].copy_(torch.from_numpy(prod))
             else:
                 torch.matmul(omega[i], b[i] if data["stacked"] else b,
@@ -300,7 +302,9 @@ def _apply_trial(lanes: _Lanes, trial, *, tol: float, max_iters: int,
         stalled=lanes.stalled | exhaust,
         done=lanes.done | (accept & done_acc) | exhaust,
     )
-    accepted, done = torch.stack([accept, new.done]).tolist()
+    # the flat step's one host sync: which lanes took their candidate
+    accepted, done = torch.stack(  # ca: allow=CA106 (the step's sync)
+        [accept, new.done]).tolist()
     for i, acc in enumerate(accepted):
         if acc:
             lanes.omega[i].copy_(cand[i])
@@ -457,7 +461,7 @@ def _solve_lanes(arr, spec, ridge, omega0, *, variant, tol, max_iters,
                          "pass either it or omega0, not both")
     dtype, dev = arr.dtype, arr.device
     p = arr.shape[-1]
-    b = _as_numpy(spec.lam1).shape[0]
+    b = np.shape(spec.lam1)[0]        # the lane count, with no host copy
     spec_b = _broadcast_spec(spec, b, arr)
     ridge_b = torch.as_tensor(ridge, dtype=dtype, device=dev).expand(b)
     if omega0 is None:
@@ -496,7 +500,8 @@ def _solve_lanes(arr, spec, ridge, omega0, *, variant, tol, max_iters,
         slots = [k for k, d in enumerate(done) if d and cur_ids[k] >= 0]
         if not slots:
             return
-        rows = torch.stack([
+        # one host sync per segment that finished a lane: its counters
+        rows = torch.stack([  # ca: allow=CA106 (the segment's sync)
             state.step.to(torch.float64), state.ls_total.to(torch.float64),
             state.g_val.to(torch.float64), state.delta.to(torch.float64),
             state.stalled.to(torch.float64)]).tolist()
@@ -718,3 +723,41 @@ def solve_batch(
         chunk=chunk, max_lanes=max_lanes, sort_lanes=sort_lanes,
         stacked=True, use_pallas=False, gemm=gemm, schedule=schedule)
     return (res, stats) if return_stats else res
+
+
+# ---------------------------------------------------------------------------
+# analysis manifest (repro_torch.analysis.dispatchpass)
+# ---------------------------------------------------------------------------
+
+def _analysis_path(device):
+    return {"fn": solve_path_batched,
+            "args": (_analysis_cov(6, device), [0.1, 0.2, 0.3]),
+            "kwargs": dict(tol=1e-3, max_iters=5, max_ls=5,
+                           schedule="monolithic")}
+
+
+def _analysis_batch(device):
+    s = torch.stack([_analysis_cov(6, device)] * 2)
+    return {"fn": solve_batch, "args": (s, [0.1, 0.2]),
+            "kwargs": dict(tol=1e-3, max_iters=5, max_ls=5)}
+
+
+def _analysis_chunk(device):
+    """The compact engine's segments of 3 flat steps through the fused
+    path-step trial (the kernel on the card)."""
+    return {"fn": solve_path_batched,
+            "args": (_analysis_cov(6, device), [0.1, 0.2, 0.3]),
+            "kwargs": dict(tol=1e-3, max_iters=4, max_ls=4,
+                           schedule="compact", chunk=3, use_pallas=True)}
+
+
+#: the batched lambda-path and multi-problem engines: the reference's
+#: monolithic path, stacked problems, and the compact engine's chunks
+ANALYSIS_ENTRIES = [
+    {"name": "core.batch.solve_path_batched",
+     "path": "src/repro_torch/core/batch.py", "build": _analysis_path},
+    {"name": "core.batch.solve_batch",
+     "path": "src/repro_torch/core/batch.py", "build": _analysis_batch},
+    {"name": "core.batch.path_chunk",
+     "path": "src/repro_torch/core/batch.py", "build": _analysis_chunk},
+]

@@ -595,3 +595,37 @@ COMM_CONTRACT = {
     "fit_cov": _driver_contract(),
     "fit_obs": _driver_contract(),
 }
+
+# ---------------------------------------------------------------------------
+# analysis manifest (repro_torch.analysis.dispatchpass)
+# ---------------------------------------------------------------------------
+
+def _analysis_fit_cov(device):
+    p = 8
+    s = (torch.eye(p, dtype=torch.float64, device=device)
+         + 0.05 * torch.ones((p, p), dtype=torch.float64, device=device))
+    return {"fn": fit_cov, "args": (s, 0.2),
+            "kwargs": dict(grid=Grid1p5D(1, 1, 1), tol=1e-3, max_iters=4,
+                           max_ls=4)}
+
+
+def _analysis_fit_obs(device):
+    n, p = 12, 8
+    x = torch.linspace(-1.0, 1.0, n * p, dtype=torch.float64,
+                       device=device).reshape(n, p)
+    return {"fn": fit_obs, "args": (x, 0.2),
+            "kwargs": dict(grid=Grid1p5D(1, 1, 1), tol=1e-3, max_iters=4,
+                           max_ls=4)}
+
+
+#: both 1.5D drivers end to end on a one-process (1, 1, 1) grid: every
+#: team has one member and every collective is the identity, so the
+#: iteration's dtype contract is checked without a process group
+ANALYSIS_ENTRIES = [
+    {"name": "core.distributed.fit_cov",
+     "path": "src/repro_torch/core/distributed.py",
+     "build": _analysis_fit_cov},
+    {"name": "core.distributed.fit_obs",
+     "path": "src/repro_torch/core/distributed.py",
+     "build": _analysis_fit_obs},
+]

@@ -205,7 +205,7 @@ def prox_gradient(
                     ops, data, penalty, omega, grad, g_val, tau)
                 mask_c = None
             # the one host sync of the trial: acceptance + step norms
-            ok, dd, nn = torch.stack([
+            ok, dd, nn = torch.stack([  # ca: allow=CA106 (the trial's sync)
                 ok_t.to(dot_dd.dtype), dot_dd, norm_sq]).tolist()
             trials += 1
             if ok or trials >= max_ls:
@@ -375,3 +375,43 @@ def solve_reference(
         omega0, data, ops, penalty=spec, tol=tol, max_iters=max_iters,
         max_ls=max_ls, warm_start_tau=warm_start_tau,
         tau_schedule=tau_schedule)
+
+
+# ---------------------------------------------------------------------------
+# analysis manifest (repro_torch.analysis.dispatchpass)
+# ---------------------------------------------------------------------------
+
+def _analysis_cov(p: int, device) -> torch.Tensor:
+    return (torch.eye(p, dtype=torch.float64, device=device)
+            + 0.05 * torch.ones((p, p), dtype=torch.float64, device=device))
+
+
+def _analysis_solve(device):
+    return {"fn": solve_reference, "args": (_analysis_cov(8, device), 0.1),
+            "kwargs": dict(tol=1e-4, max_iters=8, max_ls=8)}
+
+
+def _analysis_solve_sparse(device):
+    """The block-sparse trial at p = 64, block 8: a banded S keeps the
+    iterate's 8 diagonal blocks occupied (density 1/8 under the 0.5
+    threshold), so on the card every trial runs the fused prox kernel and
+    the block-sparse product's mask entry."""
+    p = 64
+    idx = torch.arange(p, device=device)
+    band = (idx[:, None] - idx[None, :]).abs() <= 1
+    s = torch.eye(p, dtype=torch.float64, device=device) + 0.3 * band
+    policy = matops.MatmulPolicy(mode="on", block_size=8, threshold=0.5)
+    return {"fn": solve_reference, "args": (s, 0.1),
+            "kwargs": dict(tol=1e-4, max_iters=8, max_ls=8,
+                           sparse_matmul=policy, use_kernels=True)}
+
+
+#: the sequential reference solve (the oracle every other layer matches),
+#: dense and through the block-sparse trial with the kernels
+ANALYSIS_ENTRIES = [
+    {"name": "core.prox.solve_reference",
+     "path": "src/repro_torch/core/prox.py", "build": _analysis_solve},
+    {"name": "core.prox.solve_reference[sparse]",
+     "path": "src/repro_torch/core/prox.py",
+     "build": _analysis_solve_sparse},
+]

@@ -352,7 +352,8 @@ def rank_gram(data, *, panel: int = DEFAULT_PANEL,
             row = 0
             for chunk in source.chunks():
                 part = _column_slab(chunk, lo, hi, dev)
-                if not bool(torch.isfinite(part).all()):
+                # the per-chunk non-finite check: one sync per chunk
+                if not bool(torch.isfinite(part).all()):  # ca: allow=CA106
                     raise ValueError(
                         "non-finite values in stream; refusing to rank")
                 m = part.shape[0]
@@ -363,7 +364,9 @@ def rank_gram(data, *, panel: int = DEFAULT_PANEL,
                 raise ValueError(
                     f"re-iteration returned {row} rows, first sweep saw "
                     f"{n} (source is not stable across sweeps)")
-            z[:, lo:hi] = rank_transform_panel(buf).cpu().numpy()
+            # each sweep's scores go to the on-disk scratch by design
+            z[:, lo:hi] = rank_transform_panel(  # ca: allow=CA106
+                buf).cpu().numpy()
         z.flush()
         acc = GramAccumulator(p, transform="none", panel=panel, device=dev)
         rows = chunk_rows or max(1, int(budget_bytes // max(p * 8, 1)))
@@ -457,3 +460,34 @@ def distributed_gram(data, *, transform: str | Transform = "none",
     return GramResult(
         s=s, n=n, p=p, transform=tf.name, mean=mean, var=var,
         n_chunks=n_chunks, source_dtype=acc.source_dtype or "float64")
+
+
+# ---------------------------------------------------------------------------
+# analysis manifest (repro_torch.analysis.dispatchpass)
+# ---------------------------------------------------------------------------
+
+def _analysis_panel_gram(device):
+    x = torch.linspace(0.0, 1.0, 48, dtype=torch.float64,
+                       device=device).reshape(6, 8)
+    return {"fn": panel_gram, "args": (x,), "kwargs": {"panel": 4}}
+
+
+def _analysis_distributed_reduce(device):
+    """A standardized stream of host chunks into the f64 Gram; at world
+    size 1 the reduce is the rank's own accumulator."""
+    x = np.linspace(-1.0, 1.0, 96).reshape(12, 8)
+    x[:, 1] **= 2
+    return {"fn": distributed_gram, "args": (x,),
+            "kwargs": dict(transform="standardize", chunk_rows=5,
+                           device=device)}
+
+
+#: the f64 compute core of every streamed Gram, and the reduce
+ANALYSIS_ENTRIES = [
+    {"name": "data.gram.panel_gram",
+     "path": "src/repro_torch/core/matops.py",
+     "build": _analysis_panel_gram},
+    {"name": "data.gram.distributed_reduce",
+     "path": "src/repro_torch/data/gram.py",
+     "build": _analysis_distributed_reduce},
+]

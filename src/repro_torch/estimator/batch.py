@@ -66,7 +66,8 @@ def _slice_result(res: ProxResult, i: int) -> ProxResult:
     iterate a tensor, the rest Python scalars)."""
     vals = {f.name: getattr(res, f.name)[i]
             for f in dataclasses.fields(ProxResult)}
-    return ProxResult(**{k: v if k == "omega" else v.item()
+    # report assembly after the solve: a few scalars of one lane
+    return ProxResult(**{k: v if k == "omega" else v.item()  # ca: allow=CA106
                          for k, v in vals.items()})
 
 

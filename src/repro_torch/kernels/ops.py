@@ -117,3 +117,55 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
                               softcap=softcap, scale=scale)
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# analysis manifest (repro_torch.analysis.dispatchpass)
+# ---------------------------------------------------------------------------
+
+def _analysis_fused_prox(device):
+    p = 8
+    z = torch.linspace(-1.0, 1.0, p * p, dtype=torch.float64,
+                       device=device).reshape(p, p)
+    dm = torch.eye(p, dtype=torch.float64, device=device)
+    return {"fn": fused_prox_stats, "args": (z, dm, 0.1),
+            "kwargs": {"block": (4, 4)}}
+
+
+def _analysis_fused_path_step(device):
+    c, p = 2, 8
+    opts = dict(dtype=torch.float64, device=device)
+    om = (torch.eye(p, **opts)[None]
+          + 0.01 * torch.arange(c * p * p, **opts).reshape(c, p, p)
+          / (c * p * p))
+    tau = torch.full((c,), 0.5, **opts)
+    lam = torch.full((c,), 0.1, **opts)
+    return {"fn": fused_path_step, "args": (om, om * 1.5, tau, lam, lam),
+            "kwargs": {"block": 4}}
+
+
+def _analysis_masked_matmul(device):
+    p, bs = 16, 4
+    opts = dict(dtype=torch.float64, device=device)
+    a = torch.linspace(-1.0, 1.0, p * p, **opts).reshape(p, p)
+    a[:8, 8:] = 0.0
+    mask = (ref.block_nnz(a, (bs, bs)) > 0).to(torch.int8)
+    b = torch.linspace(0.0, 1.0, p * 6, **opts).reshape(p, 6)
+    return {"fn": masked_matmul, "args": (a, b, mask),
+            "kwargs": {"block_size": bs, "capacity": 12}}
+
+
+#: the kernel dispatch at f64: the kernels on the card (their wrappers'
+#: torch ops are what the dispatch engine sees), the plain versions on
+#: the CPU
+ANALYSIS_ENTRIES = [
+    {"name": "kernels.ops.fused_prox_stats",
+     "path": "src/repro_torch/kernels/softthresh.py",
+     "build": _analysis_fused_prox},
+    {"name": "kernels.ops.fused_path_step",
+     "path": "src/repro_torch/kernels/pathstep.py",
+     "build": _analysis_fused_path_step},
+    {"name": "kernels.ops.masked_matmul",
+     "path": "src/repro_torch/kernels/blocksparse_matmul.py",
+     "build": _analysis_masked_matmul},
+]

@@ -18,6 +18,11 @@ import torch
 STATS_MIN_DTYPE = torch.float32
 
 
+#: attention's softmax and accumulation dtype: its own contract (the
+#: reference's float32 softmax), not the solver's float64 one
+ATTENTION_DTYPE = torch.float32
+
+
 def stats_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, STATS_MIN_DTYPE)
 
@@ -269,7 +274,7 @@ def attention(q, k, v, *, causal=True, window=None, softcap=None,
     if window is not None:
         mask &= kpos > qpos - window
     logits = torch.where(mask[None, None], logits, -1e30)
-    probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    probs = torch.softmax(logits.to(ATTENTION_DTYPE), dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", probs, vq)
 
 
@@ -281,6 +286,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
     logits, softmax and accumulation) in another summation order."""
     D = q.shape[-1]
     scale = float(D) ** -0.5 if scale is None else float(scale)
-    out = attention(q.float(), k.float(), v.float(), causal=causal,
+    f32 = ATTENTION_DTYPE
+    out = attention(q.to(f32), k.to(f32), v.to(f32), causal=causal,
                     window=window, softcap=softcap, scale=scale)
     return out.to(q.dtype)

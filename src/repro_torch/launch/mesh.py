@@ -102,7 +102,7 @@ class Mesh(Teams):
             elif len(members) == self.size:
                 pg = dist.group.WORLD
             else:
-                pg = dist.new_group(members)
+                pg = comm_group.new_group(members)
             if self.rank in members:
                 mine, group = members, pg
         return group, mine
@@ -166,10 +166,6 @@ class Mesh(Teams):
         """Whether ``flag`` is set on any rank (one all-reduce)."""
         t = torch.tensor([1.0 if flag else 0.0], device=self.device)
         return bool(self.psum(t, self.axis_names).item() > 0)
-
-    def barrier(self) -> None:
-        if self.backend is not None and self.size > 1:
-            dist.barrier()
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank {self.rank} at {self.coords}, "

@@ -354,3 +354,43 @@ class CommWatch:
     def clear(self) -> None:
         self.records.clear()
         self._open = None
+
+
+# ---------------------------------------------------------------------------
+# analysis manifest (repro_torch.analysis.dispatchpass — the CA202 recipe)
+# ---------------------------------------------------------------------------
+
+def _analysis_fit(level: str, device):
+    """A thunk: one reference-backend Cov fit at obs ``level``."""
+    import numpy as np
+
+    from ..estimator import ConcordEstimator, SolverConfig
+
+    x = np.random.default_rng(0).standard_normal((20, 8))
+    config = SolverConfig(backend="reference", variant="cov", tol=1e-3,
+                          max_iters=5, max_ls=5, obs=level,
+                          device=str(device))
+    return lambda: ConcordEstimator(lam1=0.2, config=config).fit(x)
+
+
+def _analysis_obs_build(device):
+    """The fit with the span tracer armed at ``trace``: its f64 contract
+    is the untraced solve's."""
+    return {"fn": _analysis_fit("trace", device)}
+
+
+def _analysis_obs_same_ops(device):
+    """CA202: the same fit at ``obs="off"`` and ``obs="trace"`` dispatches
+    the same aten ops, op for op — the tracer and the metrics stay on the
+    host and change no device work."""
+    return {"off": _analysis_fit("off", device),
+            "trace": _analysis_fit("trace", device)}
+
+
+#: the obs layer's contract: instrumentation changes no device work
+ANALYSIS_ENTRIES = [
+    {"name": "obs.commwatch.traced_solve_reuse",
+     "path": "src/repro_torch/obs/commwatch.py",
+     "build": _analysis_obs_build,
+     "same_ops": _analysis_obs_same_ops},
+]
