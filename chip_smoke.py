@@ -157,6 +157,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 ``analysis_baseline_torch.json``; (d) the dispatch engine
                 at f64 on the card (no CA201, no finding) and the host-sync
                 census held against PERF.md section 2
+ 17. dryrun     ``repro_torch.launch.dryrun``: (a) the dry run (fake CUDA
+                tensors, FlopCounterMode, the live-storage tracker) of the
+                train phase's danube-1.8b step, 4 x 4096, one process,
+                against one real warm step on the card: flops equal to
+                FlopCounterMode's, the peak within 10% of
+                ``max_memory_allocated``, the roofline bound at H100
+                data-sheet constants beside the warm wall, the share of
+                the roofline and MFU; (a') ``loss_fn`` at 2 x 8192 through
+                kernel 4 on the card and on fake tensors, its flops by the
+                custom op's rule equal to the visible-pair closed form,
+                24 launches; (b) three CLI cells as subprocesses (a fake
+                process group of 256 / 512 ranks never shares this
+                process's real groups), started before (a): danube
+                train_4k on both meshes, OLMoE-1B-7B decode_32k, danube
+                prefill_32k with ``attention_impl="flash"``; each exits 0
+                with the reference's record keys
 
 The kernels phase also holds the flash kernel against its plain version
 at every manifest config (f32, bf16) and at the LM path's shape (B 2,
@@ -338,6 +354,20 @@ FLASH_MAIN_ROW_TOL = 3e-2
 #: phase analysis: seeds of the card fuzz; the sync census's problem
 FUZZ_SEEDS = 8
 CENSUS_P, CENSUS_BLOCK = 1024, 64
+#: phase dryrun: (a) the dry run of the train phase's danube step (one
+#: process, TRAIN_B x TRAIN_L) against one real step, its peak within
+#: DRY_PEAK_TOL of the card's; (a') the cache-free forward through kernel 4
+#: at the lm phase's shape; (b) the CLI's cells, records under DRY_DIR,
+#: each subprocess stopped after DRY_CLI_TIMEOUT seconds
+DRY_PEAK_TOL, DRY_CLI_TIMEOUT = 0.10, 600
+DRY_DIR = ROOT / "build" / "dryrun_phase"
+DRY_CELLS = (
+    ("train", ["--arch", "h2o-danube-1.8b", "--shape", "train_4k",
+               "--both-meshes"], 2),
+    ("decode", ["--arch", "olmoe-1b-7b", "--shape", "decode_32k"], 1),
+    ("flash", ["--arch", "h2o-danube-1.8b", "--shape", "prefill_32k",
+               "--override", '{"attention_impl": "flash"}'], 1),
+)
 
 
 def phase(name: str):
@@ -3531,6 +3561,249 @@ def analysis_phase(torch, kman, ops, dev, sanitize: bool) -> None:
 # phase 7: timing
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 17: the dry run
+# ---------------------------------------------------------------------------
+
+def dryrun_cli_start() -> list:
+    """Start the CLI's DRY_CELLS as subprocesses (CPU work: fake tensors
+    in a fake process group of 256 / 512 ranks, so never in this
+    process, whose groups are real), each writing its records under
+    DRY_DIR.  Returns [(tag, process, out file, want records)]."""
+    shutil.rmtree(DRY_DIR, ignore_errors=True)
+    DRY_DIR.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = []
+    for tag, argv, n in DRY_CELLS:
+        out = DRY_DIR / f"torch_dryrun_{tag}.jsonl"
+        log = open(DRY_DIR / f"{tag}.log", "w")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+               "--out", str(out)]
+        procs.append((tag, subprocess.Popen(cmd, env=env, cwd=ROOT,
+                                            stdout=log,
+                                            stderr=subprocess.STDOUT),
+                      out, n, log))
+    return procs
+
+
+def dryrun_cli_finish(procs, t0: float) -> None:
+    """Wait for the CLI's cells (killing any past DRY_CLI_TIMEOUT): each
+    exits 0 with its records, every key of the reference's record; the
+    flash cell's kernel-4 flops equal the visible-pair closed form of
+    the kernel-4 calls its step made."""
+    from repro_torch.kernels import flash_attention as fa
+    recs = {}
+    for tag, proc, out, n, log in procs:
+        try:
+            rc = proc.wait(timeout=max(1.0, DRY_CLI_TIMEOUT
+                                       - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "killed"
+        log.close()
+        text = (DRY_DIR / f"{tag}.log").read_text()
+        print(f"dryrun (b) {tag}: exit {rc}; "
+              + " | ".join(ln.strip() for ln in text.splitlines()
+                           if ln.startswith(("==", "   memory",
+                                             "   per-device",
+                                             "   roofline", "dry-run"))))
+        check(rc == 0, f"dryrun (b) {tag}: exit {rc}\n{text[-3000:]}")
+        rows = [json.loads(x) for x in out.read_text().splitlines()]
+        check(len(rows) == n, f"dryrun (b) {tag}: {len(rows)} records, "
+              f"want {n}")
+        for r in rows:
+            missing = DRY_REF_KEYS - set(r)
+            check(not missing, f"dryrun (b) {tag}: keys {missing} missing")
+        recs[tag] = rows
+    from repro_torch import configs
+    (flash,) = recs["flash"]
+    cfg = configs.get(flash["arch"])
+    length = configs.SHAPES[flash["shape"]]["seq_len"]
+    calls = flash["kernel_calls"].get("flash_attention", 0)
+    got = flash["kernel_flops"].get("flash_attention", 0)
+    b = flash["rows_per_dev"]
+    want = calls * fa.flops((b, cfg.n_heads, length, cfg.hd),
+                            (b, cfg.n_kv, length, cfg.hd), causal=True,
+                            window=cfg.window)
+    print(f"dryrun (b) flash: kernel-4 calls {calls}, flops {got} "
+          f"(visible-pair closed form {want}); the cached prefill takes "
+          f"the cached attention in both packages (transformer."
+          f"apply_decoder_block: flash only without a cache), so its "
+          f"logits are materialised: peak "
+          f"{flash['total_bytes_per_dev'] / 1e9:.1f} GB, fits "
+          f"{flash['fits_hbm']}")
+    check(got == want, f"dryrun (b) flash: kernel-4 flops {got} != {want}")
+    for r in recs["train"]:
+        print(f"dryrun (b) train {r['mesh']}: {r['flops']:.4e} flops, "
+              f"{r['hbm_bytes']:.4e} HBM bytes, {r['wire_bytes']:.4e} wire "
+              f"bytes per device; bound {r['bound_s']:.3f} s "
+              f"({r['dominant']}); peak {r['total_bytes_per_dev'] / 1e9:.2f}"
+              f" GB; traced in {r['lower_s']} s")
+
+
+#: the keys of the reference's dry-run record (``Roofline.row()``'s and
+#: those ``lower_cell`` adds)
+DRY_REF_KEYS = {
+    "arch", "shape", "mesh", "flops", "hbm_bytes", "wire_bytes",
+    "t_compute", "t_memory", "t_collective", "dominant", "bound_s",
+    "useful_frac", "mfu_at_bound", "kind", "n_devices", "lower_s",
+    "compile_s", "extrapolated", "arg_bytes_per_dev", "temp_bytes_per_dev",
+    "out_bytes_per_dev", "alias_bytes_per_dev", "total_bytes_per_dev",
+    "fits_hbm", "model_flops_per_dev"}
+
+
+def dryrun_train(torch, dev, ops, smi) -> None:
+    """(a) the dry run of TRAIN_ARCH's step at TRAIN_B x TRAIN_L (one
+    process, fake CUDA tensors) against the same step on the card: the
+    flops equal FlopCounterMode's around a real warm step, the peak
+    within DRY_PEAK_TOL of ``max_memory_allocated`` (less what earlier
+    phases still hold); the roofline bound beside the measured warm
+    wall."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.models import lm, transformer
+    from repro_torch.train import optim
+    cfg = configs.get(TRAIN_ARCH)
+    ops.reset_launches()
+    dry = dryrun.trace_step(cfg, "train", TRAIN_B, TRAIN_L, device="cuda")
+    check(not any(ops.LAUNCHES.values()),
+          f"dryrun (a): the dry run launched {ops.LAUNCHES}")
+    print(f"dryrun (a) predicted ({dry['wall_s']:.1f} s on the host): "
+          f"{dry['flops']:.6e} flops, {dry['hbm_bytes']:.4e} HBM bytes, "
+          f"peak {dry['peak_bytes'] / 2**30:.3f} GiB (state and batch "
+          f"{dry['arg_bytes'] / 2**30:.3f} GiB)")
+    # what earlier phases still hold: not this step's, so not predicted
+    held = torch.cuda.memory_allocated()
+    params = transformer.init_params(cfg, seed=0, max_len=TRAIN_L,
+                                     device=dev)
+    opt = optim.AdamW()
+    state = lm.init_train_state(params, opt)
+    step = lm.make_train_step(cfg, opt,
+                              optim.cosine_schedule(3e-4, 100, 10000))
+    gen = np.random.default_rng(0)
+    toks = [torch.from_numpy(gen.integers(0, cfg.vocab, (TRAIN_B, TRAIN_L),
+                                          dtype=np.int64)).to(
+        device=dev, dtype=torch.int32) for _ in range(2)]
+    batch = lm.Batch(toks[0], toks[1])
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    del metrics
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with FlopCounterMode(display=False) as fc:
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    flops = fc.get_total_flops()
+    del metrics
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    loss = float(metrics["loss"])
+    warm = time.perf_counter() - t0
+    check(np.isfinite(loss), f"dryrun (a): loss {loss}")
+    roof = roofline.build_roofline(
+        cfg.name, f"train {TRAIN_B}x{TRAIN_L}", "1", cfg, "train", TRAIN_L,
+        TRAIN_B, 1, {"flops": dry["flops"],
+                     "bytes accessed": dry["hbm_bytes"]}, None, None)
+    err = abs(dry["peak_bytes"] - peak) / peak
+    print(f"dryrun (a) measured on {smi}: first step {first:.3f} s, warm "
+          f"{warm:.3f} s, loss {loss:.6f}; {flops:.6e} flops "
+          f"(FlopCounterMode, a warm step); peak {peak / 2**30:.3f} GiB "
+          f"(max_memory_allocated less {held / 2**30:.3f} GiB that earlier "
+          f"phases hold; {(base - held) / 2**30:.3f} GiB of the step's own "
+          f"live before it)")
+    print(f"dryrun (a) predicted vs measured: flops equal "
+          f"{dry['flops'] == flops}; peak {dry['peak_bytes'] / 2**30:.3f} "
+          f"vs {peak / 2**30:.3f} GiB ({100 * err:.2f}% off, limit "
+          f"{100 * DRY_PEAK_TOL:.0f}%)")
+    print(f"dryrun (a) roofline at H100 data-sheet constants: compute "
+          f"{roof.t_compute:.3f} s, memory {roof.t_memory:.3f} s "
+          f"(unfused eager bytes) => bound {roof.bound:.3f} s "
+          f"({roof.dominant}); measured warm {warm:.3f} s = "
+          f"{100 * roof.bound / warm:.1f}% of the roofline; MFU "
+          f"{100 * roof.model_flops / warm / roofline.PEAK_FLOPS:.2f}% "
+          f"(model flops {roof.model_flops:.4e}), useful "
+          f"{roof.useful_fraction:.3f}")
+    check(dry["flops"] == flops, f"dryrun (a): dry-run flops "
+          f"{dry['flops']} != the real step's {flops}")
+    check(err <= DRY_PEAK_TOL, f"dryrun (a): predicted peak "
+          f"{dry['peak_bytes']} off the card's {peak} by {100 * err:.1f}%")
+    dryrun_flash(torch, dev, ops, cfg, state.params)
+
+
+def dryrun_flash(torch, dev, ops, cfg, params) -> None:
+    """(a') the cache-free forward (``lm.loss_fn``, no gradient) at the
+    lm phase's shape through kernel 4 (``attention_impl="flash"``), on
+    the card and on fake tensors: kernel 4 launched once per layer (its
+    count zeroed before, read after), its flops in FlopCounterMode by the
+    custom op's rule, equal on both and to the visible-pair closed
+    form."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun
+    from repro_torch.models import lm
+    cfgf = cfg.with_(attention_impl="flash")
+    op = torch.ops.repro_torch.flash_attention
+    gen = np.random.default_rng(1)
+    toks = torch.from_numpy(gen.integers(0, cfg.vocab, (LM_B, LM_L),
+                                         dtype=np.int64)).to(
+        device=dev, dtype=torch.int32)
+    ops.reset_launches()
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        total, _ = lm.loss_fn(cfgf, params, lm.Batch(toks, toks))
+        torch.cuda.synchronize()
+    launched = ops.LAUNCHES["flash_attention"]
+    real = fc.get_flop_counts()["Global"].get(op, 0)
+    with FakeTensorMode():
+        fake = dryrun.fake_params(cfgf, LM_L, torch.device("cuda"))
+        ft = torch.empty((LM_B, LM_L), dtype=torch.int32, device="cuda")
+        counters = dryrun.StepCounters(count_bytes=False)
+        with FlopCounterMode(display=False) as ffc, counters:
+            lm.loss_fn(cfgf, fake, lm.Batch(ft, ft))
+    dry = ffc.get_flop_counts()["Global"].get(op, 0)
+    want = cfg.n_layers * fa.flops((LM_B, cfg.n_heads, LM_L, cfg.hd),
+                                   (LM_B, cfg.n_kv, LM_L, cfg.hd),
+                                   causal=True, window=cfg.window)
+    print(f"dryrun (a') loss_fn {LM_B} x {LM_L} through kernel 4: loss "
+          f"{float(total):.6f}, {launched} launches (real), "
+          f"{counters.kernel_calls.get('flash_attention', 0)} calls "
+          f"(fake); kernel-4 flops real {real}, dry {dry}, closed form "
+          f"{want}")
+    check(launched == cfg.n_layers, f"dryrun (a'): {launched} kernel-4 "
+          f"launches, want {cfg.n_layers}")
+    check(real == dry == want, f"dryrun (a'): kernel-4 flops real {real}, "
+          f"dry {dry}, closed form {want}")
+    check(np.isfinite(float(total)), f"dryrun (a'): loss {float(total)}")
+
+
+def dryrun_phase(torch, dev, ops, smi) -> None:
+    """(b) the CLI's cells start first, on the host's cores, while (a)
+    and (a') run on the card; then (b) is waited for."""
+    t0 = time.perf_counter()
+    procs = dryrun_cli_start()
+    try:
+        dryrun_train(torch, dev, ops, smi)
+        torch.cuda.empty_cache()
+        print(f"dryrun (a)+(a'): part wall {time.perf_counter() - t0:.1f} s")
+        dryrun_cli_finish(procs, t0)
+    finally:
+        for _, proc, _, _, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    print(f"dryrun: phase wall {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(DRY_DIR, ignore_errors=True)
+
+
 def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
@@ -3719,7 +3992,7 @@ def main(argv=None) -> int:
                     help="comma list of kernels,main,batched,adaptive,obs,"
                          "gram,lm,dist,telemetry,serve,pathmode,cross,"
                          "timing,calibrate,brain,lmserve,zoo,train,trainmp,"
-                         "analysis "
+                         "analysis,dryrun "
                          "(default: "
                          "all; "
                          "device and build always run; telemetry and "
@@ -3860,6 +4133,10 @@ def main(argv=None) -> int:
     if run("analysis"):
         phase("analysis")
         analysis_phase(torch, kman, ops, dev, args.sanitize)
+    if run("dryrun"):
+        phase("dryrun")
+        dryrun_phase(torch, dev, ops, smi)
+        torch.cuda.empty_cache()
     if measured:
         rows = kernel_rows(kman, measured, errs, launches, smi)
         print(json.dumps({"kernels": rows}))

@@ -113,6 +113,19 @@ def init_process_group(device=None, *, backend: str | None = None,
     return dev
 
 
+def init_fake_process_group(world_size: int) -> None:
+    """Join a ``fake`` process group of ``world_size`` ranks as rank 0:
+    PyTorch's ``FakeProcessGroup``, whose collectives return at once and
+    move nothing, so one process can trace a rank's program of that world
+    (``launch.dryrun``).  Refuses inside a process group."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized; the "
+                           "fake one would replace it")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+
+
 def destroy_process_group() -> None:
     """Leave the process group and forget its teams."""
     _COMMS.clear()

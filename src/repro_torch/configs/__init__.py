@@ -2,9 +2,10 @@
 
 Port of ``repro.configs``: the ten config modules are data and are
 copied as they are.  ``get(name)`` returns the full-size ``ModelConfig``;
-``get_smoke(name)`` a reduced same-family config for CPU tests.  The
-reference's ``input_specs`` (shape stand-ins for its dry run) waits for
-the port's launch tools.
+``get_smoke(name)`` a reduced same-family config for CPU tests.
+``cells`` lists the dry run's (arch x shape) cells and ``input_specs``
+builds each cell's inputs as meta tensors of the reference's shapes and
+dtypes (no allocation), for ``launch.dryrun``.
 """
 from __future__ import annotations
 
@@ -56,3 +57,69 @@ def get(name: str):
 def get_smoke(name: str):
     mod = importlib.import_module(f".{canon(name)}", __package__)
     return mod.SMOKE
+
+
+def long_context_ok(cfg) -> bool:
+    """True iff the arch has a sub-quadratic decode memory/compute path:
+    SSM state, hybrid, or uniform sliding-window attention."""
+    return cfg.family in ("ssm", "hybrid") or bool(cfg.window)
+
+
+def cells(include_long_skips: bool = False):
+    """Yield every (arch, shape) cell per the assignment."""
+    for a in ARCHS:
+        cfg = get(a)
+        for s in SHAPES:
+            if s == "long_500k" and not long_context_ok(cfg) \
+                    and not include_long_skips:
+                continue
+            yield a, s
+
+
+def input_specs(cfg, shape_name: str, *, device=None):
+    """One dry-run cell's inputs, shaped and typed as the reference's
+    ``ShapeDtypeStruct`` stand-ins, on ``device`` (default ``"meta"``: no
+    allocation):
+
+      train   -> {"batch": lm.Batch}                  for the train step
+      prefill -> {"tokens", "frames", "cache"}        for ``make_prefill``
+      decode  -> {"token", "step", "cache"}           for the decode step
+
+    ``frames`` is None but for an enc-dec model; the cache is
+    ``transformer.init_cache``'s tree."""
+    sh = SHAPES[shape_name]
+    return step_inputs(cfg, sh["kind"], sh["global_batch"], sh["seq_len"],
+                       device=device)
+
+
+def step_inputs(cfg, kind: str, batch_size: int, seq_len: int, *,
+                device=None):
+    """:func:`input_specs` of a step of ``kind`` ("train", "prefill" or
+    "decode") at any global batch and sequence length."""
+    import torch
+
+    from ..models import lm, transformer as T
+
+    dev = torch.device("meta" if device is None else device)
+    B, Lseq = batch_size, seq_len
+    i32 = torch.int32
+    dt = getattr(torch, cfg.dtype)
+
+    def tok(*shape):
+        return torch.empty(shape, dtype=i32, device=dev)
+
+    def frames():
+        return (torch.empty((B, cfg.enc_len, cfg.d_model), dtype=dt,
+                            device=dev) if cfg.enc_dec else None)
+
+    if kind == "train":
+        return {"kind": "train",
+                "batch": lm.Batch(tokens=tok(B, Lseq), targets=tok(B, Lseq),
+                                  frames=frames())}
+    cache = T.init_cache(cfg, B, Lseq, device=dev)
+    if kind == "prefill":
+        return {"kind": "prefill", "tokens": tok(B, Lseq),
+                "frames": frames(), "cache": cache,
+                "batch_size": B, "seq_len": Lseq}
+    return {"kind": "decode", "token": tok(B), "step": tok(),
+            "cache": cache, "batch_size": B, "seq_len": Lseq}

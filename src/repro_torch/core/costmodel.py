@@ -12,7 +12,9 @@ the exact communication volume of the 1.5D products (``comm_volume``).
 
 with machine constants gamma (s/flop), alpha (s/message), beta (s/word).
 The port's default machine is :data:`H100`, whose constants are NVIDIA's
-data-sheet figures for one H100 SXM card, not measurements.  The
+data-sheet figures for one H100 SXM card, not measurements;
+:data:`EDISON` is the paper's machine with the reference's constants,
+for pricing the paper's own figures.  The
 reference's TPU constants play no part in the port's decisions.  The
 path-scheduling constants (trials per iteration, the iteration power law,
 the gemm step-cost and pilot factors) are the reference's, copied
@@ -59,6 +61,18 @@ class Machine:
 
 #: one H100 SXM card, data-sheet constants (not measured)
 H100 = Machine()
+
+#: the paper's machine, NERSC Edison (Cray XC30), per node, as the
+#: reference prices it: the paper's constants, not a card measurement
+EDISON = Machine(
+    name="edison_xc30",
+    peak_flops=460.8e9,     # 2x12 cores x 2.4GHz x 8 flops (per node)
+    hbm_bw=100e9,
+    link_bw=8e9,            # Aries per-direction
+    msg_overhead=2e-6,
+    hbm_bytes=64e9,
+    word_bytes=8,           # paper ran double precision
+)
 
 
 @dataclass(frozen=True)

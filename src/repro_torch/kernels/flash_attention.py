@@ -15,7 +15,8 @@ not 16-byte aligned, or whose strides are not multiples of 8, is copied
 to a fresh contiguous tensor first.  This wrapper launches the kernel on
 CUDA tensors only;
 ``kernels.ops`` routes CPU tensors to the plain version in
-``kernels.ref``.
+``kernels.ref`` and CUDA tensors through the opaque custom op
+``repro_torch::flash_attention``, whose flop rule is :func:`flops`.
 """
 from __future__ import annotations
 
@@ -72,6 +73,29 @@ def validate(q, k, v, window) -> None:
         raise ValueError(f"need 1 <= Lq <= Lkv, got Lq {Lq}, Lkv {Lkv}")
     if window is not None and int(window) < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
+
+
+def visible_pairs(lq: int, lkv: int, *, causal: bool = True,
+                  window: int | None = None) -> int:
+    """(query, key) pairs per head that the masks leave visible: query i
+    sits at position i + lkv - lq (the last query sees the last key) and
+    sees the keys at or before it under ``causal``, within ``window``
+    positions of it under a window."""
+    total = 0
+    for qpos in range(lkv - lq, lkv):
+        hi = qpos if causal else lkv - 1
+        lo = max(0, qpos - int(window) + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def flops(q_shape, k_shape, *, causal: bool = True,
+          window: int | None = None) -> int:
+    """The kernel's flops on (B, Hq, Lq, D) queries against (B, Hkv, Lkv,
+    D) keys: 4 D Hq B per visible pair (2 D for QK^T, 2 D for PV)."""
+    B, Hq, Lq, D = q_shape
+    return 4 * D * Hq * B * visible_pairs(Lq, k_shape[2], causal=causal,
+                                          window=window)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -17,7 +17,10 @@ operand (the reference's ``_kernel_weighted`` bodies).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import blocksparse_matmul as _bsmm
 from . import flash_attention as _fa
@@ -108,15 +111,48 @@ def masked_matmul(a, b, mask, *, block_size: int, capacity: int):
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     softcap=None, scale=None):
     """GQA attention with causal / sliding-window masks and softcap, by
-    online softmax; see ``kernels.ref.flash_attention``."""
+    online softmax; see ``kernels.ref.flash_attention``.  On the card it
+    is the opaque op ``repro_torch::flash_attention``."""
+    _fa.validate(q, k, v, window)
     if not _on_card(q):
-        _fa.validate(q, k, v, window)
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    softcap=softcap, scale=scale)
+    return _flash_attention_op(
+        q, k, v, bool(causal), None if window is None else int(window),
+        None if softcap is None else float(softcap),
+        None if scale is None else float(scale))
+
+
+# The kernel's launch as an opaque custom op, so that tracing tools see
+# one op with a shape rule and a flop count instead of a ctypes call on
+# data pointers: under FakeTensorMode (``launch.dryrun``) the fake rule
+# runs and nothing is built or launched, and FlopCounterMode counts the
+# kernel's visible (query, key) pairs around a real launch as well.
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool, window: Optional[int],
+                        softcap: Optional[float],
+                        scale: Optional[float]) -> torch.Tensor:
     out = _fa.flash_attention(q, k, v, causal=causal, window=window,
                               softcap=softcap, scale=scale)
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, causal, window, softcap, scale):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_attention_flops(q_shape, k_shape, v_shape, causal, window,
+                           softcap, scale, *args, out_shape=None,
+                           **kwargs) -> int:
+    """4 D Hq B flops per visible (query, key) pair (QK^T and PV), the
+    pairs of the causal mask and window: the kernel's work, not L^2."""
+    return _fa.flops(q_shape, k_shape, causal=causal, window=window)
 
 
 # ---------------------------------------------------------------------------

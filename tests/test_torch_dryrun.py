@@ -1,0 +1,540 @@
+"""The port's dry run (``repro_torch.launch.dryrun`` / ``roofline``,
+``configs.cells`` / ``input_specs``) against the reference, on the CPU,
+on fake tensors (nothing of the reference's shapes is allocated).
+
+The reference's ``repro.launch.dryrun`` sets ``XLA_FLAGS`` when imported,
+so it is never imported here; its record's keys are listed below from
+its source."""
+import json
+import math
+import time
+from fractions import Fraction
+
+import numpy as np
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.utils.flop_counter import FlopCounterMode
+
+import repro.configs as RC
+import repro.launch.roofline as RR
+from repro_torch import configs as C
+from repro_torch.core.costmodel import collective_wire_bytes
+from repro_torch.kernels import build, ops
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.launch import dryrun as D
+from repro_torch.launch import roofline as R
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import lm, transformer as T
+from repro_torch.train.optim import AdamW, cosine_schedule
+
+CELLS = list(RC.cells())
+
+#: the keys ``repro.launch.dryrun.lower_cell`` adds to ``Roofline.row()``
+REF_RECORD_KEYS = {
+    "kind", "n_devices", "lower_s", "compile_s", "extrapolated",
+    "arg_bytes_per_dev", "temp_bytes_per_dev", "out_bytes_per_dev",
+    "alias_bytes_per_dev", "total_bytes_per_dev", "fits_hbm",
+    "model_flops_per_dev"}
+
+#: the port's collective primitives and the reference's HLO kinds
+PRIM_KIND = [("all_gather", "all-gather"),
+             ("reduce_scatter", "reduce-scatter"),
+             ("psum", "all-reduce"), ("all_to_all", "all-to-all"),
+             ("ppermute", "collective-permute")]
+
+POD = ((16, 16), ("data", "model"))
+MULTIPOD = ((2, 16, 16), ("pod", "data", "model"))
+
+
+# ---------------------------------------------------------------------------
+# configs: cells, long_context_ok, input_specs
+# ---------------------------------------------------------------------------
+
+def test_cells_equal_the_reference():
+    assert list(C.cells()) == CELLS
+    assert len(CELLS) == 34
+    assert list(C.cells(include_long_skips=True)) == list(
+        RC.cells(include_long_skips=True))
+
+
+@pytest.mark.parametrize("arch", C.ARCHS)
+def test_long_context_ok_agrees(arch):
+    assert C.long_context_ok(C.get(arch)) == RC.long_context_ok(RC.get(arch))
+
+
+def _leaves(tree, prefix=()):
+    """{path: (shape, dtype name)} of a tree of shaped leaves."""
+    if tree is None:
+        return {prefix: None}
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_leaves(tree[k], prefix + (k,)))
+        return out
+    if hasattr(tree, "_fields"):
+        out = {}
+        for k in tree._fields:
+            out.update(_leaves(getattr(tree, k), prefix + (k,)))
+        return out
+    if isinstance(tree, (int, str)):
+        return {prefix: tree}
+    return {prefix: (tuple(tree.shape), str(tree.dtype).replace("torch.", ""))}
+
+
+@pytest.mark.parametrize("arch,shape", CELLS, ids=lambda c: str(c))
+def test_input_specs_equal_the_reference(arch, shape):
+    """Every leaf, cache leaves included, in shape and dtype; the
+    reference's keys kind, batch_size and seq_len."""
+    mine = C.input_specs(C.get(arch), shape)
+    theirs = RC.input_specs(RC.get(arch), shape)
+    assert set(mine) == set(theirs)
+    assert _leaves(mine) == _leaves(theirs)
+    for t in _leaves({k: v for k, v in mine.items()
+                      if k not in ("kind", "batch_size", "seq_len")}).values():
+        assert t is None or isinstance(t, tuple)
+    leaf = mine["batch"].tokens if mine["kind"] == "train" else (
+        mine["tokens"] if mine["kind"] == "prefill" else mine["token"])
+    assert leaf.device.type == "meta"
+
+
+# ---------------------------------------------------------------------------
+# roofline
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_dev", [256, 512])
+@pytest.mark.parametrize("arch,shape", CELLS, ids=lambda c: str(c))
+def test_model_flops_per_step_equal_the_reference(arch, shape, n_dev):
+    sh = C.SHAPES[shape]
+    args = (sh["kind"], sh["seq_len"], sh["global_batch"], n_dev)
+    assert R.model_flops_per_step(C.get(arch), *args) == \
+        RR.model_flops_per_step(RC.get(arch), *args)
+
+
+def _payload(prim: str, rbytes: int, n: int) -> int:
+    """The bytes a port collective is handed for an HLO result of
+    ``rbytes``: an all-gather's input is result / n, a reduce-scatter's
+    operand n x result."""
+    if prim == "all_gather":
+        return rbytes // n
+    if prim == "reduce_scatter":
+        return rbytes * n
+    return rbytes
+
+
+@pytest.mark.parametrize("prim,kind", PRIM_KIND)
+def test_collective_stats_equal_the_reference_and_the_cost_model(prim,
+                                                                 kind):
+    """Wire bytes per kind over group sizes 1-16: the reference's
+    ``CollectiveStats.add``, the port's, and
+    ``costmodel.collective_wire_bytes`` on the same collective (to the
+    last bit of the float product); the watcher's announcement filed
+    back under the same kind and result."""
+    for n in range(1, 17):
+        for rbytes in (n * 4, n * 1000, n * 4096 * 80):
+            theirs, mine = RR.CollectiveStats(), R.CollectiveStats()
+            theirs.add(kind, rbytes, n)
+            mine.add(kind, rbytes, n)
+            assert mine.wire_bytes == theirs.wire_bytes
+            wire = collective_wire_bytes(prim, _payload(prim, rbytes, n), n)
+            if n > 1 or prim != "ppermute":
+                # a one-member permute moves nothing in the cost model;
+                # the reference charges its operand (no HLO has one)
+                assert math.isclose(mine.wire_bytes, float(wire),
+                                    rel_tol=1e-15, abs_tol=0.0), (n, rbytes)
+            watched = R.CollectiveStats()
+            watched.add_watched(prim, wire, n)
+            if n == 1:
+                assert watched.counts == {} and watched.wire_bytes == 0
+            else:
+                assert watched.counts == theirs.counts
+                assert watched.result_bytes == theirs.result_bytes
+                assert watched.wire_bytes == theirs.wire_bytes
+
+
+def _hlo(kind: str, dims: tuple, n: int) -> str:
+    """One optimized-HLO collective line the reference's parser reads."""
+    ty = "f32[%s]{0}" % ",".join(map(str, dims))
+    groups = ",".join(map(str, range(n)))
+    return (f"  %x.1 = {ty} {kind}(f32[4]{{0}} %p), "
+            f"replica_groups={{{{{groups}}}}}")
+
+
+@pytest.mark.parametrize("case", [
+    dict(flops=3.0e15, bytes=1.0e12, colls=[]),
+    dict(flops=1.0e13, bytes=4.0e12, colls=[("all-gather", (256, 1024), 16)]),
+    dict(flops=2.0e13, bytes=1.0e10,
+         colls=[("all-reduce", (4096, 4096), 16),
+                ("reduce-scatter", (64, 4096), 16),
+                ("all-to-all", (8, 1024), 4),
+                ("collective-permute", (1 << 20,), 2)]),
+    dict(flops=0.0, bytes=0.0, colls=[]),
+], ids=["compute", "memory", "collective", "empty"])
+def test_roofline_rows_equal_the_reference_at_equal_constants(monkeypatch,
+                                                              case):
+    for name in ("PEAK_FLOPS", "HBM_BW", "LINK_BW"):
+        monkeypatch.setattr(R, name, getattr(RR, name))
+    hlo = "\n".join(_hlo(*c) for c in case["colls"])
+    stats = R.CollectiveStats()
+    for kind, dims, n in case["colls"]:
+        stats.add(kind, 4 * math.prod(dims), n)
+    cost = {"flops": case["flops"], "bytes accessed": case["bytes"]}
+    args = ("h2o-danube-1.8b", "train_4k", "16x16")
+    cfg_args = ("train", 4096, 256, 256)
+    theirs = RR.build_roofline(*args, RC.get("h2o_danube_1p8b"), *cfg_args,
+                               cost, None, hlo)
+    mine = R.build_roofline(*args, C.get("h2o_danube_1p8b"), *cfg_args,
+                            cost, None, stats)
+    assert mine.row() == theirs.row()
+    assert (mine.dominant, mine.bound, mine.useful_fraction,
+            mine.mfu_at_bound) == (theirs.dominant, theirs.bound,
+                                   theirs.useful_fraction,
+                                   theirs.mfu_at_bound)
+
+
+def test_roofline_constants_are_the_h100_data_sheet():
+    assert (R.PEAK_FLOPS, R.HBM_BW, R.LINK_BW) == (989e12, 3.35e12, 450e9)
+    assert D.HBM_BYTES == 80e9
+
+
+# ---------------------------------------------------------------------------
+# kernel 4 as an opaque custom op
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [
+    # (B, Hq, Hkv, Lq, Lkv, D, causal, window)
+    (2, 8, 2, 64, 64, 16, True, None),
+    (1, 32, 8, 512, 512, 80, True, 128),
+    (3, 4, 4, 1, 96, 128, True, 32),
+    (2, 4, 1, 48, 48, 16, False, None),
+])
+def test_flash_custom_op_on_fake_cuda_tensors(monkeypatch, shape):
+    """On fake CUDA tensors (no card needed) the op returns q's
+    shape and dtype on q's device, counts 4 D Hq B flops per visible
+    pair, and builds and launches nothing."""
+    B, Hq, Hkv, Lq, Lkv, D_, causal, window = shape
+
+    def no_build(name):
+        raise AssertionError(f"built {name}")
+
+    monkeypatch.setattr(build, "load", no_build)
+    before = dict(ops.LAUNCHES)
+    with FakeTensorMode():
+        q = torch.empty((B, Hq, Lq, D_), dtype=torch.bfloat16, device="cuda")
+        k = torch.empty((B, Hkv, Lkv, D_), dtype=torch.bfloat16,
+                        device="cuda")
+        counters = D.StepCounters()
+        with FlopCounterMode(display=False) as fc, counters:
+            out = ops.flash_attention(q, k, k, causal=causal, window=window)
+        assert counters.kernel_calls == {"flash_attention": 1}
+        assert out.shape == q.shape and out.dtype == q.dtype
+        assert out.device.type == "cuda"
+    qpos = np.arange(Lq) + Lkv - Lq
+    hi = qpos if causal else np.full(Lq, Lkv - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(Lq)
+    pairs = int(np.maximum(hi - lo + 1, 0).sum())
+    assert fa.visible_pairs(Lq, Lkv, causal=causal, window=window) == pairs
+    assert fc.get_total_flops() == 4 * D_ * Hq * B * pairs
+    assert dict(ops.LAUNCHES) == before
+
+
+def test_flash_plain_route_on_the_cpu_is_unchanged():
+    """CPU tensors still take the plain version, outside the op."""
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((1, 4, 16, 16), generator=g)
+    k = torch.randn((1, 2, 16, 16), generator=g)
+    got = ops.flash_attention(q, k, k, causal=True, window=8)
+    from repro_torch.kernels import ref
+    assert torch.equal(got, ref.flash_attention(q, k, k, causal=True,
+                                                window=8))
+
+
+# ---------------------------------------------------------------------------
+# lower_cell on smoke configs, fake production meshes
+# ---------------------------------------------------------------------------
+
+def _ref_keys(rec) -> set:
+    row = RR.Roofline("a", "s", "m", 1.0, 1.0, 0.0, 1.0, 1.0, 0.0, 1.0,
+                      coll_counts={k[2:]: 0 for k in rec if k.startswith(
+                          "n_") and k != "n_devices"}).row()
+    return set(row) | REF_RECORD_KEYS
+
+
+#: smoke cells at the reference's shapes: a dense sliding-window model,
+#: the MoE, Whisper and the hybrid's decode (its train and 32k prefill
+#: steps, 15-35 s of fake dispatch through the SSD's chunk loops, are
+#: left to the smaller shapes below)
+SMOKE_CELLS = [(a, s) for a in ("h2o_danube_1p8b", "olmoe_1b_7b",
+                                "whisper_small")
+               for s in ("train_4k", "prefill_32k", "decode_32k")] + [
+                   ("zamba2_7b", "decode_32k")]
+
+
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["16x16",
+                                                          "2x16x16"])
+@pytest.mark.parametrize("arch,shape", SMOKE_CELLS, ids=lambda c: str(c))
+def test_lower_cell_on_smoke_configs(arch, shape, multi_pod):
+    """The reference's record keys on the production meshes, at the
+    reference's shapes, fake tensors throughout."""
+    cfg = C.get_smoke(arch)
+    rec, cnt = D.lower_cell(arch, shape, multi_pod=multi_pod, cfg=cfg,
+                            verbose=False, device="cpu")
+    assert _ref_keys(rec) <= set(rec)
+    assert rec["mesh"] == ("2x16x16" if multi_pod else "16x16")
+    assert rec["n_devices"] == (512 if multi_pod else 256)
+    assert rec["extrapolated"] is False and rec["compile_s"] == 0.0
+    assert rec["flops"] > 0 and rec["hbm_bytes"] > 0
+    assert rec["total_bytes_per_dev"] == (
+        rec["arg_bytes_per_dev"] + rec["temp_bytes_per_dev"]
+        + rec["out_bytes_per_dev"] - rec["alias_bytes_per_dev"])
+    assert rec["temp_bytes_per_dev"] >= 0
+    assert rec["fits_hbm"] is True
+    json.dumps(rec)
+    if C.SHAPES[shape]["kind"] == "train":
+        assert rec["wire_bytes"] > 0 and rec.get("n_all-gather", 0) > 0
+        assert rec["alias_bytes_per_dev"] > 0
+    else:
+        assert rec["wire_bytes"] == 0
+
+
+def _real_inputs(cfg, kind: str, rows: int, length: int, seed: int):
+    """Seeded real CPU inputs of one rank's rows."""
+    rng = np.random.default_rng(seed)
+
+    def tok(*shape):
+        return torch.from_numpy(rng.integers(0, cfg.vocab, shape,
+                                             dtype=np.int64)).to(torch.int32)
+
+    frames = (torch.from_numpy(rng.standard_normal(
+        (rows, cfg.enc_len, cfg.d_model)).astype(np.float32)).to(
+            getattr(torch, cfg.dtype)) if cfg.enc_dec else None)
+    if kind == "train":
+        return lm.Batch(tok(rows, length), tok(rows, length), frames)
+    return tok(rows, length) if kind == "prefill" else tok(rows), frames
+
+
+def _real_step(cfg, kind: str, rows: int, length: int):
+    """(run, entry tensors) of the same step, real, on the CPU at a (1, 1)
+    mesh (one process, no group) on ``rows`` rows."""
+    params = T.init_params(cfg, seed=0, max_len=length, device="cpu")
+    if kind == "train":
+        mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+        specs = lm.param_shardings(cfg, mesh, length)
+        lm.shard_params_(params, specs, mesh)
+        opt = AdamW()
+        state = lm.init_train_state(params, opt)
+        step = lm.make_train_step(cfg, opt, cosine_schedule(3e-4, 100, 10000),
+                                  mesh=mesh, specs=specs)
+        batch = _real_inputs(cfg, kind, rows, length, 1)
+        entry = D._tensors(state) + D._tensors(batch)
+        return (lambda: step(state, batch)), entry
+    cache = T.init_cache(cfg, rows, length, device="cpu")
+    toks, frames = _real_inputs(cfg, kind, rows, length, 2)
+    if kind == "prefill":
+        fn = lm.make_prefill(cfg, length)
+        args = [params, cache, toks] + ([frames] if frames is not None
+                                        else [])
+        return (lambda: fn(*args)), D._tensors(args)
+    if cfg.enc_dec:
+        cache["enc_out"].normal_()
+    fn = lm.make_decode_step(cfg)
+    step = torch.tensor(length // 2, dtype=torch.int32)
+    return (lambda: fn(params, cache, toks, step)), \
+        D._tensors([params, cache, toks, step])
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("arch", ["h2o_danube_1p8b", "gemma2_27b",
+                                  "mamba2_130m", "zamba2_7b",
+                                  "whisper_small"])
+def test_counted_flops_and_peak_equal_a_real_step(arch, kind):
+    """Rank 0 of the fake 16 x 16 mesh counts the flops FlopCounterMode
+    counts around the same step run for real on the CPU at a (1, 1) mesh
+    on rank 0's rows; at a fake (1, 1) mesh the peak of live storages is
+    the real step's, storage for storage (on 16 x 16 the train state is
+    sharded, so its peak is another step's)."""
+    cfg = C.get_smoke(arch)
+    batch, length = 32, 64
+    cnt = D.trace_step(cfg, kind, batch, length, mesh_shape=POD[0],
+                       mesh_axes=POD[1], device="cpu")
+    rows = cnt["rows_per_dev"]
+    assert rows == batch // 16
+    one = D.trace_step(cfg, kind, rows, length, mesh_shape=(1, 1),
+                       mesh_axes=POD[1], device="cpu")
+    run, entry = _real_step(cfg, kind, rows, length)
+    tracker = D.StepCounters(count_bytes=False)
+    tracker.track(entry)
+    with FlopCounterMode(display=False) as fc, tracker:
+        out = run()
+    assert cnt["flops"] == one["flops"] == fc.get_total_flops() > 0
+    assert one["peak_bytes"] == tracker.peak
+    if kind != "train":
+        assert cnt["peak_bytes"] == tracker.peak
+    assert all(torch.isfinite(t.float()).all() for t in D._tensors(out)
+               if t.is_floating_point())
+
+
+@pytest.mark.parametrize("arch,n_units", [("h2o_danube_1p8b", 3),
+                                          ("gemma2_27b", 3),
+                                          ("zamba2_7b", 3)])
+def test_full_depth_equals_the_unit_extrapolation(arch, n_units):
+    """metric(n) = m(u) + (n_units - 1) (m(2u) - m(u)), exactly, for the
+    flops, the bytes and the wire bytes of a train step: eager mode
+    counts every layer."""
+    base = C.get_smoke(arch)
+    u = D._unit(base)
+    got = {}
+    for n in (u, 2 * u, n_units * u):
+        cnt = D.trace_step(base.with_(n_layers=n), "train", 32, 64,
+                           mesh_shape=POD[0], mesh_axes=POD[1],
+                           device="cpu")
+        got[n] = (cnt["flops"], cnt["hbm_bytes"], cnt["wire_bytes"])
+    for i in range(3):
+        m1, m2 = got[u][i], got[2 * u][i]
+        assert got[n_units * u][i] == m1 + (n_units - 1) * (m2 - m1), i
+    assert got[2 * u][0] > got[u][0]
+
+
+class _MeshStub:
+    """What ``logical_to_spec`` reads of a mesh."""
+
+    def __init__(self, shape, axes):
+        self.shape = dict(zip(axes, shape))
+        self.axis_names = tuple(axes)
+
+
+def _leaf_list(tree) -> list:
+    """Leaves in ``optim.tree_leaves``' order (spec tuples are leaves)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaf_list(tree[k])]
+    if isinstance(tree, list):
+        return [x for t in tree for x in _leaf_list(t)]
+    return [tree]
+
+
+def _whole_shapes(cfg, max_len: int) -> list:
+    """The parameters' whole shapes, beside ``param_shardings``' leaves."""
+    schema = T.model_schema(cfg, max_len)
+    stacked = T.stacked_groups(cfg)
+    tree = {}
+    for name, entries in schema.items():
+        lead = 1 if name in stacked else 0
+        per = {k: tuple(shape[lead:]) for k, (shape, _, _) in entries.items()}
+        tree[name] = ([per] * stacked[name] if lead else per)
+    return _leaf_list(tree)
+
+
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+@pytest.mark.parametrize("mesh", [POD, MULTIPOD], ids=["16x16", "2x16x16"])
+def test_watched_wire_bytes_equal_the_closed_form(mesh, backend):
+    """A train step's wire bytes from the watcher equal, exactly, the
+    closed form from ``param_shardings``: per leaf one all-gather per
+    sharded dimension of the block gathered so far, then the batch
+    team's mean of its float32 gradient (a reduce-scatter on NCCL's
+    route where the leaf's spec splits one dimension over exactly the
+    team, an all-reduce of the same block on gloo's, else an all-reduce
+    of the whole gradient); the loss pair's all-reduce over the team and
+    the global norm's over the world."""
+    from repro_torch.models.config import spec_axes
+    cfg = C.get_smoke("h2o_danube_1p8b")
+    shape, axes = mesh
+    sizes = dict(zip(axes, shape))
+    cnt = D.trace_step(cfg, "train", 64, 64, mesh_shape=shape,
+                       mesh_axes=axes, device="cpu", backend=backend)
+    specs = _leaf_list(lm.param_shardings(cfg, _MeshStub(shape, axes), 64))
+    wholes = _whole_shapes(cfg, 64)
+    assert len(specs) == len(wholes)
+
+    def ext(entry) -> int:
+        return math.prod(sizes[a] for a in spec_axes(entry))
+
+    team = tuple(a for a in axes if a in ("pod", "data"))
+    n_team = math.prod(sizes[a] for a in team)
+    world = math.prod(shape)
+    reduce = Fraction(2 * (n_team - 1), n_team)
+    scatter = Fraction(n_team - 1, n_team) if backend == "nccl" else reduce
+    want, scattered = Fraction(0), False
+    for spec, whole in zip(specs, wholes):
+        block = [d // ext(e) for d, e in zip(whole, spec)]
+        for dim, e in enumerate(spec):
+            if ext(e) > 1:
+                want += (ext(e) - 1) * 4 * math.prod(block)
+                block[dim] *= ext(e)
+        dim = next((i for i, e in enumerate(spec) if spec_axes(e) == team),
+                   None)
+        if dim is None:
+            want += reduce * 4 * math.prod(whole)
+        else:
+            rest = [d if i == dim else d // ext(e)
+                    for i, (d, e) in enumerate(zip(whole, spec))]
+            want += scatter * 4 * math.prod(rest)
+            scattered = True
+    want += reduce * 8                                   # loss, aux
+    want += Fraction(2 * (world - 1), world) * 4         # global norm
+    assert cnt["wire_exact"] == want
+    assert math.isclose(cnt["wire_bytes"], float(want), rel_tol=1e-12)
+    assert ("reduce-scatter" in cnt["colls"].counts) == (
+        scattered and backend == "nccl")
+
+
+# ---------------------------------------------------------------------------
+# full size, the CLI, the table
+# ---------------------------------------------------------------------------
+
+#: the full-size decode cell's wall limit on the CPU (it takes ~5 s)
+FULL_CELL_LIMIT_S = 120.0
+
+
+def test_full_size_danube_decode_cell_and_the_cli(tmp_path, capsys):
+    """h2o-danube-1.8b decode_32k at full size on the 16 x 16 mesh,
+    through the CLI, within FULL_CELL_LIMIT_S; its record renders in the
+    roofline table."""
+    out = tmp_path / "build" / "torch_dryrun.jsonl"
+    t0 = time.time()
+    D.main(["--arch", "h2o-danube-1.8b", "--shape", "decode_32k",
+            "--device", "cpu", "--out", str(out)])
+    wall = time.time() - t0
+    assert wall < FULL_CELL_LIMIT_S
+    (rec,) = [json.loads(x) for x in out.read_text().splitlines()]
+    assert _ref_keys(rec) <= set(rec)
+    assert rec["rows_per_dev"] == 128 // 16
+    cfg = C.get("h2o_danube_1p8b")
+    weights = 4 * cfg.param_count()
+    assert rec["arg_bytes_per_dev"] > weights
+    assert rec["alias_bytes_per_dev"] > 0 and rec["fits_hbm"] is True
+    assert rec["dominant"] == "memory"
+    # every weight is read at least once per decode step
+    assert rec["hbm_bytes"] >= weights
+    assert rec["flops"] >= 2 * (cfg.param_count() - cfg.vocab
+                                * cfg.d_model) * rec["rows_per_dev"]
+    capsys.readouterr()
+    assert R.main(["--table", str(out)]) == 0
+    table = capsys.readouterr()
+    assert "| h2o_danube_1p8b | decode_32k | 16x16 |" in table.out
+    assert "1 cells shown, 1 fit 80 GB HBM" in table.err
+    assert R.main(["--table", str(out), "--by-arch"]) == 0
+    table = capsys.readouterr()
+    lines = table.out.splitlines()
+    assert lines[0] == "| arch | decode_32k 16x16 |"
+    assert lines[2] == (f"| h2o_danube_1p8b | {rec['bound_s']:.3g}m "
+                        f"{rec['total_bytes_per_dev'] / 1e9:.1f} |")
+    assert lines[3] == "| qwen2p5_3b | - |" and len(lines) == 12
+    assert "1 records, 1 fit 80 GB HBM" in table.err
+
+
+def test_cli_refuses_the_reference_results_glob(tmp_path):
+    with pytest.raises(SystemExit):
+        D.main(["--arch", "h2o-danube-1.8b", "--shape", "decode_32k",
+                "--out", str(tmp_path / "results" / "dryrun_x.jsonl")])
+
+
+def test_refuses_to_start_inside_a_process_group(tmp_path):
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            world_size=1, rank=0)
+    try:
+        with pytest.raises(RuntimeError, match="already initialized"):
+            D.trace_step(C.get_smoke("h2o_danube_1p8b"), "decode", 16, 32,
+                         mesh_shape=POD[0], mesh_axes=POD[1], device="cpu")
+    finally:
+        dist.destroy_process_group()

@@ -258,6 +258,32 @@ def test_flash_kernel_matches_plain_on_card(cuda, cfg, dt):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("cfg", FLASH["configs"], ids=lambda c: c["label"])
+def test_flash_custom_op_counts_visible_pairs_on_card(cuda, cfg):
+    """Around a real launch, FlopCounterMode sees the one custom op
+    ``repro_torch::flash_attention`` and counts its visible pairs, and
+    its fake rule gives the launch's shape and dtype."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    q, k, v, kw = tman.flash_problem(cfg, np.random.default_rng(0))
+    args = [torch.as_tensor(a, dtype=torch.bfloat16, device=cuda)
+            for a in (q, k, v)]
+    tops.reset_launches()
+    with FlopCounterMode(display=False) as fc:
+        got = tops.flash_attention(*args, **kw)
+        torch.cuda.synchronize()
+    assert tops.LAUNCHES["flash_attention"] == 1
+    want = tfa.flops(args[0].shape, args[1].shape, causal=kw["causal"],
+                     window=kw["window"])
+    assert fc.get_total_flops() == want > 0
+    with FakeTensorMode() as mode:
+        fake = tops.flash_attention(*(mode.from_tensor(a) for a in args),
+                                    **kw)
+    assert fake.shape == got.shape and fake.dtype == got.dtype
+    assert tops.LAUNCHES["flash_attention"] == 1
+
+
+@pytest.mark.gpu
 def test_flash_kernel_refusals_on_card(cuda, monkeypatch):
     q = torch.zeros((1, 2, 8, 16), device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
