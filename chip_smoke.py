@@ -130,18 +130,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 the reference routes none of them through flash)
  15. trainmp    multi-rank training (``train(mesh=)``): (a) danube-1.8b at
                 full width and depth on the (1, 1) mesh of a one-rank NCCL
-                group, 3 steps of 4 x 4096, against one process (the train
+                group, 2 steps of 4 x 4096, against one process (the train
                 phase's run), and ``torchrun --nproc-per-node 1 -m
                 repro_torch.launch.train --mesh host`` on a smoke config
                 against ``--mesh none``; (b) P_DIST gloo ranks sharing the
-                card, danube at 4 layers on mesh (2, 2), 3 steps of 4 x
-                4096, against one process; (c) OLMoE-1B-7B at 1 layer on
-                mesh (4, 1) (the per-shard MoE dispatch), 2 steps of 8 x
-                2048, its step-1 loss against one process dispatching the
-                same token blocks in turn; (d) the int8 ring and the bf16
-                psum of 16M float32 per rank, their error and wire bytes.
-                Step walls, state bytes per rank, gloo host copies and
-                wire bytes per step, peaks, MoE drops; no kernel launches
+                card, danube at 4 layers on mesh (2, 2), split over a
+                model team of 2 (the "split" route), 2 steps of 4 x 4096,
+                against one process; (c) OLMoE-1B-7B at 1 layer on mesh
+                (4, 1) (the per-shard MoE dispatch), 1 step of 8 x 2048,
+                its step-1 loss against one process dispatching the same
+                token blocks in turn; (d) the int8 ring and the bf16 psum
+                of 16M float32 per rank, their error and wire bytes; (e)
+                OLMoE-1B-7B at 1 layer on mesh (1, 4), 16 of its 64
+                experts on each rank, 2 steps of 8 x 2048 against one
+                process; (f) Mamba2-130M at full width and depth on mesh
+                (2, 2), the "gather" route (the whole model gathered
+                once per step, as the ssm, hybrid and audio families
+                train on a mesh), 2 steps of 8 x 2048 against one
+                process.  Step walls, state bytes per rank, gloo host
+                copies and wire bytes per step, peaks, MoE drops; no
+                kernel launches
 
  16. analysis   ``repro_torch.analysis`` on the card: (a) the differential
                 fuzzer over every ``configs`` and ``card_configs`` entry of
@@ -333,17 +341,29 @@ FAMILY_STEPS = 2
 #: MP_DENSE_MESH, the same at MP_DENSE_LAYERS layers, against one process
 #: within MP_STEP1_TOL at step 1 and MP_LATER_TOL later (bf16 compute,
 #: other summation orders); (c) OLMOE_ARCH cut to MP_MOE_LAYERS layer(s)
-#: on MP_MOE_MESH (the per-shard MoE dispatch), MP_MOE_STEPS steps of
+#: on MP_MOE_MESH (the per-shard MoE dispatch), MP_MOE_C_STEPS step(s) of
 #: MP_MOE_B x MP_MOE_L in MP_MOE_MICRO micro-batches, its step-1 loss
 #: against one process dispatching the same token blocks in turn within
 #: MP_MOE_TOL; (d) the int8 ring and the bf16 psum on P_DIST ranks, CUDA
-#: tensors of MP_COLL_N float32 each, within the reference test's bounds
+#: tensors of MP_COLL_N float32 each, within the reference test's bounds;
+#: (e) OLMOE_ARCH at MP_MOE_LAYERS layer(s) on MP_EP_MESH, its experts
+#: split over the model team (each rank E / P_DIST of them), against one
+#: process within MP_STEP1_TOL at step 1 and MP_LATER_TOL later; (f)
+#: MP_SSM_ARCH at full width and depth on MP_SSM_MESH, MP_SSM_STEPS steps
+#: of MP_SSM_B x MP_SSM_L, the same.  (b) and (e) take the "split" route
+#: (lm.step_route): each layer's blocks gathered as it runs, its compute
+#: split over "model"; (f) the "gather" route: the whole model gathered
+#: once per step and run whole on every rank
 MP_DIR = ROOT / "build" / "trainmp_phase"
-TRAINMP_STEPS, MP_W1_TOL = 3, 1e-6
+TRAINMP_STEPS, MP_W1_TOL = 2, 1e-6
 MP_DENSE_MESH, MP_DENSE_LAYERS = (2, 2), 4
 MP_STEP1_TOL, MP_LATER_TOL = 1e-4, 2e-3
 MP_MOE_MESH, MP_MOE_LAYERS, MP_MOE_STEPS = (4, 1), 1, 2
+MP_MOE_C_STEPS = 1
 MP_MOE_B, MP_MOE_L, MP_MOE_MICRO, MP_MOE_TOL = 8, 2048, 2, 2e-3
+MP_EP_MESH = (1, 4)
+MP_SSM_ARCH, MP_SSM_MESH, MP_SSM_STEPS = "mamba2_130m", (2, 2), 2
+MP_SSM_B, MP_SSM_L = 8, 2048
 MP_COLL_N, MP_RING_BOUND, MP_PSUM_BOUND = 1 << 24, 0.15, 2e-2
 #: the flash kernel's shape on that path: (B, Hq, Hkv, L, D, window)
 FLASH_MAIN = (LM_B, 32, 8, LM_L, 80, 4096)
@@ -1639,7 +1659,7 @@ def _mp_train(torch, dev, cfg, shape, tc, tag):
     group's ranks: losses, step walls, state bytes, host copies and wire
     bytes per step, peak, MoE drops."""
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import layers
+    from repro_torch.models import layers, lm
     from repro_torch.train.loop import train
     mesh = make_mesh(shape, ("data", "model"), device=dev)
     copies0 = mesh.host_copies
@@ -1649,13 +1669,19 @@ def _mp_train(torch, dev, cfg, shape, tc, tag):
         res, wire = _mp_watch(lambda: train(cfg, tc, mesh=mesh,
                                             log=lambda *a: None, device=dev))
     torch.cuda.synchronize()
+    block = res.state.params.blocks[0]
     out = dict(tag=tag, losses=res.losses, step_s=res.step_s,
                grad_norm=[float(m["grad_norm"]) for m in res.metrics],
                state_bytes=state_bytes(res.state),
                copies=(mesh.host_copies - copies0) / tc.steps,
                wire=str(wire / tc.steps), coords=mesh.coords,
                peak=torch.cuda.max_memory_allocated(),
-               dropped=tally.dropped, assigned=tally.assigned)
+               dropped=tally.dropped, assigned=tally.assigned,
+               route=lm.step_route(cfg),
+               wq=(tuple(block["attn_wq"].shape) if "attn_wq" in block
+                   else None),
+               experts=(block["moe_wg"].shape[0] if "moe_wg" in block
+                        else 0))
     del res
     torch.cuda.empty_cache()
     return out
@@ -1694,7 +1720,7 @@ def _mp_collectives(torch, dev, world: int, n: int) -> dict:
 def _trainmp_rank(rank, cfg, out_q):
     """One of ``cfg["world"]`` gloo ranks sharing ``cfg["device"]``: (b)
     the dense model on MP_DENSE_MESH, (c) the MoE on MP_MOE_MESH, (d) the
-    collectives."""
+    collectives, (e) the MoE on MP_EP_MESH, (f) the SSM on MP_SSM_MESH."""
     import datetime
     import traceback
     sys.path.insert(0, str(SRC))
@@ -1709,12 +1735,17 @@ def _trainmp_rank(rank, cfg, out_q):
             timeout=datetime.timedelta(seconds=600))
         dense = configs.get(TRAIN_ARCH).with_(n_layers=MP_DENSE_LAYERS)
         moe = configs.get(OLMOE_ARCH).with_(n_layers=MP_MOE_LAYERS)
+        ssm = configs.get(MP_SSM_ARCH)
         out = {
             "b": _mp_train(torch, dev, dense, MP_DENSE_MESH, mp_train_config(
                 TRAINMP_STEPS, TRAIN_B, TRAIN_L, dense.n_micro), "(b)"),
             "c": _mp_train(torch, dev, moe, MP_MOE_MESH, mp_train_config(
-                MP_MOE_STEPS, MP_MOE_B, MP_MOE_L, MP_MOE_MICRO), "(c)"),
-            "d": _mp_collectives(torch, dev, cfg["world"], MP_COLL_N)}
+                MP_MOE_C_STEPS, MP_MOE_B, MP_MOE_L, MP_MOE_MICRO), "(c)"),
+            "d": _mp_collectives(torch, dev, cfg["world"], MP_COLL_N),
+            "e": _mp_train(torch, dev, moe, MP_EP_MESH, mp_train_config(
+                MP_MOE_STEPS, MP_MOE_B, MP_MOE_L, MP_MOE_MICRO), "(e)"),
+            "f": _mp_train(torch, dev, ssm, MP_SSM_MESH, mp_train_config(
+                MP_SSM_STEPS, MP_SSM_B, MP_SSM_L, ssm.n_micro), "(f)")}
         out_q.put((rank, True, out))
     except BaseException:
         out_q.put((rank, False, traceback.format_exc()))
@@ -1724,8 +1755,8 @@ def _trainmp_rank(rank, cfg, out_q):
 
 
 def trainmp_ranks(torch, dev) -> None:
-    """(b)-(d) on P_DIST gloo ranks sharing the card, each held against
-    one process on the card (b, c) or the exact sum (d)."""
+    """(b)-(f) on P_DIST gloo ranks sharing the card, each held against
+    one process on the card (b, c, e, f) or the exact sum (d)."""
     from repro_torch import configs
     from repro_torch.core import costmodel
     from repro_torch.train.loop import train
@@ -1741,10 +1772,27 @@ def trainmp_ranks(torch, dev) -> None:
     torch.cuda.empty_cache()
     want_c = mp_moe_reference(torch, dev, moe, MP_MOE_MESH[0])
     torch.cuda.empty_cache()
+    tc_e = mp_train_config(MP_MOE_STEPS, MP_MOE_B, MP_MOE_L, MP_MOE_MICRO)
+    torch.cuda.reset_peak_memory_stats()
+    one_e = train(moe, tc_e, log=lambda *a: None, device=dev)
+    want_e, e_bytes, e_peak = (one_e.losses, state_bytes(one_e.state),
+                               torch.cuda.max_memory_allocated())
+    e_steps = one_e.step_s
+    del one_e
+    torch.cuda.empty_cache()
+    ssm = configs.get(MP_SSM_ARCH)
+    tc_f = mp_train_config(MP_SSM_STEPS, MP_SSM_B, MP_SSM_L, ssm.n_micro)
+    torch.cuda.reset_peak_memory_stats()
+    one_f = train(ssm, tc_f, log=lambda *a: None, device=dev)
+    want_f, f_bytes, f_peak = (one_f.losses, state_bytes(one_f.state),
+                               torch.cuda.max_memory_allocated())
+    f_steps = one_f.step_s
+    del one_f
+    torch.cuda.empty_cache()
     cfg = dict(device=str(dev), world=P_DIST, init_file=str(MP_DIR / "pg"))
     t0 = time.perf_counter()
     results = spawn_ranks(_trainmp_rank, cfg, "trainmp")
-    print(f"trainmp: {P_DIST} gloo ranks on one card, (b)-(d) in "
+    print(f"trainmp: {P_DIST} gloo ranks on one card, (b)-(f) in "
           f"{time.perf_counter() - t0:.1f} s (process start included)")
     rows = [results[r] for r in range(P_DIST)]
 
@@ -1765,19 +1813,24 @@ def trainmp_ranks(torch, dev) -> None:
         check(rel <= tol, f"trainmp (b) step {i}: loss differs by {rel:.3e}")
     for r, row in enumerate(rows):
         b = row["b"]
-        print(f"  rank {r} {b['coords']}: state "
-              f"{b['state_bytes'] / 2**30:.3f} GiB "
+        print(f"  rank {r} {b['coords']}: route {b['route']}, attn_wq "
+              f"block {b['wq']}, state {b['state_bytes'] / 2**30:.3f} GiB "
               f"({b['state_bytes'] / one_bytes:.3f} of one process), gloo "
               f"host copies {b['copies']:.0f} and wire bytes "
               f"{float(Fraction(b['wire'])):.4e} per step, peak "
               f"{b['peak'] / 2**30:.2f} GiB")
         check(b["losses"] == b0["losses"], "trainmp (b): ranks disagree")
+        check(b["route"] == "split" and b["wq"] == (
+            dense.d_model // MP_DENSE_MESH[0],
+            dense.n_heads * dense.hd // MP_DENSE_MESH[1]),
+            f"trainmp (b): route {b['route']}, attn_wq block {b['wq']}")
 
     # (c) the MoE on (4, 1): the per-shard dispatch
     c0 = rows[0]["c"]
     rel = abs(c0["losses"][0] - want_c) / abs(want_c)
     print(f"trainmp (c): {moe.name} at {MP_MOE_LAYERS} layer(s) on mesh "
-          f"{MP_MOE_MESH}, {MP_MOE_STEPS} steps of {MP_MOE_B} x {MP_MOE_L}, "
+          f"{MP_MOE_MESH}, {MP_MOE_C_STEPS} step(s) of {MP_MOE_B} x "
+          f"{MP_MOE_L}, "
           f"n_micro {MP_MOE_MICRO}: step-1 loss {c0['losses'][0]:.6f} vs "
           f"one process dispatching {MP_MOE_MESH[0]} token blocks "
           f"{want_c:.6f}: relative {rel:.3e} (tolerance {MP_MOE_TOL}); "
@@ -1793,6 +1846,61 @@ def trainmp_ranks(torch, dev) -> None:
               f"{c['peak'] / 2**30:.2f} GiB")
         check(c["losses"] == c0["losses"], "trainmp (c): ranks disagree")
     check(rel <= MP_MOE_TOL, f"trainmp (c): step-1 loss differs by {rel:.3e}")
+
+    # (e) the MoE on (1, 4): each rank its share of the experts
+    e0 = rows[0]["e"]
+    print(f"trainmp (e): {moe.name} at {MP_MOE_LAYERS} layer(s) on mesh "
+          f"{MP_EP_MESH} (route {e0['route']}), {MP_MOE_STEPS} steps of "
+          f"{MP_MOE_B} x {MP_MOE_L}, n_micro {MP_MOE_MICRO}; one process: "
+          f"state {e_bytes / 2**30:.3f} GiB, peak {e_peak / 2**30:.2f} GiB, "
+          f"steps {', '.join(f'{w:.3f}' for w in e_steps)} s")
+    for i, want in enumerate(want_e):
+        rel = max(abs(r["e"]["losses"][i] - want) / abs(want) for r in rows)
+        tol = MP_STEP1_TOL if i == 0 else MP_LATER_TOL
+        print(f"trainmp (e) step {i}: loss {e0['losses'][i]:.6f} vs one "
+              f"process {want:.6f}: max relative {rel:.3e} (tolerance "
+              f"{tol}); wall {max(r['e']['step_s'][i] for r in rows):.3f} s"
+              f" (slowest rank)")
+        check(rel <= tol, f"trainmp (e) step {i}: loss differs by {rel:.3e}")
+    for r, row in enumerate(rows):
+        e = row["e"]
+        print(f"  rank {r} {e['coords']}: {e['experts']} of "
+              f"{moe.n_experts} experts, state "
+              f"{e['state_bytes'] / 2**30:.3f} GiB "
+              f"({e['state_bytes'] / e_bytes:.3f} of one process), gloo "
+              f"host copies {e['copies']:.0f} and wire bytes "
+              f"{float(Fraction(e['wire'])):.4e} per step, peak "
+              f"{e['peak'] / 2**30:.2f} GiB")
+        check(e["losses"] == e0["losses"], "trainmp (e): ranks disagree")
+        check(e["route"] == "split"
+              and e["experts"] == moe.n_experts // MP_EP_MESH[1],
+              f"trainmp (e): route {e['route']}, {e['experts']} experts")
+
+    # (f) the SSM on (2, 2): the "gather" route
+    f0 = rows[0]["f"]
+    print(f"trainmp (f): {ssm.name} on mesh {MP_SSM_MESH} (route "
+          f"{f0['route']}), {MP_SSM_STEPS} steps of {MP_SSM_B} x {MP_SSM_L}"
+          f", n_micro {ssm.n_micro}; one process: state "
+          f"{f_bytes / 2**30:.3f} GiB, peak {f_peak / 2**30:.2f} GiB, steps "
+          f"{', '.join(f'{w:.3f}' for w in f_steps)} s")
+    for i, want in enumerate(want_f):
+        rel = max(abs(r["f"]["losses"][i] - want) / abs(want) for r in rows)
+        tol = MP_STEP1_TOL if i == 0 else MP_LATER_TOL
+        print(f"trainmp (f) step {i}: loss {f0['losses'][i]:.6f} vs one "
+              f"process {want:.6f}: max relative {rel:.3e} (tolerance "
+              f"{tol}); wall {max(r['f']['step_s'][i] for r in rows):.3f} s"
+              f" (slowest rank)")
+        check(rel <= tol, f"trainmp (f) step {i}: loss differs by {rel:.3e}")
+    for r, row in enumerate(rows):
+        f = row["f"]
+        print(f"  rank {r} {f['coords']}: route {f['route']}, state "
+              f"{f['state_bytes'] / 2**30:.3f} GiB "
+              f"({f['state_bytes'] / f_bytes:.3f} of one process), gloo "
+              f"host copies {f['copies']:.0f} and wire bytes "
+              f"{float(Fraction(f['wire'])):.4e} per step, peak "
+              f"{f['peak'] / 2**30:.2f} GiB")
+        check(f["losses"] == f0["losses"], "trainmp (f): ranks disagree")
+        check(f["route"] == "gather", f"trainmp (f): route {f['route']}")
 
     # (d) the collectives
     for name, bound, vol in (
@@ -1851,7 +1959,7 @@ def trainmp_cli() -> None:
 
 
 def trainmp_phase(torch, dev, ops, want) -> None:
-    """(a) at world size 1 through NCCL and the torchrun CLI, (b)-(d) on
+    """(a) at world size 1 through NCCL and the torchrun CLI, (b)-(f) on
     gloo ranks."""
     shutil.rmtree(MP_DIR, ignore_errors=True)
     MP_DIR.mkdir(parents=True)
@@ -1862,7 +1970,7 @@ def trainmp_phase(torch, dev, ops, want) -> None:
     print(f"trainmp (a): part wall {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     trainmp_ranks(torch, dev)
-    print(f"trainmp (b)-(d): part wall {time.perf_counter() - t0:.1f} s")
+    print(f"trainmp (b)-(f): part wall {time.perf_counter() - t0:.1f} s")
     shutil.rmtree(MP_DIR, ignore_errors=True)
 
 
@@ -3635,7 +3743,8 @@ def dryrun_cli_finish(procs, t0: float) -> None:
           f"{flash['fits_hbm']}")
     check(got == want, f"dryrun (b) flash: kernel-4 flops {got} != {want}")
     for r in recs["train"]:
-        print(f"dryrun (b) train {r['mesh']}: {r['flops']:.4e} flops, "
+        print(f"dryrun (b) train {r['mesh']} (route {r['route']}): "
+              f"{r['flops']:.4e} flops, useful {r['useful_frac']:.3f}, "
               f"{r['hbm_bytes']:.4e} HBM bytes, {r['wire_bytes']:.4e} wire "
               f"bytes per device; bound {r['bound_s']:.3f} s "
               f"({r['dominant']}); peak {r['total_bytes_per_dev'] / 1e9:.2f}"

@@ -175,11 +175,12 @@ class _Pending:
 class Teams:
     """A rank's process teams, keyed by axis tuples, and the collectives
     over them: ``all_gather`` stacking the team's shards in team order,
-    ``psum`` / ``pmin``, the tiled ``all_to_all``, ``reduce_scatter`` and
-    a ``ppermute`` within a team.  A subclass fills ``_teams`` with
-    ``{axes: (group, members)}``, ``members`` the team's global ranks in
-    team order; a team whose group is None has one member (or there is
-    no process group), and every collective over it is the identity."""
+    ``psum`` / ``pmin`` / ``pmax``, the tiled ``all_to_all``,
+    ``reduce_scatter`` and a ``ppermute`` within a team.  A subclass
+    fills ``_teams`` with ``{axes: (group, members)}``, ``members`` the
+    team's global ranks in team order; a team whose group is None has one
+    member (or there is no process group), and every collective over it
+    is the identity."""
 
     def __init__(self, device, rank: int, backend: str | None):
         self.device = torch.device(device)
@@ -300,6 +301,9 @@ class Teams:
 
     def pmin(self, x: torch.Tensor, axes) -> torch.Tensor:
         return self._all_reduce(x, axes, "pmin", dist.ReduceOp.MIN)
+
+    def pmax(self, x: torch.Tensor, axes) -> torch.Tensor:
+        return self._all_reduce(x, axes, "pmax", dist.ReduceOp.MAX)
 
     def reduce_scatter(self, x: torch.Tensor, axes) -> torch.Tensor:
         """Chunk ``position(axes)`` (along dim 0, which the team size

@@ -18,11 +18,16 @@ devices propagate and nothing is allocated, launched or sent.  Per cell:
      (as ``init_params`` builds them, without its draws); for train,
      each rank's blocks (``lm.shard_params_``) in ``lm.init_train_state``;
   4. one step through the port's entry point: ``lm.make_train_step(...,
-     mesh=)`` with AdamW and ``cosine_schedule(3e-4, 100, 10000)``;
+     mesh=)`` with AdamW and ``cosine_schedule(3e-4, 100, 10000)``, by
+     the route ``lm.step_route`` names (``"split"``: the dense, vlm and
+     MoE families gather each layer's blocks over the FSDP axis as it
+     runs and split its compute over ``"model"``; ``"gather"``: the ssm,
+     hybrid and audio families gather the whole model once per step);
      ``lm.make_prefill`` / ``lm.make_decode_step`` at the rank's rows.
      The port has no mesh-aware prefill or decode: on a mesh it serves
-     as data-parallel replicas, each rank the whole model on its rows of
-     the batch team (all rows where the team does not divide them);
+     as data-parallel replicas (route ``"replicas"``), each rank the
+     whole model on its rows of the batch team (all rows where the team
+     does not divide them);
   5. four counters around the step: ``FlopCounterMode`` (flops; kernel 4
      counts its visible (query, key) pairs through its custom op's
      rule), a dispatch mode counting the bytes every op that touches
@@ -312,6 +317,15 @@ def _unique_bytes(counters: StepCounters, tensors) -> int:
     return sum(seen.values())
 
 
+def _route(cfg, kind: str, mesh_shape) -> str:
+    """How the step runs on its mesh: ``lm.step_route``'s for a train
+    step on a mesh, ``"replicas"`` for serving on one, else ``"one
+    process"``."""
+    if mesh_shape is None:
+        return "one process"
+    return lm.step_route(cfg) if kind == "train" else "replicas"
+
+
 def trace_step(cfg, kind: str, batch_size: int, seq_len: int, *,
                mesh_shape=None, mesh_axes=None, device=None,
                measure: bool = True, backend: str | None = None) -> dict:
@@ -322,7 +336,8 @@ def trace_step(cfg, kind: str, batch_size: int, seq_len: int, *,
     ``"cuda"``).  ``backend`` picks the collectives' routes (default:
     NCCL's on CUDA, gloo's on the CPU).  Returns flops, hbm_bytes,
     wire_bytes, the :class:`roofline.CollectiveStats`, the memory fields
-    (arg, out, alias, temp, peak bytes), rows per device and the wall."""
+    (arg, out, alias, temp, peak bytes), rows per device, the route
+    (:func:`_route`) and the wall."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     dev = torch.device("cuda" if device is None else device)
     world = (contextlib.nullcontext() if mesh_shape is None
@@ -374,6 +389,7 @@ def trace_step(cfg, kind: str, batch_size: int, seq_len: int, *,
         "arg_bytes": arg, "out_bytes": out_bytes, "alias_bytes": alias_bytes,
         "temp_bytes": peak - arg - out_bytes + alias_bytes,
         "peak_bytes": peak, "rows_per_dev": rows, "backend": backend,
+        "route": _route(cfg, kind, mesh_shape),
         "kernel_calls": dict(counters.kernel_calls),
         "kernel_flops": kernel_flops,
         "wall_s": time.time() - t0,
@@ -423,13 +439,15 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         "device": dev.type,
         "backend": cnt["backend"],
         "rows_per_dev": cnt["rows_per_dev"],
+        "route": cnt["route"],
         "kernel_calls": cnt["kernel_calls"],
         "kernel_flops": cnt["kernel_flops"],
     })
     if verbose:
         print(f"== {arch} x {shape_name} on {mesh_name} "
               f"({sh['kind']}, {n_dev} devices, {dev.type} routes, "
-              f"{cnt['rows_per_dev']} rows per device)")
+              f"{cnt['rows_per_dev']} rows per device, route "
+              f"{cnt['route']})")
         print(f"   traced in {cnt['wall_s']:.1f}s (eager, every layer "
               f"counted)")
         print(f"   memory: args {cnt['arg_bytes'] / 1e9:.2f} GB"

@@ -55,6 +55,7 @@ WATCHED_KINDS = {
     "reduce_scatter": "reduce-scatter",
     "psum": "all-reduce",
     "pmin": "all-reduce",
+    "pmax": "all-reduce",
     "all_to_all": "all-to-all",
     "ppermute": "collective-permute",
 }

@@ -253,12 +253,30 @@ def spec_axes(entry) -> tuple[str, ...]:
 def constrain(x, logical: Sequence[str], rules: dict):
     """The reference's ``with_sharding_constraint`` hint, a no-op here.
 
-    The port computes each layer whole on every rank (the weights are
-    gathered at the start of a train step; see ``lm.make_train_step``),
-    so an activation has no layout to constrain: a rank holds its own
-    rows of the batch, and nothing in a layer is split over ``"model"``
-    (ROADMAP A1c)."""
+    XLA's partitioner reads the hint and places collectives; the port
+    places them itself.  A train step on a mesh (``lm.sharded_grads``)
+    runs the dense, vlm and MoE families inside
+    ``models.parallel.split_model``: each layer computes this rank's
+    block of the dimensions the reference constrains over ``"model"``
+    (query heads, ``mlp``, experts, ``vocab``; :func:`local_span` gives
+    the block), with ``parallel.copy_to`` / ``reduce_from`` where a
+    replicated activation enters or leaves the split; the batch rows
+    split over the batch team before the step.  Serving, one process and
+    the ssm, hybrid and audio families compute each layer whole, so an
+    activation there has no layout to constrain."""
     return x
+
+
+def local_span(name: str, size: int, mesh, rules: dict) -> tuple[int, int]:
+    """(offset, extent) of this rank's block of a dimension of ``size``
+    whose logical axis is ``name``: the block ``logical_to_spec`` gives
+    it on ``mesh`` (with its ``coords``), the whole dimension where the
+    rule's mapping is dropped."""
+    (entry,) = logical_to_spec((name,), (size,), mesh, rules)
+    at, n = 0, 1
+    for a in spec_axes(entry):
+        at, n = at * mesh.shape[a] + mesh.coords[a], n * mesh.shape[a]
+    return at * (size // n), size // n
 
 
 def tree_shardings(logical_tree, shape_tree, mesh,

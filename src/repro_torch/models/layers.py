@@ -14,7 +14,9 @@ interleaved), attention logits in float32 and the ``-1e30`` mask
 sentinel.  The MoE dispatch is the reference's unsharded branch, or,
 inside :func:`batch_shards` (a train step on a mesh), its per-data-shard
 branch: each shard of the batch dispatches its own tokens into its own
-slice of the capacity.
+slice of the capacity.  Inside ``parallel.split_model`` (the "split"
+route of a train step on a mesh) the attention, the MLP and the MoE
+compute this rank's share over the model team (see each function).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as kops
+from . import parallel as P
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -283,23 +286,32 @@ def _pick_chunk(lk: int, target: int) -> int:
     return max(c, 1)
 
 
-def _project_qkv(cfg: ModelConfig, p, x, prefix: str, kv_x=None):
+def _project_qkv(cfg: ModelConfig, p, x, prefix: str, kv_x=None,
+                 kv_cols: slice | None = None):
     """(B, L, H, hd) projections with the optional qkv bias; the keys and
-    values from ``kv_x`` (B, Lk, d) where given (cross-attention)."""
+    values from ``kv_x`` (B, Lk, d) where given (cross-attention).  The
+    head counts are the weights' (a rank's own heads on a split step);
+    ``kv_cols`` keeps those columns of whole key and value weights."""
     B, L, _ = x.shape
-    hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv
+    hd = cfg.hd
     dt = x.dtype
     src = x if kv_x is None else kv_x
     Lk = src.shape[1]
+    wk, wv = p[f"{prefix}_wk"], p[f"{prefix}_wv"]
+    if kv_cols is not None:
+        wk, wv = wk[:, kv_cols], wv[:, kv_cols]
     q = x @ p[f"{prefix}_wq"].to(dt)
-    k = src @ p[f"{prefix}_wk"].to(dt)
-    v = src @ p[f"{prefix}_wv"].to(dt)
+    k = src @ wk.to(dt)
+    v = src @ wv.to(dt)
     if cfg.qkv_bias:
+        bk, bv = p[f"{prefix}_bk"], p[f"{prefix}_bv"]
+        if kv_cols is not None:
+            bk, bv = bk[kv_cols], bv[kv_cols]
         q = q + p[f"{prefix}_bq"].to(dt)
-        k = k + p[f"{prefix}_bk"].to(dt)
-        v = v + p[f"{prefix}_bv"].to(dt)
-    return (q.reshape(B, L, Hq, hd), k.reshape(B, Lk, Hkv, hd),
-            v.reshape(B, Lk, Hkv, hd))
+        k = k + bk.to(dt)
+        v = v + bv.to(dt)
+    return (q.reshape(B, L, -1, hd), k.reshape(B, Lk, -1, hd),
+            v.reshape(B, Lk, -1, hd))
 
 
 def _write_ring(cache, k, v, positions):
@@ -361,11 +373,30 @@ def attention(cfg: ModelConfig, p, x, positions, *, prefix="attn",
 
     ``cfg.attention_impl`` "chunked" runs the reference's memory-
     efficient online softmax (:func:`mea_attention`); any other value
-    runs the materialized einsum path ("ref")."""
+    runs the materialized einsum path ("ref").
+
+    Inside ``parallel.split_model`` with the query heads split over the
+    model team (the cache-free self-attention of a train step), a rank
+    computes its own query heads and the kv heads they read (its own
+    block of the kv weights where the kv heads split too, else the
+    columns it needs of the whole weights), and its rows of the output
+    projection: partial sums, all-reduced over the team."""
     B, L, d = x.shape
     hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv
     dt = x.dtype
-    q, k, v = _project_qkv(cfg, p, x, prefix, kv_x)
+    tp = P.active()
+    split = (tp is not None and tp.heads and cache is None
+             and kv_x is None)
+    kv_cols = q_index = None
+    if split:
+        x = tp.copy_to(x)
+        k0, k1 = tp.kv_heads(cfg)
+        if not tp.kv:
+            kv_cols = slice(k0 * hd, k1 * hd)
+        # each of the rank's query heads q reads kv head q // group
+        q_index = (torch.arange(*tp.q_span, device=x.device)
+                   // (Hq // Hkv) - k0)
+    q, k, v = _project_qkv(cfg, p, x, prefix, kv_x, kv_cols)
     if f"{prefix}_qnorm" in p:
         q = rmsnorm(q, p[f"{prefix}_qnorm"], cfg.norm_eps)
         k = rmsnorm(k, p[f"{prefix}_knorm"], cfg.norm_eps)
@@ -401,7 +432,9 @@ def attention(cfg: ModelConfig, p, x, positions, *, prefix="attn",
                             scale, cfg.softcap,
                             _pick_chunk(kc.shape[2], cfg.attn_chunk))
     else:
-        if group > 1:
+        if split:
+            k, v = k.index_select(1, q_index), v.index_select(1, q_index)
+        elif group > 1:
             k = torch.repeat_interleave(k, group, dim=1)
             v = torch.repeat_interleave(v, group, dim=1)
         if cfg.attention_impl == "chunked":
@@ -419,8 +452,8 @@ def attention(cfg: ModelConfig, p, x, positions, *, prefix="attn",
             probs = torch.softmax(logits, dim=-1).to(dt)
             del logits
             out = torch.matmul(probs, v)
-    out = out.to(dt).transpose(1, 2).reshape(B, L, -1)
-    return out @ wo, cache
+    out = out.to(dt).transpose(1, 2).reshape(B, L, -1) @ wo
+    return (tp.reduce_from(out) if split else out), cache
 
 
 def attention_flash(cfg: ModelConfig, p, x, positions, *, prefix="attn",
@@ -471,14 +504,25 @@ def mlp_schema(cfg: ModelConfig, prefix: str = "mlp", d_ff: int | None = None):
 
 
 def apply_mlp(cfg: ModelConfig, p, x, prefix: str = "mlp"):
+    """Inside ``parallel.split_model`` with ``d_ff`` split over the model
+    team: a rank's columns of ``wg`` / ``wu`` (and ``bu``) and rows of
+    ``wd``, the partial sums all-reduced before ``bd``."""
     dt = x.dtype
+    tp = P.active()
+    split = tp is not None and tp.mlp
+    if split:
+        x = tp.copy_to(x)
     if cfg.mlp == "swiglu":
         g = F.silu(x @ p[f"{prefix}_wg"].to(dt))
         u = x @ p[f"{prefix}_wu"].to(dt)
-        return (g * u) @ p[f"{prefix}_wd"].to(dt)
+        out = (g * u) @ p[f"{prefix}_wd"].to(dt)
+        return tp.reduce_from(out) if split else out
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(x @ p[f"{prefix}_wu"].to(dt) + p[f"{prefix}_bu"].to(dt),
                approximate="tanh")
+    if split:
+        return (tp.reduce_from(h @ p[f"{prefix}_wd"].to(dt))
+                + p[f"{prefix}_bd"].to(dt))
     return h @ p[f"{prefix}_wd"].to(dt) + p[f"{prefix}_bd"].to(dt)
 
 
@@ -629,12 +673,15 @@ class _TeamSum(torch.autograd.Function):
         return grad * ctx.n, None, None
 
 
-def _moe_dispatch_local(cfg: ModelConfig, xt, router, c_loc: int):
+def _moe_dispatch_local(cfg: ModelConfig, xt, router, c_loc: int,
+                        experts: tuple[int, int] | None = None):
     """Router -> top-k -> positions within each expert -> scatter into a
     (E, c_loc, d) capacity buffer.  Kept slots are distinct; dropped
     assignments go to a sentinel row that is thrown away, so the scatter
     is deterministic.  Returns (buf, slot, gates, keep, (me_sum, ce_sum))
-    as the reference does."""
+    as the reference does.  With ``experts`` = [e0, e1) the buffer holds
+    those experts' slots only, (e1 - e0, c_loc, d); ``slot`` and ``keep``
+    stay the whole dispatch's."""
     dt = xt.dtype
     E, K = cfg.n_experts, cfg.top_k
     t_loc, d = xt.shape
@@ -664,16 +711,35 @@ def _moe_dispatch_local(cfg: ModelConfig, xt, router, c_loc: int):
     keep = pos < c_loc
     slot = torch.where(keep, flat_ids * c_loc + pos, E * c_loc)
     xr = xt[:, None].expand(t_loc, K, d).reshape(t_loc * K, d)
-    buf = torch.zeros((E * c_loc + 1, d), dtype=dt, device=xt.device)
-    buf.index_copy_(0, slot, xr)
-    return buf[:-1].view(E, c_loc, d), slot, gates, keep, (me_sum, ce_sum)
+    rows, n = slot, E * c_loc
+    if experts is not None:
+        rows, _ = _expert_rows(slot, keep, experts, c_loc)
+        n = (experts[1] - experts[0]) * c_loc
+    buf = torch.zeros((n + 1, d), dtype=dt, device=xt.device)
+    buf.index_copy_(0, rows, xr)
+    return (buf[:-1].view(-1, c_loc, d), slot, gates, keep,
+            (me_sum, ce_sum))
 
 
-def _moe_combine_local(out_e_loc, slot, gates, keep, K: int):
+def _expert_rows(slot, keep, experts: tuple[int, int], c_loc: int):
+    """(rows, mine): each assignment's row in a buffer of experts [e0, e1)
+    (the sentinel (e1 - e0) c_loc where dropped or another's), and
+    whether it has one."""
+    start, n = experts[0] * c_loc, (experts[1] - experts[0]) * c_loc
+    mine = keep & (slot >= start) & (slot < start + n)
+    return torch.where(mine, slot - start, n), mine
+
+
+def _moe_combine_local(out_e_loc, slot, gates, keep, K: int,
+                       experts: tuple[int, int] | None = None):
     """Gather each assignment's expert output back to its token, weighted
-    by its gate (0 where dropped), and sum over the token's K."""
+    by its gate (0 where dropped), and sum over the token's K.  With
+    ``experts`` = [e0, e1), ``out_e_loc`` holds those experts only and
+    the assignments to others weigh 0 (a partial sum)."""
     E, c_loc, d = out_e_loc.shape
     flat = out_e_loc.reshape(E * c_loc, d)
+    if experts is not None:
+        slot, keep = _expert_rows(slot, keep, experts, c_loc)
     g = flat[slot.clamp(max=E * c_loc - 1)]
     g = g * (gates.reshape(-1)[:, None] * keep[:, None]).to(flat.dtype)
     return g.view(-1, K, d).sum(dim=1)                    # (T, d)
@@ -695,7 +761,25 @@ def apply_moe(cfg: ModelConfig, p, x, prefix: str = "moe"):
     n contiguous blocks of T / n tokens dispatches into its own (E, C /
     n, d) buffer, the aux loss's statistics are summed over the team,
     and each block combines from its own buffer, so which tokens are
-    dropped depends on the blocks, as in the reference."""
+    dropped depends on the blocks, as in the reference.
+
+    Inside ``parallel.split_model`` with the experts split over the model
+    team, every rank dispatches its tokens as above (each rank of a data
+    shard holds the same tokens, so no token moves) and then: under "ep"
+    (and "ep_virtual", over the dispatch experts) builds and runs the
+    buffer of its own experts only; under "tp" runs every expert on its
+    columns of ``d_ff_expert``.  Either way its combine is a partial sum,
+    all-reduced over the team, and the aux loss, computed whole on every
+    rank, enters as ``reduce_from(aux / m)``."""
+    tp = P.active()
+    if tp is not None and tp.experts:
+        experts = tp.expert_span if tp.experts == "ep" else None
+        out, aux = _apply_moe(cfg, p, tp.copy_to(x), prefix, experts)
+        return tp.reduce_from(out), tp.reduce_from(aux / tp.m)
+    return _apply_moe(cfg, p, x, prefix, None)
+
+
+def _apply_moe(cfg: ModelConfig, p, x, prefix, experts):
     B, L, d = x.shape
     T = B * L
     if _BATCH_SHARDS is not None:
@@ -705,7 +789,7 @@ def apply_moe(cfg: ModelConfig, p, x, prefix: str = "moe"):
         t_team = T * n if rows_sharded else T
         if n > 1 and moe_shardable(cfg, t_team, n):
             return _apply_moe_sharded(cfg, p, x, prefix, mesh, axes, n,
-                                      t_team, rows_sharded)
+                                      t_team, rows_sharded, experts)
         if rows_sharded and n > 1:
             raise ValueError(
                 f"{t_team} tokens do not dispatch per shard over {n} "
@@ -715,27 +799,29 @@ def apply_moe(cfg: ModelConfig, p, x, prefix: str = "moe"):
     E, K = cfg.n_experts, cfg.top_k
     C = moe_capacity(cfg, T)
     buf, slot, gates, keep, (me_s, ce_s) = _moe_dispatch_local(
-        cfg, x.reshape(T, d), p[f"{prefix}_router"], C)
+        cfg, x.reshape(T, d), p[f"{prefix}_router"], C, experts)
     if _DROP_TALLY is not None:
         _DROP_TALLY.add(keep)
     aux = E * torch.sum((me_s / T) * (ce_s / T))
-    out = _moe_experts(cfg, p, buf, slot, gates, keep, prefix, dt)
+    out = _moe_experts(cfg, p, buf, slot, gates, keep, prefix, dt, experts)
     return out.reshape(B, L, d), aux
 
 
-def _moe_experts(cfg: ModelConfig, p, buf, slot, gates, keep, prefix, dt):
+def _moe_experts(cfg: ModelConfig, p, buf, slot, gates, keep, prefix, dt,
+                 experts: tuple[int, int] | None = None):
     """Every expert's MLP over its slots of ``buf`` (E, c, d), then the
-    combine of each token's assignments: (tokens, d)."""
+    combine of each token's assignments: (tokens, d).  ``experts``: the
+    buffer's experts [e0, e1), when it holds only those."""
     K_comb = cfg.top_k * (cfg.virtual_split
                           if cfg.expert_sharding == "ep_virtual" else 1)
     wg, wu, wd = (p[f"{prefix}_{w}"].to(dt) for w in ("wg", "wu", "wd"))
     h = F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
     out_e = torch.bmm(h, wd)                              # (E, c, d)
-    return _moe_combine_local(out_e, slot, gates, keep, K_comb)
+    return _moe_combine_local(out_e, slot, gates, keep, K_comb, experts)
 
 
 def _apply_moe_sharded(cfg: ModelConfig, p, x, prefix, mesh, axes, n: int,
-                       t_team: int, rows_sharded: bool):
+                       t_team: int, rows_sharded: bool, experts):
     """The per-shard branch of :func:`apply_moe` over the team's
     ``t_team`` tokens: this rank's block alone when the rows are
     sharded (the statistics summed over the team), else all n blocks in
@@ -746,7 +832,8 @@ def _apply_moe_sharded(cfg: ModelConfig, p, x, prefix, mesh, axes, n: int,
     router = p[f"{prefix}_router"]
     xt = x.reshape(B * L, d)
     blocks = [xt] if rows_sharded else list(xt.chunk(n))
-    parts = [_moe_dispatch_local(cfg, blk, router, c_loc) for blk in blocks]
+    parts = [_moe_dispatch_local(cfg, blk, router, c_loc, experts)
+             for blk in blocks]
     me_s = sum(part[4][0] for part in parts)
     ce_s = sum(part[4][1] for part in parts)
     if rows_sharded:
@@ -758,5 +845,5 @@ def _apply_moe_sharded(cfg: ModelConfig, p, x, prefix, mesh, axes, n: int,
         if _DROP_TALLY is not None:
             _DROP_TALLY.add(keep)
         outs.append(_moe_experts(cfg, p, buf, slot, gates, keep, prefix,
-                                 dt))
+                                 dt, experts))
     return torch.cat(outs).reshape(B, L, d), aux

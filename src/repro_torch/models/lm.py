@@ -14,8 +14,9 @@ parameters, the optimizer state, the serve cache and the batch
 (``param_shardings``, ``opt_shardings``, ``cache_shardings``,
 ``batch_shardings``, from the config's logical rules), each rank's
 blocks of a tree (``shard_tree``, ``shard_params_``) and the whole tree
-back (``gather_tree``), and the sharded train step
-(``make_train_step(..., mesh=)``).
+back (``gather_tree``, for checkpoints and the ``"gather"`` route), and
+the sharded train step (``make_train_step(..., mesh=)``, its route by
+family in ``step_route``).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..train.optim import AdamW, accumulate_gradients, as_tree
 from . import layers as Lyr
+from . import parallel as P
 from . import transformer as T
 from .config import ModelConfig, logical_to_spec, spec_axes, tree_shardings
 
@@ -41,11 +43,19 @@ class Batch(NamedTuple):
 def cross_entropy(cfg: ModelConfig, params, hidden, targets):
     """Mean next-token cross entropy; taken over sequence chunks of
     ``cfg.loss_chunk`` positions when that divides L (and L is longer),
-    so only one chunk's (B, chunk, V) logits are live at a time."""
+    so only one chunk's (B, chunk, V) logits are live at a time.  Inside
+    ``parallel.split_model`` with the vocabulary split over the model
+    team, each rank holds its lanes of the logits (:func:`_xent_split`);
+    the head's table is gathered once for every chunk."""
     B, L, _ = hidden.shape
+    emb = T.head_weight(params)
+    tp = P.active()
+    split = tp is not None and tp.vocab
 
     def xent(h, t):
-        logits = T.lm_head(cfg, params, h)
+        logits = T.lm_head(cfg, params, h, emb)
+        if split:
+            return _xent_split(tp, logits, t)
         lse = torch.logsumexp(logits, dim=-1)
         picked = torch.gather(logits, -1, t[..., None].long())[..., 0]
         return torch.sum(lse - picked)
@@ -65,6 +75,23 @@ def cross_entropy(cfg: ModelConfig, params, hidden, targets):
     else:
         total = xent(hidden, targets)
     return total / (B * L)
+
+
+def _xent_split(tp, logits, targets):
+    """The summed cross entropy from this rank's lanes of the logits: the
+    row maximum all-reduced (max) over the model team, then the rows'
+    sums of exponentials and the target's logit (from the rank whose lanes
+    hold it) in one all-reduce.  A rank whose lanes are all padding adds
+    exp(-1e30 - max) = 0 and no target."""
+    n = logits.shape[-1]
+    local = targets.long() - tp.vocab_span[0]
+    inside = (local >= 0) & (local < n)
+    mx = tp.pmax(torch.amax(logits.detach(), dim=-1))
+    picked = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    sums = tp.reduce_from(torch.stack([
+        torch.sum(torch.exp(logits - mx[..., None]), dim=-1),
+        torch.where(inside, picked, 0.0)]))
+    return torch.sum(torch.log(sums[0]) + mx - sums[1])
 
 
 def cast_params(cfg: ModelConfig, params) -> T.Weights:
@@ -125,7 +152,8 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, lr_schedule,
 
     With a ``mesh`` the state holds this rank's blocks under ``specs``
     (default :func:`param_shardings` at ``max_len``) and every rank gets
-    the whole global batch; see :func:`_sharded_step`."""
+    the whole global batch; see :func:`_sharded_step` and
+    :func:`step_route`."""
     n_micro = n_micro if n_micro is not None else cfg.n_micro
     if mesh is not None:
         if specs is None:
@@ -146,13 +174,43 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, lr_schedule,
     return train_step
 
 
+#: the families whose train step on a mesh splits each layer over the
+#: model team; the others gather the whole model (:func:`step_route`)
+SPLIT_FAMILIES = frozenset({"dense", "vlm", "moe"})
+
+
+def step_route(cfg: ModelConfig) -> str:
+    """How :func:`_sharded_step` runs ``cfg`` on a mesh: ``"split"`` (the
+    dense, vlm and MoE families: each layer's blocks gathered over the FSDP
+    axis as it runs and its compute split over ``"model"``,
+    ``models.parallel``) or ``"gather"`` (the ssm, hybrid and audio
+    families: the whole model gathered once per step and run whole on
+    every rank)."""
+    return "split" if cfg.family in SPLIT_FAMILIES else "gather"
+
+
 def _sharded_step(cfg: ModelConfig, optimizer, lr_schedule, n_micro: int,
                   mesh, specs, state: TrainState, batch: Batch):
     """One train step on ``mesh``, computing what the reference computes
-    on that mesh:
+    on that mesh: :func:`sharded_grads`, then the optimizer's update of
+    this rank's blocks of the parameters and its moments, with the global
+    norm counted once per element."""
+    loss, aux_loss, grads = sharded_grads(cfg, mesh, specs, state.params,
+                                          batch, n_micro)
+    lr = lr_schedule(state.step)
+    _, new_opt, gnorm = optimizer.update(grads, state.opt, state.params,
+                                         lr=lr, mesh=mesh, specs=specs)
+    metrics = {"loss": loss, "aux_loss": aux_loss, "grad_norm": gnorm,
+               "lr": lr}
+    return TrainState(state.params, new_opt, state.step + 1), metrics
 
-      * the parameters are gathered whole (one all-gather per sharded
-        dimension of each leaf), and every rank runs the whole model;
+
+def sharded_grads(cfg: ModelConfig, mesh, specs, params, batch: Batch,
+                  n_micro: int):
+    """(loss, aux_loss, grads) of one step on ``mesh``: ``params`` hold
+    this rank's blocks under ``specs`` and ``grads`` come back as blocks,
+    the float32 gradients of the batch team's mean loss.
+
       * the global batch splits into ``n_micro`` contiguous micro-batches
         of B_m rows; rank r of the batch team (D ranks over the batch
         rule's axes) takes rows [r B_m / D, (r + 1) B_m / D) of each.  If
@@ -161,13 +219,19 @@ def _sharded_step(cfg: ModelConfig, optimizer, lr_schedule, n_micro: int,
         fallback to replication) and dispatches the team's token blocks
         itself; the MoE dispatches per shard either way
         (``layers.batch_shards``);
-      * the float32 gradient accumulated over the micro-batches is summed
-        over the batch team and divided by D, keeping this rank's block
-        of each leaf (a reduce-scatter where the leaf's spec splits one
-        dimension over exactly the batch team and the backend has one,
-        else an all-reduce);
-      * the optimizer updates this rank's blocks of the parameters and
-        its moments, with the global norm counted once per element.
+      * the ``"split"`` route (:func:`step_route`): the forward and
+        backward run inside ``parallel.split_model``, each layer's blocks
+        gathered over the FSDP axis as it runs and its compute split over
+        the model team; a block's gradient comes back summed over the
+        axes its leaf was gathered over, then over the rest of the batch
+        team, and divided by D;
+      * the ``"gather"`` route: the parameters are gathered whole (one
+        all-gather per sharded dimension of each leaf) and every rank runs
+        the whole model; each whole gradient is summed over the batch team
+        and divided by D, keeping this rank's block of each leaf (a
+        reduce-scatter where the leaf's spec splits one dimension over
+        exactly the batch team and the backend has one, else an
+        all-reduce).
 
     ``loss`` and ``aux_loss`` are the last micro-batch's, averaged over
     the batch team when the rows are split."""
@@ -186,26 +250,28 @@ def _sharded_step(cfg: ModelConfig, optimizer, lr_schedule, n_micro: int,
             return x.reshape((n_micro, n_team, -1) + rest)[:, r].reshape(
                 (-1,) + rest)
         local = Batch(*(None if x is None else my_rows(x) for x in batch))
-    with torch.no_grad():
-        full = T.DecoderLM(cfg, gather_tree(state.params, specs, mesh))
-    full.requires_grad_(True)
-    with Lyr.batch_shards(mesh, rows):
-        (_, aux), grads = accumulate_gradients(partial(loss_fn, cfg), full,
-                                               local, n_micro)
-    del full
-    # each whole gradient is replaced by its block (and freed) in turn
-    _replace_leaves(lambda g, spec: _team_mean_block(g, spec, mesh, team,
-                                                     n_team), grads, specs)
+    if step_route(cfg) == "split":
+        with Lyr.batch_shards(mesh, rows), P.split_model(cfg, mesh, specs):
+            (_, aux), grads = accumulate_gradients(
+                partial(loss_fn, cfg), params, local, n_micro)
+        _replace_leaves(lambda g, spec: _team_mean_rest(
+            g, spec, mesh, team, n_team), grads, specs)
+    else:
+        with torch.no_grad():
+            full = T.DecoderLM(cfg, gather_tree(params, specs, mesh))
+        full.requires_grad_(True)
+        with Lyr.batch_shards(mesh, rows):
+            (_, aux), grads = accumulate_gradients(partial(loss_fn, cfg),
+                                                   full, local, n_micro)
+        del full
+        # each whole gradient is replaced by its block (and freed) in turn
+        _replace_leaves(lambda g, spec: _team_mean_block(
+            g, spec, mesh, team, n_team), grads, specs)
     loss, aux_loss = aux["loss"], aux["aux_loss"]
     if rows and n_team > 1:
         both = mesh.psum(torch.stack([loss, aux_loss]), team) / n_team
         loss, aux_loss = both[0], both[1]
-    lr = lr_schedule(state.step)
-    _, new_opt, gnorm = optimizer.update(grads, state.opt, state.params,
-                                         lr=lr, mesh=mesh, specs=specs)
-    metrics = {"loss": loss, "aux_loss": aux_loss, "grad_norm": gnorm,
-               "lr": lr}
-    return TrainState(state.params, new_opt, state.step + 1), metrics
+    return loss, aux_loss, grads
 
 
 def _replace_leaves(fn, tree, specs) -> None:
@@ -227,6 +293,17 @@ def _team_mean_block(g, spec, mesh, team, n_team: int):
     rest = tuple(None if i == dim else e for i, e in enumerate(spec))
     g = mesh.shard(g, rest).movedim(dim, 0)
     return mesh.reduce_scatter(g, team).movedim(0, dim) / n_team
+
+
+def _team_mean_rest(g, spec, mesh, team, n_team: int):
+    """The mean over the batch team of a block's gradient already summed
+    over the axes its leaf was gathered over (those of ``spec``): summed
+    over the team's other axes, divided by its size."""
+    used = {a for entry in spec for a in spec_axes(entry)}
+    rest = tuple(a for a in team if a not in used)
+    if rest and mesh.axes_size(rest) > 1:
+        g = mesh.psum(g, rest)
+    return g / n_team
 
 
 def make_prefill(cfg: ModelConfig, max_len: int):

@@ -1,0 +1,344 @@
+"""Tensor and expert parallelism over ``"model"`` in the sharded train step.
+
+The reference gets this from XLA's SPMD partitioner: its parameters carry
+the specs of ``config.logical_to_spec`` (heads, kv, mlp, vocab and experts
+over ``"model"``, ``embed`` over ``"data"``), its activations carry
+``constrain`` hints, and the partitioner places the collectives.  The port
+writes out what that program computes on a mesh of ranks
+(``launch.mesh.Mesh``):
+
+  * the residual stream is replicated over the model team: each rank of a
+    data shard holds the same rows;
+  * attention splits by query heads (each rank its own, and the kv heads
+    they read), the dense MLP by ``d_ff`` columns, the MoE by experts
+    (``"ep"``, ``"ep_virtual"``) or by ``d_ff_expert`` (``"tp"``), and the
+    embedding, the head and the loss by vocabulary rows; a piece whose
+    dimension the model team does not divide is computed whole on every
+    rank, as the reference's rule drops that mapping;
+  * each rank keeps its blocks of the parameters under their specs and
+    gathers a layer's blocks over the FSDP axis (and, where the compute
+    needs the whole leaf, over ``"model"``) when the layer runs: inside the
+    layer's checkpoint, so remat gathers again instead of keeping them.
+
+The collectives are ``torch.autograd.Function``\\ s over a team of a
+:class:`~repro_torch.comm.group.Teams` (every one announced to the
+collective watcher):
+
+  ``copy_to``       identity forward, all-reduce backward: a replicated
+                    input enters split compute;
+  ``reduce_from``   all-reduce forward, identity backward: split compute's
+                    partial sums leave it;
+  ``gather_from``   all-gather along a dimension forward, reduce-scatter
+                    backward: a block gathered for compute whose gradient
+                    is partial on each rank (the FSDP gather; the summed
+                    gradient lands as this rank's block);
+  ``scatter_to``    reduce-scatter forward, all-gather backward (the
+                    reverse pair);
+  ``gather_whole``  all-gather forward, this rank's block of the gradient
+                    backward: a block gathered for compute done whole and
+                    alike on every rank (its gradient is already whole).
+
+Inside split compute a rank's gradients are its share: summed over the
+model team they make the whole.  So a leaf replicated over ``"model"``
+that split compute reads (the kv projection where the kv heads do not
+divide, the MoE router, chameleon's qk-norm) gets ``copy_to`` on the
+weight, and one that only whole compute reads (the norm scales) gets
+none: its gradient is equal on every model rank.  The MoE's aux loss is
+computed whole on every rank and enters the loss as ``reduce_from(aux /
+m)``, its gradient a share like the rest.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from .config import ModelConfig, local_span, logical_to_spec, spec_axes
+
+MODEL = "model"
+
+# ---------------------------------------------------------------------------
+# the collectives
+# ---------------------------------------------------------------------------
+
+
+def _cat(parts: torch.Tensor, dim: int) -> torch.Tensor:
+    """The team's blocks, stacked on dim 0, joined along ``dim``."""
+    return torch.cat(list(parts.unbind(0)), dim=dim)
+
+
+def _reduce_scatter(team, x, axes, dim: int):
+    return team.reduce_scatter(x.movedim(dim, 0).contiguous(),
+                               axes).movedim(0, dim)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, team, axes):
+        ctx.team, ctx.axes = team, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.team.psum(grad, ctx.axes), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, team, axes):
+        return team.psum(x, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, team, axes, dim):
+        ctx.team, ctx.axes, ctx.dim = team, axes, dim
+        return _cat(team.all_gather(x, axes), dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_reduce_scatter(ctx.team, grad, ctx.axes, ctx.dim), None,
+                None, None)
+
+
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, team, axes, dim):
+        ctx.team, ctx.axes, ctx.dim = team, axes, dim
+        return _reduce_scatter(team, x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_cat(ctx.team.all_gather(grad, ctx.axes), ctx.dim), None,
+                None, None)
+
+
+class _GatherWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, team, axes, dim):
+        ctx.n, ctx.at, ctx.dim = (len(team.team(axes)), team.position(axes),
+                                  dim)
+        return _cat(team.all_gather(x, axes), dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.chunk(ctx.n, dim=ctx.dim)[ctx.at], None, None, None
+
+
+def _one(team, axes) -> bool:
+    return not axes or len(team.team(axes)) == 1
+
+
+def copy_to(x, team, axes):
+    """``x``, its gradient summed over the team ``axes``."""
+    return x if _one(team, axes) else _CopyTo.apply(x, team, axes)
+
+
+def reduce_from(x, team, axes):
+    """The sum of ``x`` over the team ``axes``; its gradient passes as is."""
+    return x if _one(team, axes) else _ReduceFrom.apply(x, team, axes)
+
+
+def gather_from(x, team, axes, dim: int):
+    """The team's blocks of ``x`` joined along ``dim`` (team order); the
+    gradient summed over the team, this rank's block kept."""
+    return x if _one(team, axes) else _GatherFrom.apply(x, team, axes, dim)
+
+
+def scatter_to(x, team, axes, dim: int):
+    """This rank's block along ``dim`` of the sum of ``x`` over the team;
+    the gradient all-gathered."""
+    return x if _one(team, axes) else _ScatterTo.apply(x, team, axes, dim)
+
+
+def gather_whole(x, team, axes, dim: int):
+    """The team's blocks of ``x`` joined along ``dim``; the gradient, whole
+    and alike on every rank, cut back to this rank's block."""
+    return x if _one(team, axes) else _GatherWhole.apply(x, team, axes, dim)
+
+
+# ---------------------------------------------------------------------------
+# the layout of each leaf in compute
+# ---------------------------------------------------------------------------
+
+#: how a piece reads a leaf: ("split", dim) its own "model" block along
+#: dim; "partial" whole, read by split compute; "whole" whole, read by
+#: compute done alike on every model rank
+SPLIT, PARTIAL, WHOLE = "split", "partial", "whole"
+
+
+def _is_model(entry) -> bool:
+    return spec_axes(entry) == (MODEL,)
+
+
+class Split:
+    """What the layers of one train step split over the model team of
+    ``mesh``, decided from the parameters' ``specs`` (``lm.param_shardings``):
+    ``heads`` (query heads; ``kv`` when the kv heads split too), ``mlp``,
+    ``experts`` ("ep" over the dispatch experts, "tp" over
+    ``d_ff_expert``, or None) and ``vocab``; ``m`` is the team's size."""
+
+    def __init__(self, cfg: ModelConfig, mesh, specs: dict):
+        self.mesh, self.specs = mesh, specs
+        self.axes = (MODEL,) if MODEL in mesh.shape else ()
+        self.m = mesh.axes_size(self.axes)
+        rules = cfg.rules()
+
+        def split(name: str, size: int) -> bool:
+            # the reference's activation constraint splits this dimension
+            # over exactly the model team
+            return self.m > 1 and _is_model(
+                logical_to_spec((name,), (size,), mesh, rules)[0])
+
+        def span(name: str, size: int) -> tuple[int, int]:
+            start, n = local_span(name, size, mesh, rules)
+            return start, start + n
+
+        blk = specs["blocks"][0] if specs.get("blocks") else {}
+        self.heads = ("attn_wq" in blk and _is_model(blk["attn_wq"][1])
+                      and split("q_heads", cfg.n_heads))
+        self.kv = (self.heads and _is_model(blk["attn_wk"][1])
+                   and split("kv", cfg.n_kv))
+        self.mlp = (self.m > 1 and "mlp_wu" in blk
+                    and _is_model(blk["mlp_wu"][1]))
+        self.experts = None
+        if self.m > 1 and "moe_wg" in blk:
+            if _is_model(blk["moe_wg"][0]):
+                self.experts = "ep"
+            elif _is_model(blk["moe_wg"][2]):
+                self.experts = "tp"
+        self.vocab = self.m > 1 and _is_model(specs["embed"]["tok"][0])
+        #: [start, stop) of this rank's query heads, dispatch experts and
+        #: vocabulary rows (the whole range where they do not split)
+        self.q_span = span("q_heads", cfg.n_heads)
+        self.expert_span = span("expert", cfg.n_experts_disp)
+        self.vocab_span = span("vocab", cfg.vocab_pad)
+        self._plans = {group: self._plan(group) for group in specs}
+
+    # -- the pieces ----------------------------------------------------
+
+    def kv_heads(self, cfg: ModelConfig) -> tuple[int, int]:
+        """[k0, k1): the kv heads this rank's query heads read."""
+        q0, q1 = self.q_span
+        group = cfg.n_heads // cfg.n_kv
+        return q0 // group, (q1 - 1) // group + 1
+
+    def copy_to(self, x):
+        return copy_to(x, self.mesh, self.axes)
+
+    def reduce_from(self, x):
+        return reduce_from(x, self.mesh, self.axes)
+
+    def pmax(self, x):
+        """The maximum over the model team (no gradient)."""
+        return self.mesh.pmax(x, self.axes) if self.m > 1 else x
+
+    # -- the leaves ----------------------------------------------------
+
+    def _mode(self, group: str, name: str):
+        if group == "embed" and name in ("tok", "unembed"):
+            return (SPLIT, 0) if self.vocab else WHOLE
+        if group != "blocks":
+            return WHOLE
+        kind, _, leaf = name.partition("_")
+        if kind == "attn":
+            if not self.heads:
+                return WHOLE
+            if leaf in ("wq", "bq", "wo"):
+                return (SPLIT, 1 if leaf == "wq" else 0)
+            if leaf in ("wk", "wv", "bk", "bv"):
+                return ((SPLIT, 1 if leaf[0] == "w" else 0) if self.kv
+                        else PARTIAL)
+            return PARTIAL                      # qnorm, knorm
+        if kind == "mlp" and self.mlp and leaf != "bd":
+            return (SPLIT, 1 if leaf in ("wg", "wu") else 0)
+        if kind == "moe" and self.experts:
+            if leaf == "router":
+                return PARTIAL
+            if self.experts == "ep":
+                return (SPLIT, 0)
+            return (SPLIT, 1 if leaf == "wd" else 2)
+        return WHOLE
+
+    def _plan(self, group: str) -> dict:
+        spec = self.specs[group]
+        spec = spec[0] if isinstance(spec, list) else spec
+        plan = {}
+        for name, s in spec.items():
+            mode = self._mode(group, name)
+            steps = []
+            for dim, entry in enumerate(s):
+                axes = self.mesh.key(spec_axes(entry))
+                if not axes or self.mesh.axes_size(axes) == 1:
+                    continue
+                if MODEL in axes and axes != (MODEL,):
+                    raise ValueError(f"{group}/{name}: spec entry {entry} "
+                                     f"mixes {MODEL!r} with other axes")
+                if mode == PARTIAL or MODEL not in axes:
+                    steps.append((gather_from, axes, dim))
+                elif mode == WHOLE:
+                    steps.append((gather_whole, axes, dim))
+                elif mode[1] != dim:
+                    raise ValueError(f"{group}/{name}: split along dim "
+                                     f"{mode[1]}, sharded over {MODEL!r} "
+                                     f"along {dim} ({s})")
+            # the FSDP axes first: their reduce-scatter in the backward
+            # then runs on a block still split over "model"
+            steps.sort(key=lambda step: MODEL in step[1])
+            if mode == PARTIAL and self.m > 1 and not any(
+                    MODEL in spec_axes(e) for e in s):
+                steps.append((copy_to, self.axes, None))
+            plan[name] = steps
+        return plan
+
+    def leaf(self, group: str, name: str, t):
+        """Leaf ``name`` of a block of ``group`` as the compute reads it:
+        gathered over the axes its spec shards and its piece needs
+        whole."""
+        for fn, axes, dim in self._plans[group][name]:
+            t = (fn(t, self.mesh, axes) if dim is None
+                 else fn(t, self.mesh, axes, dim))
+        return t
+
+    def view(self, group: str, p) -> dict:
+        """Every leaf of ``p`` (one block of ``group``) as :meth:`leaf`."""
+        return {name: self.leaf(group, name, p[name])
+                for name in self._plans[group]}
+
+
+_ACTIVE: Split | None = None
+
+
+@contextlib.contextmanager
+def split_model(cfg: ModelConfig, mesh, specs: dict):
+    """Inside the block the layers of ``cfg`` read their blocks under
+    ``specs`` on ``mesh`` and split over its model team (see the module's
+    docstring); outside it they compute whole, as in one process."""
+    global _ACTIVE
+    prev = _ACTIVE
+    _ACTIVE = Split(cfg, mesh, specs)
+    try:
+        yield _ACTIVE
+    finally:
+        _ACTIVE = prev
+
+
+def active() -> Split | None:
+    """The :class:`Split` of the enclosing :func:`split_model`, else None."""
+    return _ACTIVE
+
+
+def view(group: str, p):
+    """``p`` as the compute reads it: :meth:`Split.view` inside
+    :func:`split_model`, else ``p`` itself."""
+    return p if _ACTIVE is None else _ACTIVE.view(group, p)
+
+
+def leaf(group: str, p, name: str):
+    """``p[name]`` as the compute reads it (:meth:`Split.leaf`)."""
+    return p[name] if _ACTIVE is None else _ACTIVE.leaf(group, name,
+                                                        p[name])

@@ -43,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import layers as L
+from . import parallel as P
 from . import ssm as S
 from .config import ModelConfig
 
@@ -310,8 +311,21 @@ def apply_xdec_block(cfg: ModelConfig, p, h, positions, enc_out,
 # ---------------------------------------------------------------------------
 
 def _embed(cfg: ModelConfig, params, tokens, positions):
+    """Token (and learned position) embeddings in the compute dtype.
+    Inside ``parallel.split_model`` with the vocabulary split over the
+    model team, a rank looks up the tokens in its rows of the table
+    (zeros for the others'), all-reduced over the team."""
     dt = getattr(torch, cfg.dtype)
-    h = params.embed["tok"].to(dt)[tokens]
+    tp = P.active()
+    if tp is not None and tp.vocab:
+        tok = P.leaf("embed", params.embed, "tok").to(dt)
+        n = tok.shape[0]
+        local = tokens - tp.vocab_span[0]
+        inside = (local >= 0) & (local < n)
+        h = tp.reduce_from(torch.where(inside[..., None],
+                                       tok[local.clamp(0, n - 1)], 0))
+    else:
+        h = P.leaf("embed", params.embed, "tok").to(dt)[tokens]
     if cfg.name.startswith("gemma"):
         # a 0-d host tensor: rounded to dt like the reference's scale,
         # with no host-to-device copy
@@ -451,7 +465,10 @@ def forward(cfg: ModelConfig, params: DecoderLM, tokens, positions, *,
         layers = list(zip(params.blocks, window_pattern(cfg)))
         if caches is None:
             def layer(h, aux, p, w):
-                h, _, a = apply_decoder_block(cfg, p, h, positions, w)
+                # a split step's blocks are gathered here, inside the
+                # layer's checkpoint: remat gathers them again
+                h, _, a = apply_decoder_block(cfg, P.view("blocks", p), h,
+                                              positions, w)
                 return h, aux + a
             h, aux = _run_layers(layer, (h, aux), layers, remat,
                                  cfg.remat_group)
@@ -464,16 +481,35 @@ def forward(cfg: ModelConfig, params: DecoderLM, tokens, positions, *,
     return h, caches, aux
 
 
-def lm_head(cfg: ModelConfig, params: DecoderLM, h):
+def head_weight(params: DecoderLM):
+    """The (V_pad, d) table ``lm_head`` multiplies by (``unembed``, else
+    the tied ``tok``), as the compute reads it (``parallel.view``: a
+    split step's rows of the vocabulary, gathered over the FSDP axis)."""
+    return P.leaf("embed", params.embed,
+                  "unembed" if "unembed" in params.embed else "tok")
+
+
+def lm_head(cfg: ModelConfig, params: DecoderLM, h, emb=None):
     """Final hidden -> float32 logits over the padded vocab (padded lanes
     at -1e30), tied embeddings unless the model has ``unembed``.  The
     product is taken in the compute dtype and then widened, as in the
-    reference."""
-    emb = params.embed["unembed" if "unembed" in params.embed else "tok"]
+    reference.  ``emb`` is :func:`head_weight`'s table, when the caller
+    has it.  Inside ``parallel.split_model`` with the vocabulary split
+    over the model team: this rank's lanes only, the padded ones masked
+    by their global lane index."""
+    if emb is None:
+        emb = head_weight(params)
+    tp = P.active()
+    split = tp is not None and tp.vocab
+    if split:
+        h = tp.copy_to(h)
     logits = (h @ emb.to(h.dtype).T).float()
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
-    if cfg.vocab_pad != cfg.vocab:
+    if split:
+        lane = torch.arange(*tp.vocab_span, device=logits.device)
+        logits = logits.masked_fill(lane >= cfg.vocab, L.NEG_INF)
+    elif cfg.vocab_pad != cfg.vocab:
         logits[..., cfg.vocab:] = L.NEG_INF
     return logits
 

@@ -352,10 +352,15 @@ def test_counted_flops_and_peak_equal_a_real_step(arch, kind):
     counts around the same step run for real on the CPU at a (1, 1) mesh
     on rank 0's rows; at a fake (1, 1) mesh the peak of live storages is
     the real step's, storage for storage (on 16 x 16 the train state is
-    sharded, so its peak is another step's)."""
+    sharded, so its peak is another step's).  A train step on the
+    "split" route computes its model share on 16 x 16 (held in
+    ``test_split_route_cuts_a_rank_s_flops`` and against real ranks in
+    ``test_torch_tp.py``), so its rank 0 is the fake 16 x 1 mesh's."""
     cfg = C.get_smoke(arch)
     batch, length = 32, 64
-    cnt = D.trace_step(cfg, kind, batch, length, mesh_shape=POD[0],
+    shape = ((16, 1) if kind == "train" and lm.step_route(cfg) == "split"
+             else POD[0])
+    cnt = D.trace_step(cfg, kind, batch, length, mesh_shape=shape,
                        mesh_axes=POD[1], device="cpu")
     rows = cnt["rows_per_dev"]
     assert rows == batch // 16
@@ -424,57 +429,207 @@ def _whole_shapes(cfg, max_len: int) -> list:
     return _leaf_list(tree)
 
 
-@pytest.mark.parametrize("backend", ["nccl", "gloo"])
-@pytest.mark.parametrize("mesh", [POD, MULTIPOD], ids=["16x16", "2x16x16"])
-def test_watched_wire_bytes_equal_the_closed_form(mesh, backend):
-    """A train step's wire bytes from the watcher equal, exactly, the
-    closed form from ``param_shardings``: per leaf one all-gather per
-    sharded dimension of the block gathered so far, then the batch
-    team's mean of its float32 gradient (a reduce-scatter on NCCL's
-    route where the leaf's spec splits one dimension over exactly the
-    team, an all-reduce of the same block on gloo's, else an all-reduce
-    of the whole gradient); the loss pair's all-reduce over the team and
-    the global norm's over the world."""
+def _wire(prim: str, nbytes, n: int, backend: str) -> Fraction:
+    """The watched wire bytes of one collective of ``nbytes`` over ``n``
+    ranks (``costmodel.collective_wire_bytes``' conventions); a reduce-
+    scatter is an all-reduce on gloo's route."""
+    if n <= 1:
+        return Fraction(0)
+    if prim == "reduce_scatter" and backend != "nccl":
+        prim = "psum"
+    return collective_wire_bytes(prim, nbytes, n)
+
+
+def whole_gather_bytes(cfg, shape, axes, length) -> Fraction:
+    """The all-gather wire bytes (float32) of the "gather" route's one
+    whole-model gather, from ``param_shardings``: per leaf one all-gather
+    per sharded dimension of the block gathered so far."""
     from repro_torch.models.config import spec_axes
-    cfg = C.get_smoke("h2o_danube_1p8b")
-    shape, axes = mesh
     sizes = dict(zip(axes, shape))
-    cnt = D.trace_step(cfg, "train", 64, 64, mesh_shape=shape,
-                       mesh_axes=axes, device="cpu", backend=backend)
-    specs = _leaf_list(lm.param_shardings(cfg, _MeshStub(shape, axes), 64))
-    wholes = _whole_shapes(cfg, 64)
+    specs = _leaf_list(lm.param_shardings(cfg, _MeshStub(shape, axes),
+                                          length))
+    wholes = _whole_shapes(cfg, length)
     assert len(specs) == len(wholes)
+    want = Fraction(0)
+    for spec, whole in zip(specs, wholes):
+        ext = [math.prod(sizes[a] for a in spec_axes(e)) for e in spec]
+        block = [d // e for d, e in zip(whole, ext)]
+        for dim, e in enumerate(ext):
+            if e > 1:
+                want += (e - 1) * 4 * math.prod(block)
+                block[dim] *= e
+    return want
+
+
+def _gather_route_bytes(cfg, shape, axes, backend, batch, length):
+    """The closed form of the "gather" route's train step from
+    ``param_shardings``: :func:`whole_gather_bytes`, then per leaf the
+    batch team's mean of its float32 gradient (a reduce-scatter where the
+    leaf's spec splits one dimension over exactly the team, else an
+    all-reduce of the whole gradient); the loss pair's all-reduce over
+    the team and the global norm's over the world.  Returns (bytes,
+    whether a leaf scattered)."""
+    from repro_torch.models.config import spec_axes
+    sizes = dict(zip(axes, shape))
+    specs = _leaf_list(lm.param_shardings(cfg, _MeshStub(shape, axes),
+                                          length))
+    wholes = _whole_shapes(cfg, length)
 
     def ext(entry) -> int:
         return math.prod(sizes[a] for a in spec_axes(entry))
 
     team = tuple(a for a in axes if a in ("pod", "data"))
     n_team = math.prod(sizes[a] for a in team)
-    world = math.prod(shape)
-    reduce = Fraction(2 * (n_team - 1), n_team)
-    scatter = Fraction(n_team - 1, n_team) if backend == "nccl" else reduce
-    want, scattered = Fraction(0), False
+    want, scattered = whole_gather_bytes(cfg, shape, axes, length), False
     for spec, whole in zip(specs, wholes):
-        block = [d // ext(e) for d, e in zip(whole, spec)]
-        for dim, e in enumerate(spec):
-            if ext(e) > 1:
-                want += (ext(e) - 1) * 4 * math.prod(block)
-                block[dim] *= ext(e)
         dim = next((i for i, e in enumerate(spec) if spec_axes(e) == team),
                    None)
         if dim is None:
-            want += reduce * 4 * math.prod(whole)
+            want += _wire("psum", 4 * math.prod(whole), n_team, backend)
         else:
             rest = [d if i == dim else d // ext(e)
                     for i, (d, e) in enumerate(zip(whole, spec))]
-            want += scatter * 4 * math.prod(rest)
+            want += _wire("reduce_scatter", 4 * math.prod(rest), n_team,
+                          backend)
             scattered = True
-    want += reduce * 8                                   # loss, aux
-    want += Fraction(2 * (world - 1), world) * 4         # global norm
+    want += _wire("psum", 8, n_team, backend)              # loss, aux
+    want += _wire("psum", 4, math.prod(shape), backend)    # global norm
+    return want, scattered
+
+
+#: how the "split" route reads danube smoke's leaves on a model team of
+#: 16: its 4 query heads do not split over 16, so the attention runs
+#: whole (its leaves gathered whole over "model", their gradients kept
+#: as the rank's block); d_ff (128) and the vocabulary (256) split, each
+#: rank reading its own "model" block; the norm scales are replicated
+DANUBE_16 = {"attn_wq": "whole", "attn_wk": "whole", "attn_wv": "whole",
+             "attn_wo": "whole", "mlp_wg": 1, "mlp_wu": 1, "mlp_wd": 0,
+             "tok": 0, "unembed": 0}
+
+
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+@pytest.mark.parametrize("mesh", [POD, MULTIPOD], ids=["16x16", "2x16x16"])
+def test_watched_wire_bytes_equal_the_closed_form(mesh, backend):
+    """A train step's wire bytes from the watcher equal, exactly, the
+    closed form of the "split" route on danube smoke (16 model ranks):
+    per leaf and layer the compute-dtype block gathered over "data" (the
+    FSDP axis, first) and, where its piece runs whole, over "model";
+    backward, a reduce-scatter over "data" of the gathered-over-"data"
+    gradient (an all-reduce on gloo); then each float32 block gradient's
+    all-reduce over the batch team's axes its spec lacks.  The split
+    pieces add the activations' all-reduces over "model": the MLP's input
+    gradient and output and the embedding's output (rows x L x d), the
+    head's input gradient, the loss's row maxima and (sum-exp, target
+    logit) pairs; then the loss pair over the team and the global norm
+    over the world."""
+    from repro_torch.models.config import spec_axes
+    cfg = C.get_smoke("h2o_danube_1p8b")
+    shape, axes = mesh
+    batch = length = 64
+    sizes = dict(zip(axes, shape))
+    cnt = D.trace_step(cfg, "train", batch, length, mesh_shape=shape,
+                       mesh_axes=axes, device="cpu", backend=backend)
+    assert cnt["route"] == "split"
+    tree = lm.param_shardings(cfg, _MeshStub(shape, axes), length)
+    team = tuple(a for a in axes if a in ("pod", "data"))
+    n_team, m = math.prod(sizes[a] for a in team), sizes["model"]
+    rows, c = batch // n_team, getattr(torch, cfg.dtype).itemsize
+    want = Fraction(0)
+    leaves = [(k, s, w) for (k, s), w in zip(
+        [(k, s) for g in sorted(tree) for layer in (
+            tree[g] if isinstance(tree[g], list) else [tree[g]])
+         for k, s in sorted(layer.items())], _whole_shapes(cfg, length))]
+    for name, spec, whole in leaves:
+        ext = [math.prod(sizes[a] for a in spec_axes(e)) for e in spec]
+        block = [d // e for d, e in zip(whole, ext)]
+        read = DANUBE_16.get(name)
+        for dim, e in sorted(enumerate(spec),
+                             key=lambda de: "model" in spec_axes(de[1])):
+            if ext[dim] == 1 or ("model" in spec_axes(e) and read != "whole"):
+                continue
+            want += (ext[dim] - 1) * c * math.prod(block)
+            block[dim] *= ext[dim]
+            if "model" not in spec_axes(e):
+                want += _wire("reduce_scatter", c * math.prod(block),
+                              ext[dim], backend)
+        used = {a for e in spec for a in spec_axes(e)}
+        rest = math.prod(sizes[a] for a in team if a not in used)
+        want += _wire("psum", 4 * math.prod(whole) // math.prod(ext), rest,
+                      backend)
+    act = rows * length * cfg.d_model * c
+    want += (2 * cfg.n_layers + 2) * _wire("psum", act, m, backend)
+    want += _wire("pmax", rows * length * 4, m, backend)
+    want += _wire("psum", 2 * rows * length * 4, m, backend)
+    want += _wire("psum", 8, n_team, backend)              # loss, aux
+    want += _wire("psum", 4, math.prod(shape), backend)    # global norm
     assert cnt["wire_exact"] == want
     assert math.isclose(cnt["wire_bytes"], float(want), rel_tol=1e-12)
+    assert ("reduce-scatter" in cnt["colls"].counts) == (backend == "nccl")
+
+
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+@pytest.mark.parametrize("mesh", [POD, MULTIPOD], ids=["16x16", "2x16x16"])
+def test_watched_wire_bytes_of_the_gather_route(mesh, backend):
+    """A train step of a family on the "gather" route (Mamba2 smoke) keeps
+    the whole-model gather's collectives: its watched wire bytes equal,
+    exactly, :func:`_gather_route_bytes`' closed form."""
+    cfg = C.get_smoke("mamba2_130m")
+    shape, axes = mesh
+    cnt = D.trace_step(cfg, "train", 64, 64, mesh_shape=shape,
+                       mesh_axes=axes, device="cpu", backend=backend)
+    assert cnt["route"] == "gather"
+    want, scattered = _gather_route_bytes(cfg, shape, axes, backend, 64, 64)
+    assert cnt["wire_exact"] == want
     assert ("reduce-scatter" in cnt["colls"].counts) == (
         scattered and backend == "nccl")
+
+
+def test_split_route_cuts_a_rank_s_flops(monkeypatch):
+    """On a fake (4, 4) mesh danube smoke's counted flops per device fall
+    at least 3x from the "gather" route's (every family forced onto it),
+    with the route named in the counts and the record; Mamba2 smoke,
+    on the "gather" route, counts one process's flops on its rows."""
+    cfg = C.get_smoke("h2o_danube_1p8b")
+    mesh = ((4, 4), POD[1])
+    split = D.trace_step(cfg, "train", 32, 64, mesh_shape=mesh[0],
+                         mesh_axes=mesh[1], device="cpu")
+    with monkeypatch.context() as mp:
+        mp.setattr(lm, "SPLIT_FAMILIES", frozenset())
+        whole = D.trace_step(cfg, "train", 32, 64, mesh_shape=mesh[0],
+                             mesh_axes=mesh[1], device="cpu")
+    assert (split["route"], whole["route"]) == ("split", "gather")
+    assert 3 * split["flops"] <= whole["flops"], (split["flops"],
+                                                  whole["flops"])
+    assert split["peak_bytes"] < whole["peak_bytes"]
+    rec, _ = D.lower_cell("h2o_danube_1p8b", "train_4k", cfg=cfg,
+                          verbose=False, device="cpu")
+    assert rec["route"] == "split"
+    ssm = C.get_smoke("mamba2_130m")
+    got = D.trace_step(ssm, "train", 32, 64, mesh_shape=mesh[0],
+                       mesh_axes=mesh[1], device="cpu")
+    one = D.trace_step(ssm, "train", 8, 64, mesh_shape=(1, 1),
+                       mesh_axes=mesh[1], device="cpu")
+    assert got["route"] == "gather" and got["rows_per_dev"] == 8
+    assert got["flops"] == one["flops"] > 0
+
+
+def test_split_route_gathers_each_layer_inside_remat():
+    """On a fake (4, 4) mesh, danube smoke with remat gathers every
+    layer's blocks again in the backward's recompute (the embedding
+    tables, gathered outside the layers, once) and peaks lower: the
+    gathered blocks live only while their layer runs."""
+    cfg = C.get_smoke("h2o_danube_1p8b")
+    got = {}
+    for remat in (False, True):
+        cnt = D.trace_step(cfg.with_(remat=remat), "train", 32, 64,
+                           mesh_shape=(4, 4), mesh_axes=POD[1],
+                           device="cpu")
+        got[remat] = (cnt["colls"].counts["all-gather"], cnt["peak_bytes"])
+    (plain, plain_peak), (remat, remat_peak) = got[False], got[True]
+    tables = 2                                   # tok, unembed
+    assert (plain - tables) % cfg.n_layers == 0
+    assert remat == 2 * plain - tables
+    assert remat_peak < plain_peak
 
 
 # ---------------------------------------------------------------------------

@@ -524,3 +524,114 @@ def moe_mesh(rank, shape, p, x, w):
     return {"rows": rows, "lo": lo, "hi": hi, "out": out.detach().numpy(),
             "aux": float(aux), "grads": grads, "dx": xt.grad.numpy(),
             "dropped": tally.dropped, "assigned": tally.assigned}
+
+
+# ---------------------------------------------------------------------------
+# tensor and expert parallelism over "model" (repro_torch.models.parallel)
+# ---------------------------------------------------------------------------
+
+#: the leaves whose gradient is held equal on every model rank: the norm
+#: scales (and biases) and chameleon's qk-norm scales
+def _norm_leaf(name: str) -> bool:
+    return name.endswith(("_scale", "_bias")) or name in ("attn_qnorm",
+                                                          "attn_knorm")
+
+
+def tp_run(rank, name, over, shape, params, kw, ckpt_dir=""):
+    """The sharded train step (either route, ``lm.step_route``) of the
+    smoke config ``name`` (float32, ``over`` its overrides) from the
+    reference's weights ``params`` on a (data, model)
+    mesh of ``shape``: one gradient step (``lm.sharded_grads`` on the
+    first batch) under the collective watcher and ``FlopCounterMode``,
+    its blocks' shapes, the norm leaves' gradients and (rank 0) every
+    gradient gathered whole; then ``train`` for ``kw["steps"]`` steps: the
+    losses, the parameters' block shapes and (rank 0) the final state
+    gathered whole."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import convert
+    from repro_torch.models import lm
+    from repro_torch.train import loop, optim
+    from repro_torch.train.data import make_source
+    cfg, mesh = _lm_mesh(name, shape)
+    cfg = cfg.with_(**over)
+    specs = lm.param_shardings(cfg, mesh, max_len=kw["seq_len"])
+    opt = optim.AdamW(weight_decay=0.1, clip_norm=1.0)
+
+    def state():
+        model = convert.lm_params_from_numpy(cfg, params, device="cpu")
+        lm.shard_params_(model, specs, mesh)
+        return lm.init_train_state(model, opt)
+
+    probe = state()
+    batch = make_source(cfg, kw["seq_len"], kw["global_batch"], 0,
+                        "cpu")(0)
+    with FlopCounterMode(display=False) as fc:
+        (loss, _, grads), events = _watched(lambda: lm.sharded_grads(
+            cfg, mesh, specs, probe.params, batch, cfg.n_micro))
+    flat = {}
+    for group, leaves in grads.items():
+        for i, layer in enumerate(leaves if isinstance(leaves, list)
+                                  else [leaves]):
+            for k, g in layer.items():
+                flat[f"{group}/{i}/{k}"] = g
+    whole = {}
+    for group, leaves in lm.gather_tree(grads, specs, mesh).items():
+        for k in (leaves[0] if isinstance(leaves, list) else leaves):
+            whole[f"{group}/{k}"] = (
+                np.stack([layer[k].numpy() for layer in leaves])
+                if isinstance(leaves, list) else leaves[k].numpy())
+    res = loop.train(cfg, loop.TrainerConfig(ckpt_dir=ckpt_dir, **kw),
+                     mesh=mesh, state=state(), log=lambda *a: None,
+                     device="cpu")
+    leaves = optim.tree_leaves(res.state.params.tree())
+    state_whole = _full_state(res.state, cfg, mesh, kw["seq_len"])
+    return {"coords": mesh.coords, "losses": res.losses,
+            "probe_loss": float(loss), "flops": fc.get_total_flops(),
+            "events": events,
+            "shapes": [tuple(t.shape) for t in leaves],
+            "grad_shapes": {k: tuple(g.shape) for k, g in flat.items()},
+            "norm_grads": {k: g.numpy() for k, g in flat.items()
+                           if _norm_leaf(k.rsplit("/", 1)[1])},
+            "grads": whole if rank == 0 else None,
+            "state": state_whole if rank == 0 else None}
+
+
+def tp_collective(rank, shape, op, axes, dim, x, dy):
+    """``parallel.<op>`` over the team ``axes`` of a (data, model) mesh of
+    ``shape``, rank r's input ``x[r]`` and output gradient ``dy[r]``: the
+    output, the input's gradient, the team's members and the primitives
+    watched forward and backward."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import parallel
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    team = mesh.key(axes)
+    xin = torch.as_tensor(x[rank]).requires_grad_(True)
+    extra = () if dim is None else (dim,)
+    out, fwd = _watched(lambda: getattr(parallel, op)(xin, mesh, team,
+                                                      *extra))
+    _, bwd = _watched(lambda: out.backward(torch.as_tensor(dy[rank])))
+    return {"members": mesh.team(team), "out": out.detach().numpy(),
+            "grad": xin.grad.numpy(), "fwd": [e[0] for e in fwd],
+            "bwd": [e[0] for e in bwd]}
+
+
+def tp_grads(rank, name, over, shape, seq, batch):
+    """One ``lm.sharded_grads`` of the smoke config ``name`` (float32,
+    ``over`` its overrides, weights from ``init_params`` at seed 0) on a
+    (data, model) mesh of ``shape``: the loss and (rank 0) the gradients
+    gathered whole, as numpy trees."""
+    from repro_torch.models import lm, transformer
+    from repro_torch.train.data import make_source
+    cfg, mesh = _lm_mesh(name, shape)
+    cfg = cfg.with_(**over)
+    specs = lm.param_shardings(cfg, mesh, max_len=seq)
+    model = transformer.init_params(cfg, seed=0, max_len=seq, device="cpu")
+    lm.shard_params_(model, specs, mesh)
+    model.requires_grad_(True)
+    data = make_source(cfg, seq, batch, 0, "cpu")(0)
+    loss, _, grads = lm.sharded_grads(cfg, mesh, specs, model, data,
+                                      cfg.n_micro)
+    whole = lm.gather_tree(grads, specs, mesh)
+    return {"loss": float(loss),
+            "grads": (lm.map_with_specs(lambda t, s: t.numpy(), whole,
+                                        specs) if rank == 0 else None)}
