@@ -144,10 +144,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 OLMoE-1B-7B at 1 layer on mesh (1, 4), 16 of its 64
                 experts on each rank, 2 steps of 8 x 2048 against one
                 process; (f) Mamba2-130M at full width and depth on mesh
-                (2, 2), the "gather" route (the whole model gathered
-                once per step, as the ssm, hybrid and audio families
-                train on a mesh), 2 steps of 8 x 2048 against one
-                process.  Step walls, state bytes per rank, gloo host
+                (2, 2), its SSM split over a model team of 2 (12 of its
+                24 heads per rank), 2 steps of 8 x 2048; (g) Zamba2-7B at
+                full width cut to 6 layers (2 groups) on mesh (1, 4), 28
+                of its 112 SSM heads, 8 of the shared block's 32
+                attention heads and a quarter of d_ff per rank; (h)
+                Whisper-small at full width and depth on mesh (2, 2),
+                its MLP, heads and vocabulary split over a model team of
+                2, 1 step each (the script's time); each against one
+                process.  Step walls, state bytes per
+                rank, each rank's ssm_out / attn_wq blocks, gloo host
                 copies and wire bytes per step, peaks, MoE drops; no
                 kernel launches
 
@@ -350,10 +356,11 @@ FAMILY_STEPS = 2
 #: split over the model team (each rank E / P_DIST of them), against one
 #: process within MP_STEP1_TOL at step 1 and MP_LATER_TOL later; (f)
 #: MP_SSM_ARCH at full width and depth on MP_SSM_MESH, MP_SSM_STEPS steps
-#: of MP_SSM_B x MP_SSM_L, the same.  (b) and (e) take the "split" route
-#: (lm.step_route): each layer's blocks gathered as it runs, its compute
-#: split over "model"; (f) the "gather" route: the whole model gathered
-#: once per step and run whole on every rank
+#: of MP_SSM_B x MP_SSM_L, the same; (g) MP_HYB_ARCH at full width cut to
+#: MP_HYB_LAYERS layers on MP_HYB_MESH, and (h) MP_AUD_ARCH at full width
+#: and depth on MP_AUD_MESH, the same.  Every family takes the split
+#: route: each layer's blocks gathered as it runs, its compute split over
+#: "model" (the SSM by heads)
 MP_DIR = ROOT / "build" / "trainmp_phase"
 TRAINMP_STEPS, MP_W1_TOL = 2, 1e-6
 MP_DENSE_MESH, MP_DENSE_LAYERS = (2, 2), 4
@@ -364,6 +371,10 @@ MP_MOE_B, MP_MOE_L, MP_MOE_MICRO, MP_MOE_TOL = 8, 2048, 2, 2e-3
 MP_EP_MESH = (1, 4)
 MP_SSM_ARCH, MP_SSM_MESH, MP_SSM_STEPS = "mamba2_130m", (2, 2), 2
 MP_SSM_B, MP_SSM_L = 8, 2048
+MP_HYB_ARCH, MP_HYB_LAYERS, MP_HYB_MESH = "zamba2_7b", 6, (1, 4)
+MP_HYB_STEPS, MP_HYB_B, MP_HYB_L = 1, 4, 2048
+MP_AUD_ARCH, MP_AUD_MESH, MP_AUD_STEPS = "whisper_small", (2, 2), 1
+MP_AUD_B, MP_AUD_L = 8, 448
 MP_COLL_N, MP_RING_BOUND, MP_PSUM_BOUND = 1 << 24, 0.15, 2e-2
 #: the flash kernel's shape on that path: (B, Hq, Hkv, L, D, window)
 FLASH_MAIN = (LM_B, 32, 8, LM_L, 80, 4096)
@@ -390,8 +401,12 @@ DRY_CELLS = (
 )
 
 
+#: the script's start, for each phase's start time
+_START = time.perf_counter()
+
+
 def phase(name: str):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _START:.1f} s)", flush=True)
 
 
 def fail(msg: str):
@@ -1657,9 +1672,10 @@ def _mp_watch(fn):
 def _mp_train(torch, dev, cfg, shape, tc, tag):
     """``train(mesh=)`` on a (data, model) mesh of ``shape`` of the
     group's ranks: losses, step walls, state bytes, host copies and wire
-    bytes per step, peak, MoE drops."""
+    bytes per step, peak, MoE drops, the blocks of the first layer's
+    ssm_out and of the attention's wq."""
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import layers, lm
+    from repro_torch.models import layers
     from repro_torch.train.loop import train
     mesh = make_mesh(shape, ("data", "model"), device=dev)
     copies0 = mesh.host_copies
@@ -1670,6 +1686,11 @@ def _mp_train(torch, dev, cfg, shape, tc, tag):
                                             log=lambda *a: None, device=dev))
     torch.cuda.synchronize()
     block = res.state.params.blocks[0]
+    # Zamba2's attention lives in its shared block
+    attn = getattr(res.state.params, "shared", block)
+
+    def shape_of(p, name):
+        return tuple(p[name].shape) if name in p else None
     out = dict(tag=tag, losses=res.losses, step_s=res.step_s,
                grad_norm=[float(m["grad_norm"]) for m in res.metrics],
                state_bytes=state_bytes(res.state),
@@ -1677,9 +1698,8 @@ def _mp_train(torch, dev, cfg, shape, tc, tag):
                wire=str(wire / tc.steps), coords=mesh.coords,
                peak=torch.cuda.max_memory_allocated(),
                dropped=tally.dropped, assigned=tally.assigned,
-               route=lm.step_route(cfg),
-               wq=(tuple(block["attn_wq"].shape) if "attn_wq" in block
-                   else None),
+               wq=shape_of(attn, "attn_wq"),
+               ssm_out=shape_of(block, "ssm_out"),
                experts=(block["moe_wg"].shape[0] if "moe_wg" in block
                         else 0))
     del res
@@ -1717,10 +1737,25 @@ def _mp_collectives(torch, dev, world: int, n: int) -> dict:
     return out
 
 
+def _mp_families(configs):
+    """(f), (g), (h): (key, config, mesh, train config) of the ssm, hybrid
+    and audio families' runs."""
+    ssm = configs.get(MP_SSM_ARCH)
+    hyb = configs.get(MP_HYB_ARCH).with_(n_layers=MP_HYB_LAYERS)
+    aud = configs.get(MP_AUD_ARCH)
+    return (("f", ssm, MP_SSM_MESH, mp_train_config(
+                MP_SSM_STEPS, MP_SSM_B, MP_SSM_L, ssm.n_micro)),
+            ("g", hyb, MP_HYB_MESH, mp_train_config(
+                MP_HYB_STEPS, MP_HYB_B, MP_HYB_L, hyb.n_micro)),
+            ("h", aud, MP_AUD_MESH, mp_train_config(
+                MP_AUD_STEPS, MP_AUD_B, MP_AUD_L, aud.n_micro)))
+
+
 def _trainmp_rank(rank, cfg, out_q):
     """One of ``cfg["world"]`` gloo ranks sharing ``cfg["device"]``: (b)
     the dense model on MP_DENSE_MESH, (c) the MoE on MP_MOE_MESH, (d) the
-    collectives, (e) the MoE on MP_EP_MESH, (f) the SSM on MP_SSM_MESH."""
+    collectives, (e) the MoE on MP_EP_MESH, (f), (g), (h) the ssm, hybrid
+    and audio families (``_mp_families``)."""
     import datetime
     import traceback
     sys.path.insert(0, str(SRC))
@@ -1735,7 +1770,6 @@ def _trainmp_rank(rank, cfg, out_q):
             timeout=datetime.timedelta(seconds=600))
         dense = configs.get(TRAIN_ARCH).with_(n_layers=MP_DENSE_LAYERS)
         moe = configs.get(OLMOE_ARCH).with_(n_layers=MP_MOE_LAYERS)
-        ssm = configs.get(MP_SSM_ARCH)
         out = {
             "b": _mp_train(torch, dev, dense, MP_DENSE_MESH, mp_train_config(
                 TRAINMP_STEPS, TRAIN_B, TRAIN_L, dense.n_micro), "(b)"),
@@ -1743,9 +1777,9 @@ def _trainmp_rank(rank, cfg, out_q):
                 MP_MOE_C_STEPS, MP_MOE_B, MP_MOE_L, MP_MOE_MICRO), "(c)"),
             "d": _mp_collectives(torch, dev, cfg["world"], MP_COLL_N),
             "e": _mp_train(torch, dev, moe, MP_EP_MESH, mp_train_config(
-                MP_MOE_STEPS, MP_MOE_B, MP_MOE_L, MP_MOE_MICRO), "(e)"),
-            "f": _mp_train(torch, dev, ssm, MP_SSM_MESH, mp_train_config(
-                MP_SSM_STEPS, MP_SSM_B, MP_SSM_L, ssm.n_micro), "(f)")}
+                MP_MOE_STEPS, MP_MOE_B, MP_MOE_L, MP_MOE_MICRO), "(e)")}
+        for key, fam, shape, tc in _mp_families(configs):
+            out[key] = _mp_train(torch, dev, fam, shape, tc, f"({key})")
         out_q.put((rank, True, out))
     except BaseException:
         out_q.put((rank, False, traceback.format_exc()))
@@ -1755,8 +1789,8 @@ def _trainmp_rank(rank, cfg, out_q):
 
 
 def trainmp_ranks(torch, dev) -> None:
-    """(b)-(f) on P_DIST gloo ranks sharing the card, each held against
-    one process on the card (b, c, e, f) or the exact sum (d)."""
+    """(b)-(h) on P_DIST gloo ranks sharing the card, each held against
+    one process on the card (b, c, e-h) or the exact sum (d)."""
     from repro_torch import configs
     from repro_torch.core import costmodel
     from repro_torch.train.loop import train
@@ -1780,19 +1814,20 @@ def trainmp_ranks(torch, dev) -> None:
     e_steps = one_e.step_s
     del one_e
     torch.cuda.empty_cache()
-    ssm = configs.get(MP_SSM_ARCH)
-    tc_f = mp_train_config(MP_SSM_STEPS, MP_SSM_B, MP_SSM_L, ssm.n_micro)
-    torch.cuda.reset_peak_memory_stats()
-    one_f = train(ssm, tc_f, log=lambda *a: None, device=dev)
-    want_f, f_bytes, f_peak = (one_f.losses, state_bytes(one_f.state),
-                               torch.cuda.max_memory_allocated())
-    f_steps = one_f.step_s
-    del one_f
-    torch.cuda.empty_cache()
+    one_fam = {}
+    for key, fam, _, tc_fam in _mp_families(configs):
+        torch.cuda.reset_peak_memory_stats()
+        one_x = train(fam, tc_fam, log=lambda *a: None, device=dev)
+        one_fam[key] = dict(losses=one_x.losses,
+                            state=state_bytes(one_x.state),
+                            peak=torch.cuda.max_memory_allocated(),
+                            steps=one_x.step_s)
+        del one_x
+        torch.cuda.empty_cache()
     cfg = dict(device=str(dev), world=P_DIST, init_file=str(MP_DIR / "pg"))
     t0 = time.perf_counter()
     results = spawn_ranks(_trainmp_rank, cfg, "trainmp")
-    print(f"trainmp: {P_DIST} gloo ranks on one card, (b)-(f) in "
+    print(f"trainmp: {P_DIST} gloo ranks on one card, (b)-(h) in "
           f"{time.perf_counter() - t0:.1f} s (process start included)")
     rows = [results[r] for r in range(P_DIST)]
 
@@ -1813,17 +1848,16 @@ def trainmp_ranks(torch, dev) -> None:
         check(rel <= tol, f"trainmp (b) step {i}: loss differs by {rel:.3e}")
     for r, row in enumerate(rows):
         b = row["b"]
-        print(f"  rank {r} {b['coords']}: route {b['route']}, attn_wq "
+        print(f"  rank {r} {b['coords']}: attn_wq "
               f"block {b['wq']}, state {b['state_bytes'] / 2**30:.3f} GiB "
               f"({b['state_bytes'] / one_bytes:.3f} of one process), gloo "
               f"host copies {b['copies']:.0f} and wire bytes "
               f"{float(Fraction(b['wire'])):.4e} per step, peak "
               f"{b['peak'] / 2**30:.2f} GiB")
         check(b["losses"] == b0["losses"], "trainmp (b): ranks disagree")
-        check(b["route"] == "split" and b["wq"] == (
-            dense.d_model // MP_DENSE_MESH[0],
-            dense.n_heads * dense.hd // MP_DENSE_MESH[1]),
-            f"trainmp (b): route {b['route']}, attn_wq block {b['wq']}")
+        check(b["wq"] == (dense.d_model // MP_DENSE_MESH[0],
+                          dense.n_heads * dense.hd // MP_DENSE_MESH[1]),
+              f"trainmp (b): attn_wq block {b['wq']}")
 
     # (c) the MoE on (4, 1): the per-shard dispatch
     c0 = rows[0]["c"]
@@ -1850,7 +1884,7 @@ def trainmp_ranks(torch, dev) -> None:
     # (e) the MoE on (1, 4): each rank its share of the experts
     e0 = rows[0]["e"]
     print(f"trainmp (e): {moe.name} at {MP_MOE_LAYERS} layer(s) on mesh "
-          f"{MP_EP_MESH} (route {e0['route']}), {MP_MOE_STEPS} steps of "
+          f"{MP_EP_MESH}, {MP_MOE_STEPS} steps of "
           f"{MP_MOE_B} x {MP_MOE_L}, n_micro {MP_MOE_MICRO}; one process: "
           f"state {e_bytes / 2**30:.3f} GiB, peak {e_peak / 2**30:.2f} GiB, "
           f"steps {', '.join(f'{w:.3f}' for w in e_steps)} s")
@@ -1872,35 +1906,11 @@ def trainmp_ranks(torch, dev) -> None:
               f"{float(Fraction(e['wire'])):.4e} per step, peak "
               f"{e['peak'] / 2**30:.2f} GiB")
         check(e["losses"] == e0["losses"], "trainmp (e): ranks disagree")
-        check(e["route"] == "split"
-              and e["experts"] == moe.n_experts // MP_EP_MESH[1],
-              f"trainmp (e): route {e['route']}, {e['experts']} experts")
+        check(e["experts"] == moe.n_experts // MP_EP_MESH[1],
+              f"trainmp (e): {e['experts']} experts")
 
-    # (f) the SSM on (2, 2): the "gather" route
-    f0 = rows[0]["f"]
-    print(f"trainmp (f): {ssm.name} on mesh {MP_SSM_MESH} (route "
-          f"{f0['route']}), {MP_SSM_STEPS} steps of {MP_SSM_B} x {MP_SSM_L}"
-          f", n_micro {ssm.n_micro}; one process: state "
-          f"{f_bytes / 2**30:.3f} GiB, peak {f_peak / 2**30:.2f} GiB, steps "
-          f"{', '.join(f'{w:.3f}' for w in f_steps)} s")
-    for i, want in enumerate(want_f):
-        rel = max(abs(r["f"]["losses"][i] - want) / abs(want) for r in rows)
-        tol = MP_STEP1_TOL if i == 0 else MP_LATER_TOL
-        print(f"trainmp (f) step {i}: loss {f0['losses'][i]:.6f} vs one "
-              f"process {want:.6f}: max relative {rel:.3e} (tolerance "
-              f"{tol}); wall {max(r['f']['step_s'][i] for r in rows):.3f} s"
-              f" (slowest rank)")
-        check(rel <= tol, f"trainmp (f) step {i}: loss differs by {rel:.3e}")
-    for r, row in enumerate(rows):
-        f = row["f"]
-        print(f"  rank {r} {f['coords']}: route {f['route']}, state "
-              f"{f['state_bytes'] / 2**30:.3f} GiB "
-              f"({f['state_bytes'] / f_bytes:.3f} of one process), gloo "
-              f"host copies {f['copies']:.0f} and wire bytes "
-              f"{float(Fraction(f['wire'])):.4e} per step, peak "
-              f"{f['peak'] / 2**30:.2f} GiB")
-        check(f["losses"] == f0["losses"], "trainmp (f): ranks disagree")
-        check(f["route"] == "gather", f"trainmp (f): route {f['route']}")
+    for key, fam, shape, tc_fam in _mp_families(configs):
+        _mp_family_report(key, fam, shape, tc_fam, rows, one_fam[key])
 
     # (d) the collectives
     for name, bound, vol in (
@@ -1918,6 +1928,50 @@ def trainmp_ranks(torch, dev) -> None:
               f"trainmp (d) {name}: error beyond {bound}")
         check(all(Fraction(g["wire"]) == vol for g in got),
               f"trainmp (d) {name}: wire bytes differ from the cost model")
+
+
+def _mp_family_report(key, cfg, shape, tc, rows, one) -> None:
+    """(f), (g), (h): every rank's losses against one process's ``one``,
+    within MP_STEP1_TOL at step 1 and MP_LATER_TOL later, and each rank's
+    blocks: the SSM's out-projection rows (its heads, where they split)
+    and the attention's query columns (its heads)."""
+    x0 = rows[0][key]
+    m = shape[1]
+    print(f"trainmp ({key}): {cfg.name} at {cfg.n_layers} layers on mesh "
+          f"{shape}, {tc.steps} steps of {tc.global_batch} x {tc.seq_len}, "
+          f"n_micro {cfg.n_micro}; one process: state "
+          f"{one['state'] / 2**30:.3f} GiB, peak {one['peak'] / 2**30:.2f} "
+          f"GiB, steps {', '.join(f'{w:.3f}' for w in one['steps'])} s")
+    for i, want in enumerate(one["losses"]):
+        rel = max(abs(r[key]["losses"][i] - want) / abs(want) for r in rows)
+        tol = MP_STEP1_TOL if i == 0 else MP_LATER_TOL
+        print(f"trainmp ({key}) step {i}: loss {x0['losses'][i]:.6f} vs one "
+              f"process {want:.6f}: max relative {rel:.3e} (tolerance "
+              f"{tol}); wall {max(r[key]['step_s'][i] for r in rows):.3f} s"
+              f" (slowest rank)")
+        check(rel <= tol, f"trainmp ({key}) step {i}: loss differs by "
+              f"{rel:.3e}")
+    # the blocks a rank holds: its "model" block of the heads' dimension
+    # (the SSM's out-projection rows, the query columns) where it splits
+    want_ssm = ((cfg.d_inner // m, cfg.d_model // shape[0])
+                if cfg.ssm_state and cfg.ssm_nheads % m == 0 else None)
+    want_wq = ((cfg.d_model // shape[0], cfg.n_heads * cfg.hd // m)
+               if cfg.n_heads and cfg.n_heads % m == 0 else None)
+    for r, row in enumerate(rows):
+        x = row[key]
+        print(f"  rank {r} {x['coords']}: ssm_out block {x['ssm_out']}, "
+              f"attn_wq block {x['wq']}, state "
+              f"{x['state_bytes'] / 2**30:.3f} GiB "
+              f"({x['state_bytes'] / one['state']:.3f} of one process), "
+              f"gloo host copies {x['copies']:.0f} and wire bytes "
+              f"{float(Fraction(x['wire'])):.4e} per step, peak "
+              f"{x['peak'] / 2**30:.2f} GiB")
+        check(x["losses"] == x0["losses"], f"trainmp ({key}): ranks "
+              "disagree")
+        check(want_ssm is None or x["ssm_out"] == want_ssm,
+              f"trainmp ({key}): ssm_out block {x['ssm_out']}")
+        check(want_wq is None or x["wq"] == want_wq,
+              f"trainmp ({key}): attn_wq block {x['wq']}")
 
 
 def trainmp_cli() -> None:
@@ -1959,7 +2013,7 @@ def trainmp_cli() -> None:
 
 
 def trainmp_phase(torch, dev, ops, want) -> None:
-    """(a) at world size 1 through NCCL and the torchrun CLI, (b)-(f) on
+    """(a) at world size 1 through NCCL and the torchrun CLI, (b)-(h) on
     gloo ranks."""
     shutil.rmtree(MP_DIR, ignore_errors=True)
     MP_DIR.mkdir(parents=True)
@@ -1970,7 +2024,7 @@ def trainmp_phase(torch, dev, ops, want) -> None:
     print(f"trainmp (a): part wall {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     trainmp_ranks(torch, dev)
-    print(f"trainmp (b)-(f): part wall {time.perf_counter() - t0:.1f} s")
+    print(f"trainmp (b)-(h): part wall {time.perf_counter() - t0:.1f} s")
     shutil.rmtree(MP_DIR, ignore_errors=True)
 
 

@@ -18,11 +18,9 @@ devices propagate and nothing is allocated, launched or sent.  Per cell:
      (as ``init_params`` builds them, without its draws); for train,
      each rank's blocks (``lm.shard_params_``) in ``lm.init_train_state``;
   4. one step through the port's entry point: ``lm.make_train_step(...,
-     mesh=)`` with AdamW and ``cosine_schedule(3e-4, 100, 10000)``, by
-     the route ``lm.step_route`` names (``"split"``: the dense, vlm and
-     MoE families gather each layer's blocks over the FSDP axis as it
-     runs and split its compute over ``"model"``; ``"gather"``: the ssm,
-     hybrid and audio families gather the whole model once per step);
+     mesh=)`` with AdamW and ``cosine_schedule(3e-4, 100, 10000)``, on
+     route ``"split"`` for every family (each layer's blocks gathered
+     over the FSDP axis as it runs, its compute split over ``"model"``);
      ``lm.make_prefill`` / ``lm.make_decode_step`` at the rank's rows.
      The port has no mesh-aware prefill or decode: on a mesh it serves
      as data-parallel replicas (route ``"replicas"``), each rank the
@@ -317,13 +315,12 @@ def _unique_bytes(counters: StepCounters, tensors) -> int:
     return sum(seen.values())
 
 
-def _route(cfg, kind: str, mesh_shape) -> str:
-    """How the step runs on its mesh: ``lm.step_route``'s for a train
-    step on a mesh, ``"replicas"`` for serving on one, else ``"one
-    process"``."""
+def _route(kind: str, mesh_shape) -> str:
+    """How the step runs on its mesh: ``"split"`` for a train step on a
+    mesh, ``"replicas"`` for serving on one, else ``"one process"``."""
     if mesh_shape is None:
         return "one process"
-    return lm.step_route(cfg) if kind == "train" else "replicas"
+    return "split" if kind == "train" else "replicas"
 
 
 def trace_step(cfg, kind: str, batch_size: int, seq_len: int, *,
@@ -389,7 +386,7 @@ def trace_step(cfg, kind: str, batch_size: int, seq_len: int, *,
         "arg_bytes": arg, "out_bytes": out_bytes, "alias_bytes": alias_bytes,
         "temp_bytes": peak - arg - out_bytes + alias_bytes,
         "peak_bytes": peak, "rows_per_dev": rows, "backend": backend,
-        "route": _route(cfg, kind, mesh_shape),
+        "route": _route(kind, mesh_shape),
         "kernel_calls": dict(counters.kernel_calls),
         "kernel_flops": kernel_flops,
         "wall_s": time.time() - t0,

@@ -376,7 +376,8 @@ def attention(cfg: ModelConfig, p, x, positions, *, prefix="attn",
     runs the materialized einsum path ("ref").
 
     Inside ``parallel.split_model`` with the query heads split over the
-    model team (the cache-free self-attention of a train step), a rank
+    model team (the cache-free self- and cross-attention of a train
+    step; ``kv_x``, replicated over the team, enters as ``x`` does), a rank
     computes its own query heads and the kv heads they read (its own
     block of the kv weights where the kv heads split too, else the
     columns it needs of the whole weights), and its rows of the output
@@ -385,11 +386,12 @@ def attention(cfg: ModelConfig, p, x, positions, *, prefix="attn",
     hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv
     dt = x.dtype
     tp = P.active()
-    split = (tp is not None and tp.heads and cache is None
-             and kv_x is None)
+    split = tp is not None and tp.heads and cache is None
     kv_cols = q_index = None
     if split:
         x = tp.copy_to(x)
+        if kv_x is not None:
+            kv_x = tp.copy_to(kv_x)
         k0, k1 = tp.kv_heads(cfg)
         if not tp.kv:
             kv_cols = slice(k0 * hd, k1 * hd)

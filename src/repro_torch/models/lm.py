@@ -14,9 +14,9 @@ parameters, the optimizer state, the serve cache and the batch
 (``param_shardings``, ``opt_shardings``, ``cache_shardings``,
 ``batch_shardings``, from the config's logical rules), each rank's
 blocks of a tree (``shard_tree``, ``shard_params_``) and the whole tree
-back (``gather_tree``, for checkpoints and the ``"gather"`` route), and
-the sharded train step (``make_train_step(..., mesh=)``, its route by
-family in ``step_route``).
+back (``gather_tree``, for checkpoints and tests), and the sharded train
+step (``make_train_step(..., mesh=)``): every family splits each layer
+over the model team (``models.parallel``).
 """
 from __future__ import annotations
 
@@ -152,8 +152,7 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, lr_schedule,
 
     With a ``mesh`` the state holds this rank's blocks under ``specs``
     (default :func:`param_shardings` at ``max_len``) and every rank gets
-    the whole global batch; see :func:`_sharded_step` and
-    :func:`step_route`."""
+    the whole global batch; see :func:`_sharded_step`."""
     n_micro = n_micro if n_micro is not None else cfg.n_micro
     if mesh is not None:
         if specs is None:
@@ -172,21 +171,6 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, lr_schedule,
         return TrainState(state.params, new_opt, state.step + 1), metrics
 
     return train_step
-
-
-#: the families whose train step on a mesh splits each layer over the
-#: model team; the others gather the whole model (:func:`step_route`)
-SPLIT_FAMILIES = frozenset({"dense", "vlm", "moe"})
-
-
-def step_route(cfg: ModelConfig) -> str:
-    """How :func:`_sharded_step` runs ``cfg`` on a mesh: ``"split"`` (the
-    dense, vlm and MoE families: each layer's blocks gathered over the FSDP
-    axis as it runs and its compute split over ``"model"``,
-    ``models.parallel``) or ``"gather"`` (the ssm, hybrid and audio
-    families: the whole model gathered once per step and run whole on
-    every rank)."""
-    return "split" if cfg.family in SPLIT_FAMILIES else "gather"
 
 
 def _sharded_step(cfg: ModelConfig, optimizer, lr_schedule, n_micro: int,
@@ -219,19 +203,11 @@ def sharded_grads(cfg: ModelConfig, mesh, specs, params, batch: Batch,
         fallback to replication) and dispatches the team's token blocks
         itself; the MoE dispatches per shard either way
         (``layers.batch_shards``);
-      * the ``"split"`` route (:func:`step_route`): the forward and
-        backward run inside ``parallel.split_model``, each layer's blocks
-        gathered over the FSDP axis as it runs and its compute split over
-        the model team; a block's gradient comes back summed over the
-        axes its leaf was gathered over, then over the rest of the batch
-        team, and divided by D;
-      * the ``"gather"`` route: the parameters are gathered whole (one
-        all-gather per sharded dimension of each leaf) and every rank runs
-        the whole model; each whole gradient is summed over the batch team
-        and divided by D, keeping this rank's block of each leaf (a
-        reduce-scatter where the leaf's spec splits one dimension over
-        exactly the batch team and the backend has one, else an
-        all-reduce).
+      * the forward and backward run inside ``parallel.split_model``,
+        each layer's blocks gathered over the FSDP axis as it runs and
+        its compute split over the model team; a block's gradient comes
+        back summed over the axes its leaf was gathered over, then over
+        the rest of the batch team, and divided by D.
 
     ``loss`` and ``aux_loss`` are the last micro-batch's, averaged over
     the batch team when the rows are split."""
@@ -250,23 +226,11 @@ def sharded_grads(cfg: ModelConfig, mesh, specs, params, batch: Batch,
             return x.reshape((n_micro, n_team, -1) + rest)[:, r].reshape(
                 (-1,) + rest)
         local = Batch(*(None if x is None else my_rows(x) for x in batch))
-    if step_route(cfg) == "split":
-        with Lyr.batch_shards(mesh, rows), P.split_model(cfg, mesh, specs):
-            (_, aux), grads = accumulate_gradients(
-                partial(loss_fn, cfg), params, local, n_micro)
-        _replace_leaves(lambda g, spec: _team_mean_rest(
-            g, spec, mesh, team, n_team), grads, specs)
-    else:
-        with torch.no_grad():
-            full = T.DecoderLM(cfg, gather_tree(params, specs, mesh))
-        full.requires_grad_(True)
-        with Lyr.batch_shards(mesh, rows):
-            (_, aux), grads = accumulate_gradients(partial(loss_fn, cfg),
-                                                   full, local, n_micro)
-        del full
-        # each whole gradient is replaced by its block (and freed) in turn
-        _replace_leaves(lambda g, spec: _team_mean_block(
-            g, spec, mesh, team, n_team), grads, specs)
+    with Lyr.batch_shards(mesh, rows), P.split_model(cfg, mesh, specs):
+        (_, aux), grads = accumulate_gradients(
+            partial(loss_fn, cfg), params, local, n_micro)
+    _replace_leaves(lambda g, spec: _team_mean_rest(
+        g, spec, mesh, team, n_team), grads, specs)
     loss, aux_loss = aux["loss"], aux["aux_loss"]
     if rows and n_team > 1:
         both = mesh.psum(torch.stack([loss, aux_loss]), team) / n_team
@@ -282,17 +246,6 @@ def _replace_leaves(fn, tree, specs) -> None:
             _replace_leaves(fn, tree[k], specs[k])
         else:
             tree[k] = fn(tree[k], specs[k])
-
-
-def _team_mean_block(g, spec, mesh, team, n_team: int):
-    """This rank's block under ``spec`` of the mean of ``g`` over the
-    batch team."""
-    dim = next((i for i, e in enumerate(spec) if spec_axes(e) == team), None)
-    if dim is None:
-        return mesh.shard(mesh.psum(g, team), spec) / n_team
-    rest = tuple(None if i == dim else e for i, e in enumerate(spec))
-    g = mesh.shard(g, rest).movedim(dim, 0)
-    return mesh.reduce_scatter(g, team).movedim(0, dim) / n_team
 
 
 def _team_mean_rest(g, spec, mesh, team, n_team: int):

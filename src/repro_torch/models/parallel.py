@@ -9,12 +9,15 @@ writes out what that program computes on a mesh of ranks
 
   * the residual stream is replicated over the model team: each rank of a
     data shard holds the same rows;
-  * attention splits by query heads (each rank its own, and the kv heads
-    they read), the dense MLP by ``d_ff`` columns, the MoE by experts
-    (``"ep"``, ``"ep_virtual"``) or by ``d_ff_expert`` (``"tp"``), and the
-    embedding, the head and the loss by vocabulary rows; a piece whose
-    dimension the model team does not divide is computed whole on every
-    rank, as the reference's rule drops that mapping;
+  * attention (self and cross) splits by query heads (each rank its own,
+    and the kv heads they read), the dense MLP by ``d_ff`` columns, the
+    MoE by experts (``"ep"``, ``"ep_virtual"``) or by ``d_ff_expert``
+    (``"tp"``), the Mamba2 block by SSM heads (each rank its own and the
+    B / C groups they read), and the embedding, the head and the loss by
+    vocabulary rows, in every group of layers (``blocks``, Whisper's
+    ``enc``, Zamba2's ``shared``); a piece whose dimension the model team
+    does not divide is computed whole on every rank, as the reference's
+    rule drops that mapping;
   * each rank keeps its blocks of the parameters under their specs and
     gathers a layer's blocks over the FSDP axis (and, where the compute
     needs the whole leaf, over ``"model"``) when the layer runs: inside the
@@ -41,11 +44,12 @@ collective watcher):
 Inside split compute a rank's gradients are its share: summed over the
 model team they make the whole.  So a leaf replicated over ``"model"``
 that split compute reads (the kv projection where the kv heads do not
-divide, the MoE router, chameleon's qk-norm) gets ``copy_to`` on the
-weight, and one that only whole compute reads (the norm scales) gets
-none: its gradient is equal on every model rank.  The MoE's aux loss is
-computed whole on every rank and enters the loss as ``reduce_from(aux /
-m)``, its gradient a share like the rest.
+divide, the MoE router, chameleon's qk-norm, the SSM's per-head vectors
+and gated-norm scale) gets ``copy_to`` on the weight, and one that only
+whole compute reads (the norm scales) gets none: its gradient is equal
+on every model rank.  The MoE's aux loss is computed whole on every rank
+and enters the loss as ``reduce_from(aux / m)``, its gradient a share
+like the rest.
 """
 from __future__ import annotations
 
@@ -180,7 +184,9 @@ class Split:
     ``mesh``, decided from the parameters' ``specs`` (``lm.param_shardings``):
     ``heads`` (query heads; ``kv`` when the kv heads split too), ``mlp``,
     ``experts`` ("ep" over the dispatch experts, "tp" over
-    ``d_ff_expert``, or None) and ``vocab``; ``m`` is the team's size."""
+    ``d_ff_expert``, or None), ``ssm`` (the Mamba2 heads) and ``vocab``,
+    each from whichever group holds the piece; ``m`` is the team's
+    size."""
 
     def __init__(self, cfg: ModelConfig, mesh, specs: dict):
         self.mesh, self.specs = mesh, specs
@@ -198,25 +204,49 @@ class Split:
             start, n = local_span(name, size, mesh, rules)
             return start, start + n
 
-        blk = specs["blocks"][0] if specs.get("blocks") else {}
-        self.heads = ("attn_wq" in blk and _is_model(blk["attn_wq"][1])
+        def holder(name: str) -> dict:
+            # the group whose blocks hold leaf ``name`` (Zamba2's attention
+            # and MLP live in "shared", Whisper's encoder in "enc")
+            for group in ("blocks", "shared", "enc"):
+                spec = specs.get(group)
+                spec = spec[0] if isinstance(spec, list) and spec else spec
+                if spec and name in spec:
+                    return spec
+            return {}
+
+        att, mlp, moe = holder("attn_wq"), holder("mlp_wu"), holder("moe_wg")
+        self.heads = ("attn_wq" in att and _is_model(att["attn_wq"][1])
                       and split("q_heads", cfg.n_heads))
-        self.kv = (self.heads and _is_model(blk["attn_wk"][1])
+        self.kv = (self.heads and _is_model(att["attn_wk"][1])
                    and split("kv", cfg.n_kv))
-        self.mlp = (self.m > 1 and "mlp_wu" in blk
-                    and _is_model(blk["mlp_wu"][1]))
+        self.mlp = self.m > 1 and "mlp_wu" in mlp and _is_model(
+            mlp["mlp_wu"][1])
         self.experts = None
-        if self.m > 1 and "moe_wg" in blk:
-            if _is_model(blk["moe_wg"][0]):
+        if self.m > 1 and "moe_wg" in moe:
+            if _is_model(moe["moe_wg"][0]):
                 self.experts = "ep"
-            elif _is_model(blk["moe_wg"][2]):
+            elif _is_model(moe["moe_wg"][2]):
                 self.experts = "tp"
+        ssm = holder("ssm_out")
+        nh = cfg.ssm_nheads if "ssm_out" in ssm else 0
+        # the SSM splits by heads, each rank reading the rank's "model"
+        # block of the out-projection's rows (head-aligned when m | nh)
+        self.ssm = (self.m > 1 and nh > 0 and nh % self.m == 0
+                    and _is_model(ssm["ssm_out"][0]))
         self.vocab = self.m > 1 and _is_model(specs["embed"]["tok"][0])
-        #: [start, stop) of this rank's query heads, dispatch experts and
-        #: vocabulary rows (the whole range where they do not split)
+        #: [start, stop) of this rank's query heads, SSM heads, dispatch
+        #: experts and vocabulary rows (the whole range where they do not
+        #: split)
         self.q_span = span("q_heads", cfg.n_heads)
+        self.ssm_span = span("heads", nh) if self.ssm else (0, nh)
         self.expert_span = span("expert", cfg.n_experts_disp)
         self.vocab_span = span("vocab", cfg.vocab_pad)
+        #: [start, stop) of the B / C groups this rank's SSM heads read
+        self.ssm_groups = (0, cfg.ssm_ngroups)
+        if self.ssm:
+            per = nh // cfg.ssm_ngroups
+            h0, h1 = self.ssm_span
+            self.ssm_groups = (h0 // per, (h1 - 1) // per + 1)
         self._plans = {group: self._plan(group) for group in specs}
 
     # -- the pieces ----------------------------------------------------
@@ -242,10 +272,10 @@ class Split:
     def _mode(self, group: str, name: str):
         if group == "embed" and name in ("tok", "unembed"):
             return (SPLIT, 0) if self.vocab else WHOLE
-        if group != "blocks":
+        if group not in ("blocks", "enc", "shared"):
             return WHOLE
         kind, _, leaf = name.partition("_")
-        if kind == "attn":
+        if kind in ("attn", "xattn"):
             if not self.heads:
                 return WHOLE
             if leaf in ("wq", "bq", "wo"):
@@ -262,6 +292,13 @@ class Split:
             if self.experts == "ep":
                 return (SPLIT, 0)
             return (SPLIT, 1 if leaf == "wd" else 2)
+        if kind == "ssm" and self.ssm:
+            # the in-projection's and the conv's "heads" dimension is the
+            # concatenation z | x | B | C | dt, whose "model" blocks do not
+            # line up with a rank's heads: read whole, the rank's columns
+            # cut out (ssm.mamba2_block); the per-head vectors and the
+            # gated norm's scale likewise
+            return (SPLIT, 0) if leaf == "out" else PARTIAL
         return WHOLE
 
     def _plan(self, group: str) -> dict:

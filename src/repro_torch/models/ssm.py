@@ -14,12 +14,20 @@ The reference's numerics are kept: every SSD operand is cast to float32
 and the state ``h`` is float32 whatever the compute dtype; the conv, the
 skip and the gated norm run in the compute dtype.  The reference's
 inter-chunk ``lax.scan`` is a Python loop over the L / Q chunks.
+
+Inside ``parallel.split_model`` with the SSM heads split over the model
+team (a train step on a mesh), a block computes this rank's heads: their
+columns of z, x and dt, the B / C groups they read (each head its own
+group, wherever the rank's heads fall), the conv on those channels, its
+rows of the out-projection (partial sums, all-reduced), and the gated
+norm's mean square summed over the team.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from . import parallel as P
 from .config import ModelConfig
 from .layers import fan_in, rmsnorm
 
@@ -43,13 +51,37 @@ def ssm_schema(cfg: ModelConfig, prefix: str = "ssm"):
     }
 
 
-def _split_in(cfg: ModelConfig, zxbcdt):
-    di = cfg.d_inner
-    g, ns, nh = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads
+def _split_in(zxbcdt, di: int, gn: int, nh: int):
+    """z, xbc (x | B | C) and dt of the in-projection's output, for
+    ``di`` channels of x, ``gn`` of B (and of C) and ``nh`` heads."""
     z = zxbcdt[..., :di]
-    xbc = zxbcdt[..., di:di + di + 2 * g * ns]
+    xbc = zxbcdt[..., di:di + di + 2 * gn]
     dt = zxbcdt[..., -nh:]
     return z, xbc, dt
+
+
+def _rank_columns(cfg: ModelConfig, heads: tuple[int, int],
+                  groups: tuple[int, int], device=None):
+    """This rank's columns of the in-projection (z | x | B | C | dt) and
+    channels of the conv (x | B | C): the heads [h0, h1) and the B / C
+    groups [g0, g1) they read."""
+    di, ns, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_headdim
+    gn = cfg.ssm_ngroups * ns
+    (h0, h1), (g0, g1) = heads, groups
+    x = torch.arange(h0 * hp, h1 * hp, device=device)
+    bc = torch.arange(g0 * ns, g1 * ns, device=device)
+    conv = torch.cat([x, di + bc, di + gn + bc])
+    dt = torch.arange(2 * di + 2 * gn + h0, 2 * di + 2 * gn + h1,
+                      device=device)
+    return torch.cat([x, di + conv, dt]), conv
+
+
+def _per_head(t, rep: int, group_of):
+    """(..., g, N) groups -> (..., nh, N) heads: head h reads group
+    ``group_of[h]``, else h // rep."""
+    if group_of is None:
+        return torch.repeat_interleave(t, rep, dim=-2)
+    return t.index_select(t.dim() - 2, group_of)
 
 
 def _causal_conv(xbc, w, b, *, state=None):
@@ -88,10 +120,12 @@ def _softplus(x):
     return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def ssd_chunked(x, dt, a, b, c, *, chunk: int, h0=None):
+def ssd_chunked(x, dt, a, b, c, *, chunk: int, h0=None, group_of=None):
     """SSD forward.  x: (B, L, nh, hp); dt: (B, L, nh) (post-softplus);
-    a: (nh,) negative; b, c: (B, L, g, N); h0: (B, nh, hp, N) or None.
-    Returns (y in x's dtype, h_last (B, nh, hp, N) float32).
+    a: (nh,) negative; b, c: (B, L, g, N); h0: (B, nh, hp, N) or None;
+    ``group_of`` (nh,) each head's group among b's and c's, or None for
+    nh / g consecutive heads per group.  Returns (y in x's dtype, h_last
+    (B, nh, hp, N) float32).
 
     At most two (B, L/Q, nh, Q, Q) float32 tensors are live at a time:
     the decay matrix and the scores, multiplied in place."""
@@ -114,8 +148,8 @@ def ssd_chunked(x, dt, a, b, c, *, chunk: int, h0=None):
     f32 = torch.float32
     xc = x.reshape(B, nc, Q, nh, hp).to(f32)
     dtc = dt.reshape(B, nc, Q, nh).to(f32)
-    bc = torch.repeat_interleave(b.reshape(B, nc, Q, g, N), rep, dim=3).to(f32)
-    cc = torch.repeat_interleave(c.reshape(B, nc, Q, g, N), rep, dim=3).to(f32)
+    bc = _per_head(b.reshape(B, nc, Q, g, N), rep, group_of).to(f32)
+    cc = _per_head(c.reshape(B, nc, Q, g, N), rep, group_of).to(f32)
     da = dtc * a.to(f32)                                  # (B, nc, Q, nh)
     xdt = xc * dtc[..., None]
 
@@ -149,15 +183,15 @@ def ssd_chunked(x, dt, a, b, c, *, chunk: int, h0=None):
     return y.to(x.dtype), h
 
 
-def ssd_recurrent_ref(x, dt, a, b, c, *, h0=None):
+def ssd_recurrent_ref(x, dt, a, b, c, *, h0=None, group_of=None):
     """The per-step recurrence (the plain oracle, and the decode step's
     semantics).  Shapes as in :func:`ssd_chunked`."""
     B, L, nh, hp = x.shape
     g, N = b.shape[2], b.shape[3]
     rep = nh // g
     f32 = torch.float32
-    bf = torch.repeat_interleave(b, rep, dim=2).to(f32)
-    cf = torch.repeat_interleave(c, rep, dim=2).to(f32)
+    bf = _per_head(b, rep, group_of).to(f32)
+    cf = _per_head(c, rep, group_of).to(f32)
     dtf = dt.to(f32)
     af = a.to(f32)
     h = (torch.zeros((B, nh, hp, N), dtype=f32, device=x.device)
@@ -175,38 +209,83 @@ def mamba2_block(cfg: ModelConfig, p, x, *, prefix="ssm", cache=None):
     """The Mamba2 block.  x: (B, L, d).  ``cache`` is None or one layer's
     ``{"conv": (B, K-1, conv_dim), "h": (B, nh, hp, N)}``, read as the
     state before this call and written in place with the state after it
-    (decode, chunked prefill).  Returns (out, cache)."""
+    (decode, chunked prefill).  Returns (out, cache).
+
+    Inside ``parallel.split_model`` with the SSM heads split (the cache-
+    free forward of a train step), this rank's heads only: see the
+    module's docstring."""
     B, L, d = x.shape
     dt_ = x.dtype
-    di = cfg.d_inner
-    g, ns, nh = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_nheads
-    hp = cfg.ssm_headdim
+    ns, hp = cfg.ssm_state, cfg.ssm_headdim
+    w_in, w_conv, b_conv = (p[f"{prefix}_in"], p[f"{prefix}_conv"],
+                            p[f"{prefix}_conv_b"])
+    alog, dtb, skip = (p[f"{prefix}_alog"], p[f"{prefix}_dtb"],
+                       p[f"{prefix}_d"])
+    gnorm = p[f"{prefix}_gnorm"]
+    tp = P.active()
+    split = tp is not None and tp.ssm and cache is None
+    group_of = None
+    if split:
+        x = tp.copy_to(x)
+        (h0, h1), (g0, g1) = tp.ssm_span, tp.ssm_groups
+        cols, chans = _rank_columns(cfg, tp.ssm_span, tp.ssm_groups,
+                                    x.device)
+        w_in = w_in.index_select(1, cols)
+        w_conv = w_conv.index_select(1, chans)
+        b_conv = b_conv.index_select(0, chans)
+        alog, dtb, skip = alog[h0:h1], dtb[h0:h1], skip[h0:h1]
+        gnorm = gnorm[h0 * hp:h1 * hp]
+        # each of the rank's heads reads its own group, wherever the
+        # rank's heads fall among the groups
+        group_of = (torch.arange(h0, h1, device=x.device)
+                    // (cfg.ssm_nheads // cfg.ssm_ngroups) - g0)
+        nh, g = h1 - h0, g1 - g0
+    else:
+        nh, g = cfg.ssm_nheads, cfg.ssm_ngroups
+    di = nh * hp
 
-    zxbcdt = x @ p[f"{prefix}_in"].to(dt_)
-    z, xbc, dtr = _split_in(cfg, zxbcdt)
+    zxbcdt = x @ w_in.to(dt_)
+    z, xbc, dtr = _split_in(zxbcdt, di, g * ns, nh)
     xbc, new_conv = _causal_conv(
-        xbc, p[f"{prefix}_conv"].to(dt_), p[f"{prefix}_conv_b"].to(dt_),
+        xbc, w_conv.to(dt_), b_conv.to(dt_),
         state=None if cache is None else cache["conv"])
     xs = xbc[..., :di].reshape(B, L, nh, hp)
     bmat = xbc[..., di:di + g * ns].reshape(B, L, g, ns)
     cmat = xbc[..., di + g * ns:].reshape(B, L, g, ns)
-    dt = _softplus(dtr.float() + p[f"{prefix}_dtb"].float())
-    a = -torch.exp(p[f"{prefix}_alog"].float())
+    dt = _softplus(dtr.float() + dtb.float())
+    a = -torch.exp(alog.float())
 
     h0 = None if cache is None else cache["h"]
     if L == 1:  # decode: one recurrence step, no chunking
-        y, h = ssd_recurrent_ref(xs, dt, a, bmat, cmat, h0=h0)
+        y, h = ssd_recurrent_ref(xs, dt, a, bmat, cmat, h0=h0,
+                                 group_of=group_of)
     else:
         y, h = ssd_chunked(xs, dt, a, bmat, cmat, chunk=cfg.ssm_chunk,
-                           h0=h0)
-    y = y + xs * p[f"{prefix}_d"].to(dt_)[None, None, :, None]
-    y = rmsnorm(y.reshape(B, L, di) * F.silu(z), p[f"{prefix}_gnorm"],
-                cfg.norm_eps)
-    out = y @ p[f"{prefix}_out"].to(dt_)
+                           h0=h0, group_of=group_of)
+    y = y + xs * skip.to(dt_)[None, None, :, None]
+    y = y.reshape(B, L, di) * F.silu(z)
+    if split:
+        y = _team_rmsnorm(tp, y, gnorm, cfg.norm_eps, cfg.d_inner)
+        out = tp.reduce_from(y @ p[f"{prefix}_out"].to(dt_))
+    else:
+        y = rmsnorm(y, gnorm, cfg.norm_eps)
+        out = y @ p[f"{prefix}_out"].to(dt_)
     if cache is not None:
         cache["conv"].copy_(new_conv)
         cache["h"].copy_(h)
     return out, cache
+
+
+def _team_rmsnorm(tp, x, scale, eps, width: int):
+    """``layers.rmsnorm`` over ``width`` channels of which this rank holds
+    ``x``'s: the sum of squares all-reduced over the model team.  The
+    normalised channels feed split compute again, so each rank's gradient
+    of the sum is its share: ``copy_to`` sums them in the backward."""
+    dt = x.dtype
+    x = x.float()
+    ss = tp.copy_to(tp.reduce_from(torch.sum(x * x, dim=-1, keepdim=True)))
+    return ((x * torch.rsqrt(ss / width + eps))
+            * (1.0 + scale.float())).to(dt)
 
 
 def ssm_cache_shape(cfg: ModelConfig, batch: int):

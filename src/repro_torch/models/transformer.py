@@ -331,7 +331,7 @@ def _embed(cfg: ModelConfig, params, tokens, positions):
         # with no host-to-device copy
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
     if cfg.rope_theta == 0 and "pos" in params.embed:
-        h = h + params.embed["pos"].to(dt)[positions]
+        h = h + P.leaf("embed", params.embed, "pos").to(dt)[positions]
     return h
 
 
@@ -375,10 +375,11 @@ def encode(cfg: ModelConfig, params: DecoderLM, frames):
     """Whisper's encoder over stub frame embeddings (B, enc_len, d):
     learned positions, bidirectional attention, the final ``efn`` norm."""
     dt = getattr(torch, cfg.dtype)
-    h = frames.to(dt) + params.embed["pos_enc"].to(dt)
+    h = frames.to(dt) + P.leaf("embed", params.embed, "pos_enc").to(dt)
     positions = torch.arange(h.shape[1], device=h.device)
 
     def layer(h, p):
+        p = P.view("enc", p)
         x = L.apply_norm(cfg, p, "ln1", h)
         a, _ = L.attention(cfg, p, x, positions, causal=False)
         h = h + a
@@ -419,7 +420,7 @@ def forward(cfg: ModelConfig, params: DecoderLM, tokens, positions, *,
         if caches is None:
             (h,) = _run_layers(
                 lambda h, p: (apply_xdec_block(
-                    cfg, p, h, positions, enc_out)[0],),
+                    cfg, P.view("blocks", p), h, positions, enc_out)[0],),
                 (h,), [(p,) for p in params.blocks], remat)
         else:
             for layer, p in enumerate(params.blocks):
@@ -431,7 +432,8 @@ def forward(cfg: ModelConfig, params: DecoderLM, tokens, positions, *,
     elif cfg.family == "ssm":
         if caches is None:
             (h,) = _run_layers(
-                lambda h, p: (apply_ssm_block(cfg, p, h)[0],), (h,),
+                lambda h, p: (apply_ssm_block(cfg, P.view("blocks", p),
+                                              h)[0],), (h,),
                 [(p,) for p in params.blocks], remat)
         else:
             for layer, p in enumerate(params.blocks):
@@ -443,10 +445,11 @@ def forward(cfg: ModelConfig, params: DecoderLM, tokens, positions, *,
                   for grp in range(cfg.n_layers // per)]
         if caches is None:
             def group(h, members):
-                h, _ = apply_shared_block(cfg, params.shared, h, positions,
-                                          fresh_kv=fresh_kv)
+                h, _ = apply_shared_block(cfg, P.view("shared",
+                                                      params.shared),
+                                          h, positions, fresh_kv=fresh_kv)
                 for p in members:
-                    h, _ = apply_ssm_block(cfg, p, h)
+                    h, _ = apply_ssm_block(cfg, P.view("blocks", p), h)
                 return (h,)
             # the reference checkpoints each group, not its Mamba2 layers
             (h,) = _run_layers(group, (h,), [(m,) for m in groups], remat)
@@ -466,7 +469,8 @@ def forward(cfg: ModelConfig, params: DecoderLM, tokens, positions, *,
         if caches is None:
             def layer(h, aux, p, w):
                 # a split step's blocks are gathered here, inside the
-                # layer's checkpoint: remat gathers them again
+                # layer's checkpoint (as in every family's loop above):
+                # remat gathers them again
                 h, _, a = apply_decoder_block(cfg, P.view("blocks", p), h,
                                               positions, w)
                 return h, aux + a

@@ -1,9 +1,8 @@
-"""Shared harness of ``test_torch_tp.py`` and ``test_torch_tp_moe.py``: the
-split route of the sharded train step (``lm.step_route(cfg) == "split"``,
-``repro_torch.models.parallel``) on 4 gloo ranks against the reference's
+"""Shared harness of ``test_torch_tp.py``, ``test_torch_tp_moe.py`` and
+``test_torch_tp_ssm.py``: the split route of the sharded train step
+(``repro_torch.models.parallel``) on 4 gloo ranks against the reference's
 ``train(mesh=)`` on 4 virtual XLA devices, in float32.
 
-``test_torch_tp_gather.py`` holds the "gather" route the same way.
 A case is ``(key, smoke config name, overrides)``; both packages start
 from the reference's weights (``convert.lm_params_from_numpy``) and draw
 the same batches.  The reference runs once per file in a subprocess (it
@@ -11,6 +10,7 @@ needs ``XLA_FLAGS`` set before JAX starts): each case's losses on each
 mesh, its step-1 gradient, its parameters' shard shapes and its step-3
 checkpoint.
 """
+import math
 import os
 import subprocess
 import sys
@@ -23,6 +23,8 @@ from repro import configs as jconfigs
 from repro.models import transformer as jT
 from repro_torch import configs as tconfigs
 from repro_torch import convert
+from repro_torch.models import lm
+from repro_torch.models.config import spec_axes
 
 import test_torch_dryrun as td_dry
 import test_torch_ranks as td
@@ -39,10 +41,14 @@ KW = dict(seq_len=SEQ, global_batch=BATCH, steps=STEPS, peak_lr=1e-3,
 #: leaf's max or exactly zero, the rest counted under LEFT_OUT
 LOSS_TOL = 1e-5
 SIGN_FRAC, PARAM_TOL, LEFT_OUT = 1e-3, 5e-6, 0.05
-#: the model team's all-gathers against the whole-model gather of the
-#: "gather" route on the same mesh: only the leaves a split piece reads
-#: whole (kv projections that do not split, the router) cross "model"
+#: the model team's all-gathers against one whole-model gather on the
+#: same mesh: only the leaves a split piece reads whole (kv projections
+#: that do not split, the router) cross "model"
 MODEL_GATHER_SHARE = 0.1
+#: the leaves a split Mamba2 block gathers whole over "model": their
+#: "heads" dimension is the concatenation z | x | B | C | dt (or x | B |
+#: C), whose "model" blocks do not line up with a rank's heads
+SSM_MODEL_GATHERED = ("ssm_in", "ssm_conv", "ssm_conv_b")
 
 
 def key(shape) -> str:
@@ -332,12 +338,66 @@ def check_norm_grads_equal(res):
                                               err_msg=k)
 
 
-def whole_gather_bytes(name, over, shape) -> Fraction:
-    """The all-gather wire bytes of the "gather" route's whole-model
-    gather of the smoke config ``name`` on a (data, model) mesh of
-    ``shape`` (``test_torch_dryrun``'s closed form)."""
+def _specs_and_wholes(name, over, shape):
+    """(group, leaf, spec, whole shape) of every parameter of the smoke
+    config ``name`` on a (data, model) mesh of ``shape``, per layer."""
     cfg = tconfigs.get_smoke(name).with_(dtype="float32", **over)
-    return td_dry.whole_gather_bytes(cfg, shape, ("data", "model"), SEQ)
+    mesh = td_dry._MeshStub(shape, ("data", "model"))
+    tree = lm.param_shardings(cfg, mesh, SEQ)
+    named = [(g, k, s) for g in sorted(tree)
+             for layer in (tree[g] if isinstance(tree[g], list)
+                           else [tree[g]])
+             for k, s in sorted(layer.items())]
+    wholes = td_dry._whole_shapes(cfg, SEQ)
+    assert len(named) == len(wholes)
+    return [n + (w,) for n, w in zip(named, wholes)]
+
+
+def _gathers(spec, whole, sizes, over_model: bool):
+    """The all-gather wire bytes (float32) of one leaf's block gathered
+    per sharded dimension (the FSDP axes first, as ``Split._plan``
+    orders them), over "model" as well when ``over_model``: (over the
+    other axes, over "model")."""
+    ext = [math.prod(sizes[a] for a in spec_axes(e)) for e in spec]
+    block = [d // e for d, e in zip(whole, ext)]
+    got = [Fraction(0), Fraction(0)]
+    for dim, e in sorted(enumerate(spec),
+                         key=lambda de: "model" in spec_axes(de[1])):
+        model = "model" in spec_axes(e)
+        if ext[dim] == 1 or (model and not over_model):
+            continue
+        got[model] += (ext[dim] - 1) * 4 * math.prod(block)
+        block[dim] *= ext[dim]
+    return tuple(got)
+
+
+def whole_gather_bytes(name, over, shape) -> Fraction:
+    """The all-gather wire bytes (float32) of one whole-model gather of the
+    smoke config ``name`` on a (data, model) mesh of ``shape``, from
+    ``param_shardings``: per leaf one all-gather per sharded dimension of
+    the block gathered so far."""
+    sizes = dict(zip(("data", "model"), shape))
+    return sum((sum(_gathers(spec, whole, sizes, True))
+                for _, _, spec, whole in _specs_and_wholes(name, over,
+                                                           shape)),
+               Fraction(0))
+
+
+def ssm_model_gather_bytes(name, over, shape) -> Fraction:
+    """The all-gather wire bytes (float32) over "model" of one step of the
+    split route where the SSM heads split and every other piece reads its
+    own "model" block: per layer each SSM_MODEL_GATHERED leaf's block,
+    gathered over "data" first, then over "model"."""
+    sizes = dict(zip(("data", "model"), shape))
+    return sum((_gathers(spec, whole, sizes, True)[1]
+                for _, k, spec, whole in _specs_and_wholes(name, over,
+                                                           shape)
+                if k in SSM_MODEL_GATHERED), Fraction(0))
+
+
+def _model_gathers(r) -> Fraction:
+    return sum((Fraction(b) for prim, axes, b in r["events"]
+                if prim == "all_gather" and "model" in axes), Fraction(0))
 
 
 def check_census(res, name, over, shape, share=MODEL_GATHER_SHARE):
@@ -348,23 +408,27 @@ def check_census(res, name, over, shape, share=MODEL_GATHER_SHARE):
     where it splits."""
     whole = whole_gather_bytes(name, over, shape)
     for r in res:
-        gathers = [(axes, Fraction(b)) for prim, axes, b in r["events"]
-                   if prim == "all_gather"]
-        model = sum(b for axes, b in gathers if "model" in axes)
-        assert model <= share * whole, (model, whole)
-        assert sum(b for _, b in gathers) < whole
-        if shape[0] > 1:
-            assert any(axes == ("data",) for axes, _ in gathers)
-        reduces = {e[1] for e in r["events"] if e[0] == "psum"}
-        if shape[1] > 1:
-            assert ("model",) in reduces
+        assert _model_gathers(r) <= share * whole, (_model_gathers(r),
+                                                    whole)
+        _check_rest(r, shape, whole)
 
 
-def check_gather_census(res, name, over, shape):
-    """One step of the "gather" route on every rank: its all-gathers are
-    the whole-model gather's, exactly (:func:`whole_gather_bytes`)."""
+def check_ssm_census(res, name, over, shape):
+    """:func:`check_census` with the model team's all-gathers equal,
+    exactly, to :func:`ssm_model_gather_bytes`."""
+    want = ssm_model_gather_bytes(name, over, shape)
     whole = whole_gather_bytes(name, over, shape)
     for r in res:
-        got = sum(Fraction(b) for prim, _, b in r["events"]
-                  if prim == "all_gather")
-        assert got == whole, (got, whole)
+        assert _model_gathers(r) == want, (_model_gathers(r), want)
+        _check_rest(r, shape, whole)
+
+
+def _check_rest(r, shape, whole):
+    gathers = [(axes, Fraction(b)) for prim, axes, b in r["events"]
+               if prim == "all_gather"]
+    assert sum(b for _, b in gathers) < whole
+    if shape[0] > 1:
+        assert any(axes == ("data",) for axes, _ in gathers)
+    reduces = {e[1] for e in r["events"] if e[0] == "psum"}
+    if shape[1] > 1:
+        assert ("model",) in reduces

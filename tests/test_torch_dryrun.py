@@ -352,14 +352,13 @@ def test_counted_flops_and_peak_equal_a_real_step(arch, kind):
     counts around the same step run for real on the CPU at a (1, 1) mesh
     on rank 0's rows; at a fake (1, 1) mesh the peak of live storages is
     the real step's, storage for storage (on 16 x 16 the train state is
-    sharded, so its peak is another step's).  A train step on the
-    "split" route computes its model share on 16 x 16 (held in
-    ``test_split_route_cuts_a_rank_s_flops`` and against real ranks in
-    ``test_torch_tp.py``), so its rank 0 is the fake 16 x 1 mesh's."""
+    sharded, so its peak is another step's).  A train step computes its
+    model share on 16 x 16 (held in ``test_split_route_cuts_a_rank_s_flops``
+    and against real ranks in ``test_torch_tp*.py``), so its rank 0 is
+    the fake 16 x 1 mesh's."""
     cfg = C.get_smoke(arch)
     batch, length = 32, 64
-    shape = ((16, 1) if kind == "train" and lm.step_route(cfg) == "split"
-             else POD[0])
+    shape = (16, 1) if kind == "train" else POD[0]
     cnt = D.trace_step(cfg, kind, batch, length, mesh_shape=shape,
                        mesh_axes=POD[1], device="cpu")
     rows = cnt["rows_per_dev"]
@@ -440,100 +439,24 @@ def _wire(prim: str, nbytes, n: int, backend: str) -> Fraction:
     return collective_wire_bytes(prim, nbytes, n)
 
 
-def whole_gather_bytes(cfg, shape, axes, length) -> Fraction:
-    """The all-gather wire bytes (float32) of the "gather" route's one
-    whole-model gather, from ``param_shardings``: per leaf one all-gather
-    per sharded dimension of the block gathered so far."""
+def _weight_bytes(cfg, shape, axes, backend, length, reads) -> Fraction:
+    """The split route's closed form for the parameters, from
+    ``param_shardings``: per leaf and layer the compute-dtype block
+    gathered over "data" (the FSDP axis, first) and, where ``reads``
+    names it "whole" or "partial", over "model"; backward, a reduce-
+    scatter over "data" (and over "model" for a "partial" leaf) of the
+    gradient gathered so far (an all-reduce on gloo); a "partial" leaf
+    replicated over "model" has its gradient all-reduced over "model"
+    instead (``parallel.copy_to``); a tied ``tok`` is read twice (the
+    embedding, the head); then each float32 block gradient's all-reduce
+    over the batch team's axes its spec lacks.  ``reads``
+    maps a leaf to "whole", "partial" or the dimension it splits along
+    (its own "model" block); a leaf not in it reads its own block."""
     from repro_torch.models.config import spec_axes
     sizes = dict(zip(axes, shape))
-    specs = _leaf_list(lm.param_shardings(cfg, _MeshStub(shape, axes),
-                                          length))
-    wholes = _whole_shapes(cfg, length)
-    assert len(specs) == len(wholes)
-    want = Fraction(0)
-    for spec, whole in zip(specs, wholes):
-        ext = [math.prod(sizes[a] for a in spec_axes(e)) for e in spec]
-        block = [d // e for d, e in zip(whole, ext)]
-        for dim, e in enumerate(ext):
-            if e > 1:
-                want += (e - 1) * 4 * math.prod(block)
-                block[dim] *= e
-    return want
-
-
-def _gather_route_bytes(cfg, shape, axes, backend, batch, length):
-    """The closed form of the "gather" route's train step from
-    ``param_shardings``: :func:`whole_gather_bytes`, then per leaf the
-    batch team's mean of its float32 gradient (a reduce-scatter where the
-    leaf's spec splits one dimension over exactly the team, else an
-    all-reduce of the whole gradient); the loss pair's all-reduce over
-    the team and the global norm's over the world.  Returns (bytes,
-    whether a leaf scattered)."""
-    from repro_torch.models.config import spec_axes
-    sizes = dict(zip(axes, shape))
-    specs = _leaf_list(lm.param_shardings(cfg, _MeshStub(shape, axes),
-                                          length))
-    wholes = _whole_shapes(cfg, length)
-
-    def ext(entry) -> int:
-        return math.prod(sizes[a] for a in spec_axes(entry))
-
-    team = tuple(a for a in axes if a in ("pod", "data"))
-    n_team = math.prod(sizes[a] for a in team)
-    want, scattered = whole_gather_bytes(cfg, shape, axes, length), False
-    for spec, whole in zip(specs, wholes):
-        dim = next((i for i, e in enumerate(spec) if spec_axes(e) == team),
-                   None)
-        if dim is None:
-            want += _wire("psum", 4 * math.prod(whole), n_team, backend)
-        else:
-            rest = [d if i == dim else d // ext(e)
-                    for i, (d, e) in enumerate(zip(whole, spec))]
-            want += _wire("reduce_scatter", 4 * math.prod(rest), n_team,
-                          backend)
-            scattered = True
-    want += _wire("psum", 8, n_team, backend)              # loss, aux
-    want += _wire("psum", 4, math.prod(shape), backend)    # global norm
-    return want, scattered
-
-
-#: how the "split" route reads danube smoke's leaves on a model team of
-#: 16: its 4 query heads do not split over 16, so the attention runs
-#: whole (its leaves gathered whole over "model", their gradients kept
-#: as the rank's block); d_ff (128) and the vocabulary (256) split, each
-#: rank reading its own "model" block; the norm scales are replicated
-DANUBE_16 = {"attn_wq": "whole", "attn_wk": "whole", "attn_wv": "whole",
-             "attn_wo": "whole", "mlp_wg": 1, "mlp_wu": 1, "mlp_wd": 0,
-             "tok": 0, "unembed": 0}
-
-
-@pytest.mark.parametrize("backend", ["nccl", "gloo"])
-@pytest.mark.parametrize("mesh", [POD, MULTIPOD], ids=["16x16", "2x16x16"])
-def test_watched_wire_bytes_equal_the_closed_form(mesh, backend):
-    """A train step's wire bytes from the watcher equal, exactly, the
-    closed form of the "split" route on danube smoke (16 model ranks):
-    per leaf and layer the compute-dtype block gathered over "data" (the
-    FSDP axis, first) and, where its piece runs whole, over "model";
-    backward, a reduce-scatter over "data" of the gathered-over-"data"
-    gradient (an all-reduce on gloo); then each float32 block gradient's
-    all-reduce over the batch team's axes its spec lacks.  The split
-    pieces add the activations' all-reduces over "model": the MLP's input
-    gradient and output and the embedding's output (rows x L x d), the
-    head's input gradient, the loss's row maxima and (sum-exp, target
-    logit) pairs; then the loss pair over the team and the global norm
-    over the world."""
-    from repro_torch.models.config import spec_axes
-    cfg = C.get_smoke("h2o_danube_1p8b")
-    shape, axes = mesh
-    batch = length = 64
-    sizes = dict(zip(axes, shape))
-    cnt = D.trace_step(cfg, "train", batch, length, mesh_shape=shape,
-                       mesh_axes=axes, device="cpu", backend=backend)
-    assert cnt["route"] == "split"
     tree = lm.param_shardings(cfg, _MeshStub(shape, axes), length)
     team = tuple(a for a in axes if a in ("pod", "data"))
-    n_team, m = math.prod(sizes[a] for a in team), sizes["model"]
-    rows, c = batch // n_team, getattr(torch, cfg.dtype).itemsize
+    c = getattr(torch, cfg.dtype).itemsize
     want = Fraction(0)
     leaves = [(k, s, w) for (k, s), w in zip(
         [(k, s) for g in sorted(tree) for layer in (
@@ -542,75 +465,143 @@ def test_watched_wire_bytes_equal_the_closed_form(mesh, backend):
     for name, spec, whole in leaves:
         ext = [math.prod(sizes[a] for a in spec_axes(e)) for e in spec]
         block = [d // e for d, e in zip(whole, ext)]
-        read = DANUBE_16.get(name)
+        read = reads.get(name)
+        times = 2 if name == "tok" and cfg.tie_embeddings else 1
         for dim, e in sorted(enumerate(spec),
                              key=lambda de: "model" in spec_axes(de[1])):
-            if ext[dim] == 1 or ("model" in spec_axes(e) and read != "whole"):
+            model = "model" in spec_axes(e)
+            if ext[dim] == 1 or (model and read not in ("whole",
+                                                        "partial")):
                 continue
-            want += (ext[dim] - 1) * c * math.prod(block)
+            want += times * (ext[dim] - 1) * c * math.prod(block)
             block[dim] *= ext[dim]
-            if "model" not in spec_axes(e):
-                want += _wire("reduce_scatter", c * math.prod(block),
-                              ext[dim], backend)
+            if not model or read == "partial":
+                want += times * _wire("reduce_scatter", c * math.prod(block),
+                                      ext[dim], backend)
         used = {a for e in spec for a in spec_axes(e)}
+        if read == "partial" and "model" not in used:
+            want += _wire("psum", c * math.prod(block), sizes["model"],
+                          backend)
         rest = math.prod(sizes[a] for a in team if a not in used)
         want += _wire("psum", 4 * math.prod(whole) // math.prod(ext), rest,
                       backend)
-    act = rows * length * cfg.d_model * c
-    want += (2 * cfg.n_layers + 2) * _wire("psum", act, m, backend)
-    want += _wire("pmax", rows * length * 4, m, backend)
-    want += _wire("psum", 2 * rows * length * 4, m, backend)
-    want += _wire("psum", 8, n_team, backend)              # loss, aux
-    want += _wire("psum", 4, math.prod(shape), backend)    # global norm
+    return want
+
+
+def _head_and_loss_bytes(cfg, shape, axes, backend, rows, length):
+    """The vocabulary split's activation collectives over "model": the
+    embedding's output and the head's input gradient (rows x L x d), the
+    loss's row maxima and (sum-exp, target logit) pairs; then the loss
+    pair over the batch team and the global norm over the world."""
+    sizes = dict(zip(axes, shape))
+    m, n_team = sizes["model"], math.prod(shape) // sizes["model"]
+    act = rows * length * cfg.d_model * getattr(torch, cfg.dtype).itemsize
+    return (2 * _wire("psum", act, m, backend)
+            + _wire("pmax", rows * length * 4, m, backend)
+            + _wire("psum", 2 * rows * length * 4, m, backend)
+            + _wire("psum", 8, n_team, backend)             # loss, aux
+            + _wire("psum", 4, math.prod(shape), backend))  # global norm
+
+
+#: how the split route reads danube smoke's leaves on a model team of
+#: 16: its 4 query heads do not split over 16, so the attention runs
+#: whole (its leaves gathered whole over "model", their gradients kept
+#: as the rank's block); d_ff (128) and the vocabulary (256) split, each
+#: rank reading its own "model" block; the norm scales are replicated
+DANUBE_16 = {"attn_wq": "whole", "attn_wk": "whole", "attn_wv": "whole",
+             "attn_wo": "whole"}
+
+
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+@pytest.mark.parametrize("mesh", [POD, MULTIPOD], ids=["16x16", "2x16x16"])
+def test_watched_wire_bytes_equal_the_closed_form(mesh, backend):
+    """A train step's wire bytes from the watcher equal, exactly, the
+    closed form of the split route on danube smoke (16 model ranks):
+    :func:`_weight_bytes` under DANUBE_16, then the split pieces'
+    activations all-reduced over "model": the MLP's input gradient and
+    output per layer, and :func:`_head_and_loss_bytes`."""
+    cfg = C.get_smoke("h2o_danube_1p8b")
+    shape, axes = mesh
+    batch = length = 64
+    cnt = D.trace_step(cfg, "train", batch, length, mesh_shape=shape,
+                       mesh_axes=axes, device="cpu", backend=backend)
+    assert cnt["route"] == "split"
+    m = shape[-1]
+    rows = batch * m // math.prod(shape)
+    act = rows * length * cfg.d_model * getattr(torch, cfg.dtype).itemsize
+    want = (_weight_bytes(cfg, shape, axes, backend, length, DANUBE_16)
+            + 2 * cfg.n_layers * _wire("psum", act, m, backend)
+            + _head_and_loss_bytes(cfg, shape, axes, backend, rows, length))
     assert cnt["wire_exact"] == want
     assert math.isclose(cnt["wire_bytes"], float(want), rel_tol=1e-12)
     assert ("reduce-scatter" in cnt["colls"].counts) == (backend == "nccl")
 
 
+#: how the split route reads Mamba2 smoke's leaves: on a model team of
+#: 16 its 8 SSM heads do not split, so the block runs whole (the leaves
+#: sharded over "model" gathered whole); on one of 4 each rank runs 2
+#: heads, reading its rows of the out-projection and, whole, the in-
+#: projection, the conv and the per-head vectors (the rank's columns cut
+#: out); the vocabulary splits on both
+MAMBA2_READS = {
+    16: {"ssm_in": "whole", "ssm_conv": "whole", "ssm_conv_b": "whole",
+         "ssm_out": "whole"},
+    4: {k: "partial" for k in ("ssm_in", "ssm_conv", "ssm_conv_b",
+                                 "ssm_alog", "ssm_dtb", "ssm_d",
+                                 "ssm_gnorm")}}
+
+
 @pytest.mark.parametrize("backend", ["nccl", "gloo"])
-@pytest.mark.parametrize("mesh", [POD, MULTIPOD], ids=["16x16", "2x16x16"])
-def test_watched_wire_bytes_of_the_gather_route(mesh, backend):
-    """A train step of a family on the "gather" route (Mamba2 smoke) keeps
-    the whole-model gather's collectives: its watched wire bytes equal,
-    exactly, :func:`_gather_route_bytes`' closed form."""
+@pytest.mark.parametrize("mesh", [POD, MULTIPOD, ((4, 4), POD[1])],
+                         ids=["16x16", "2x16x16", "4x4"])
+def test_watched_wire_bytes_of_the_split_ssm(mesh, backend):
+    """The same on Mamba2 smoke: :func:`_weight_bytes` under
+    MAMBA2_READS, :func:`_head_and_loss_bytes`, and where the heads split
+    (4 x 4) per layer the block's input gradient and output (rows x L x
+    d) and the gated norm's mean square (rows x L float32), forward and
+    backward, all-reduced over "model"."""
     cfg = C.get_smoke("mamba2_130m")
     shape, axes = mesh
-    cnt = D.trace_step(cfg, "train", 64, 64, mesh_shape=shape,
+    batch = length = 64
+    cnt = D.trace_step(cfg, "train", batch, length, mesh_shape=shape,
                        mesh_axes=axes, device="cpu", backend=backend)
-    assert cnt["route"] == "gather"
-    want, scattered = _gather_route_bytes(cfg, shape, axes, backend, 64, 64)
+    assert cnt["route"] == "split"
+    m = shape[-1]
+    rows = batch * m // math.prod(shape)
+    want = (_weight_bytes(cfg, shape, axes, backend, length,
+                          MAMBA2_READS[m])
+            + _head_and_loss_bytes(cfg, shape, axes, backend, rows, length))
+    if cfg.ssm_nheads % m == 0:
+        act = rows * length * cfg.d_model * getattr(
+            torch, cfg.dtype).itemsize
+        want += 2 * cfg.n_layers * (_wire("psum", act, m, backend)
+                                    + _wire("psum", rows * length * 4, m,
+                                            backend))
     assert cnt["wire_exact"] == want
-    assert ("reduce-scatter" in cnt["colls"].counts) == (
-        scattered and backend == "nccl")
+    assert ("reduce-scatter" in cnt["colls"].counts) == (backend == "nccl")
 
 
-def test_split_route_cuts_a_rank_s_flops(monkeypatch):
-    """On a fake (4, 4) mesh danube smoke's counted flops per device fall
-    at least 3x from the "gather" route's (every family forced onto it),
-    with the route named in the counts and the record; Mamba2 smoke,
-    on the "gather" route, counts one process's flops on its rows."""
-    cfg = C.get_smoke("h2o_danube_1p8b")
-    mesh = ((4, 4), POD[1])
-    split = D.trace_step(cfg, "train", 32, 64, mesh_shape=mesh[0],
-                         mesh_axes=mesh[1], device="cpu")
-    with monkeypatch.context() as mp:
-        mp.setattr(lm, "SPLIT_FAMILIES", frozenset())
-        whole = D.trace_step(cfg, "train", 32, 64, mesh_shape=mesh[0],
-                             mesh_axes=mesh[1], device="cpu")
-    assert (split["route"], whole["route"]) == ("split", "gather")
+@pytest.mark.parametrize("arch", ["h2o_danube_1p8b", "mamba2_130m",
+                                  "zamba2_7b", "whisper_small"])
+def test_split_route_cuts_a_rank_s_flops(arch):
+    """On a fake (4, 4) mesh a rank's counted flops fall at least 3x from
+    the (4, 1) mesh's on the same rows (a model team of one splits
+    nothing; 0.25-0.29 of it by count): its query heads, d_ff columns,
+    SSM heads and vocabulary rows; its peak falls too, and the route is
+    named "split" in the counts and the record."""
+    cfg = C.get_smoke(arch)
+    split = D.trace_step(cfg, "train", 32, 64, mesh_shape=(4, 4),
+                         mesh_axes=POD[1], device="cpu")
+    whole = D.trace_step(cfg, "train", 32, 64, mesh_shape=(4, 1),
+                         mesh_axes=POD[1], device="cpu")
+    assert split["rows_per_dev"] == whole["rows_per_dev"] == 8
+    assert (split["route"], whole["route"]) == ("split", "split")
     assert 3 * split["flops"] <= whole["flops"], (split["flops"],
                                                   whole["flops"])
     assert split["peak_bytes"] < whole["peak_bytes"]
-    rec, _ = D.lower_cell("h2o_danube_1p8b", "train_4k", cfg=cfg,
-                          verbose=False, device="cpu")
+    rec, _ = D.lower_cell(arch, "train_4k", cfg=cfg, verbose=False,
+                          device="cpu")
     assert rec["route"] == "split"
-    ssm = C.get_smoke("mamba2_130m")
-    got = D.trace_step(ssm, "train", 32, 64, mesh_shape=mesh[0],
-                       mesh_axes=mesh[1], device="cpu")
-    one = D.trace_step(ssm, "train", 8, 64, mesh_shape=(1, 1),
-                       mesh_axes=mesh[1], device="cpu")
-    assert got["route"] == "gather" and got["rows_per_dev"] == 8
-    assert got["flops"] == one["flops"] > 0
 
 
 def test_split_route_gathers_each_layer_inside_remat():

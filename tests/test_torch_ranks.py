@@ -531,17 +531,17 @@ def moe_mesh(rank, shape, p, x, w):
 # ---------------------------------------------------------------------------
 
 #: the leaves whose gradient is held equal on every model rank: the norm
-#: scales (and biases) and chameleon's qk-norm scales
+#: scales (and biases), chameleon's qk-norm scales and the SSM's gated-
+#: norm scale
 def _norm_leaf(name: str) -> bool:
-    return name.endswith(("_scale", "_bias")) or name in ("attn_qnorm",
-                                                          "attn_knorm")
+    return name.endswith(("_scale", "_bias")) or name in (
+        "attn_qnorm", "attn_knorm", "ssm_gnorm")
 
 
 def tp_run(rank, name, over, shape, params, kw, ckpt_dir=""):
-    """The sharded train step (either route, ``lm.step_route``) of the
-    smoke config ``name`` (float32, ``over`` its overrides) from the
-    reference's weights ``params`` on a (data, model)
-    mesh of ``shape``: one gradient step (``lm.sharded_grads`` on the
+    """The sharded train step of the smoke config ``name`` (float32,
+    ``over`` its overrides) from the reference's weights ``params`` on a
+    (data, model) mesh of ``shape``: one gradient step (``lm.sharded_grads`` on the
     first batch) under the collective watcher and ``FlopCounterMode``,
     its blocks' shapes, the norm leaves' gradients and (rank 0) every
     gradient gathered whole; then ``train`` for ``kw["steps"]`` steps: the

@@ -7,15 +7,15 @@ of padded lanes, float32, 3 steps of 4 x 64 on the meshes (data, model)
 = (1, 4) and (2, 2), the port on 4 gloo ranks
 (``test_torch_ranks.RankPool``) and the reference's ``train(mesh=)`` on 4
 virtual XLA devices (``_torch_tp``).  The MoE family is in
-``test_torch_tp_moe.py``, the "gather" route in
-``test_torch_tp_gather.py``.
+``test_torch_tp_moe.py``, the ssm, hybrid and audio families in
+``test_torch_tp_ssm.py``.
 
 Also here: each autograd collective of ``models.parallel`` on 4 ranks,
 forward and backward, against the one-process math; the share of a
 rank's matmul flops on (1, 4); the dry run's count of the same step; the
 per-layer gathers per micro-batch against the reference's compiled
-loops; and, against one process, the padded vocabulary shards and the
-ssm, hybrid and audio families on the "gather" route."""
+loops; and, against one process as an extra check, the padded
+vocabulary shards and the ssm, hybrid and audio families."""
 import numpy as np
 import pytest
 import torch
@@ -186,18 +186,20 @@ def test_gathers_each_layer_per_micro_batch_as_the_reference(schedule,
     assert count(layers, n) == n * count(layers, 1)
 
 
-#: a vocabulary of 100 padded to 256 lanes: on (1, 4) ranks 2 and 3 hold
-#: only padded lanes of the head and the loss
-PADDED = [("h2o_danube_1p8b", {"vocab": 100}),
-          ("gemma2_27b", {"vocab": 100})]
+#: CASES' vocabularies of 100 padded to 256 lanes: on (1, 4) ranks 2 and
+#: 3 hold only padded lanes of the head and the loss
+PADDED = [(name, over) for case, name, over in CASES
+          if case.endswith("_pad")]
 
 
 @pytest.mark.parametrize("name,over", PADDED, ids=[p[0] for p in PADDED])
 def test_vocab_shards_of_padding_only(pool, name, over):
     """The vocabulary-parallel head and loss on (1, 4) with two ranks'
-    lanes all padding (gemma2: a final softcap per shard): the loss and
-    every gradient finite and equal to one process's within float32
-    summation order."""
+    lanes all padding (gemma2: a final softcap per shard), held against
+    the reference in the tests above (cases "danube_pad", "gemma2_pad")
+    and here, as an extra, against one process: the loss and every
+    gradient finite and equal to one process's within float32 summation
+    order."""
     cfg = tconfigs.get_smoke(name).with_(dtype="float32", **over)
     assert cfg.vocab_pad // 4 * 2 >= cfg.vocab
     _check_one_process(cfg, pool.run(td.tp_grads, name, over, (1, 4),
@@ -228,18 +230,22 @@ def _check_one_process(cfg, res):
                                        w.abs().max())))
 
 
-GATHERED = ["mamba2_130m", "zamba2_7b", "whisper_small"]
+#: the ssm, hybrid and audio families (held against the reference in
+#: test_torch_tp_ssm.py), Mamba2 also with two B / C groups
+SSM_FAMILIES = [("mamba2_130m", {}), ("mamba2_130m", {"ssm_ngroups": 2}),
+                ("zamba2_7b", {}), ("whisper_small", {})]
 
 
-@pytest.mark.parametrize("name", GATHERED)
-def test_gather_route_families_on_a_mesh(pool, name):
-    """The ssm, hybrid and audio families keep the "gather" route (the
-    whole model gathered once per step): on (2, 2) the batch team's mean
-    loss and every gradient, gathered whole, equal one process's within
-    float32 summation order."""
-    cfg = tconfigs.get_smoke(name).with_(dtype="float32")
-    assert lm.step_route(cfg) == "gather"
-    _check_one_process(cfg, pool.run(td.tp_grads, name, {}, (2, 2),
+@pytest.mark.parametrize("name,over", SSM_FAMILIES,
+                         ids=["mamba2", "mamba2_g2", "zamba2", "whisper"])
+def test_split_route_families_on_a_mesh(pool, name, over):
+    """The ssm, hybrid and audio families split over the model team (the
+    SSM by heads, the shared block's and Whisper's attention and MLP as
+    the decoders'): on (2, 2) the batch team's mean loss and every
+    gradient, gathered whole, equal one process's within float32
+    summation order."""
+    cfg = tconfigs.get_smoke(name).with_(dtype="float32", **over)
+    _check_one_process(cfg, pool.run(td.tp_grads, name, over, (2, 2),
                                      tp.SEQ, tp.BATCH))
 
 

@@ -1,0 +1,109 @@
+"""The split route of the sharded train step for the ssm, hybrid and
+audio families (``repro_torch.models.parallel``: the Mamba2 block split
+by SSM heads, the attention, cross-attention and MLP of Zamba2's shared
+block and of Whisper's encoder and decoder split as the decoders') against
+the JAX reference on the CPU: the Mamba2 smoke config, the same with two
+and with three B / C groups (a rank's heads read a group other than
+group 0, or straddle two groups), the Zamba2 and Whisper smoke configs,
+float32, 3 steps of 4 x 64 on the
+meshes (data, model) = (1, 4) and (2, 2), the port on 4 gloo ranks and
+the reference's ``train(mesh=)`` on 4 virtual XLA devices; the harness
+is ``_torch_tp``'s."""
+import pytest
+
+import _torch_parity  # noqa: F401  (pins torch to one thread)
+import _torch_tp as tp
+from test_torch_ranks import RankPool
+
+#: "mamba2_g2": two B / C groups of 4 heads, so ranks 2 and 3 on (1, 4)
+#: read group 1; "mamba2_g3": d_model 96, 12 heads in 3 groups of 4, so
+#: a rank's heads straddle two groups in another ratio than 4 to 1 (on
+#: (1, 4) rank 1's heads 3, 4, 5 read groups 0, 1, 1; on (2, 2) heads
+#: 0-5 read groups 0 and 1)
+CASES = (("mamba2", "mamba2_130m", {}),
+         ("mamba2_g2", "mamba2_130m", {"ssm_ngroups": 2}),
+         ("mamba2_g3", "mamba2_130m", {"ssm_ngroups": 3, "d_model": 96}),
+         ("zamba2", "zamba2_7b", {}),
+         ("whisper", "whisper_small", {}))
+CASE_MESH = [(c, s) for c in CASES for s in tp.MESHES]
+#: Zamba2's step-3 loss and final parameters.  Its SSD's float32
+#: gradients agree with the reference's within GRAD_RTOL of each leaf's
+#: max (test_step1_grads_match_reference; the widest of the smoke
+#: configs, see test_torch_lm_train), and AdamW's steps take their signs,
+#: so three steps spread even the reference's own runs: its step-3 loss
+#: by 1.1e-5 over its meshes (none, (1, 4), (2, 2), (4, 1)) and its final
+#: parameters on (1, 4) by 1.5e-4 from its one-device run (the entries
+#: kept under SIGN_FRAC).  The port's one-process run sits 2.5e-5 (loss)
+#: and 4.0e-4 (parameters) from the reference's one-device run: the gap
+#: is the one-process gap, not the mesh's, and the reference's own f32
+#: spread (torch_f32_spread.py: against a float64 run the reference's
+#: f32 run sits 1.9e-5 / 3.1e-4 away, the port's 5.9e-6 / 2.2e-4).
+#: Steps 1 and 2 stay at LOSS_TOL.  8.3% of its entries have a step-1
+#: gradient below SIGN_FRAC of their leaf's max (the SSM's), so the share
+#: left out is held under 0.1
+ZAMBA2 = dict(tols=(tp.LOSS_TOL, tp.LOSS_TOL, 5e-5), param_tol=5e-4,
+              left_out_frac=0.1)
+#: Mamba2 with two or three groups: the reference's step-1 gradient
+#: leaves 5.8% / 5.7% of the entries under SIGN_FRAC of their leaf's max
+#: (two groups: 3238 of the 16384 of ``embed/tok``, 937 of ``ssm_in``'s
+#: 41984; one group: 4.96%), so the share left out is held under 0.1;
+#: the loss and the parameters kept stay at LOSS_TOL and PARAM_TOL
+GROUPS = dict(left_out_frac=0.1)
+BOUNDS = {"zamba2": ZAMBA2, "mamba2_g2": GROUPS, "mamba2_g3": GROUPS}
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    return tp.run_reference(CASES, tmp_path_factory.mktemp("tp_ssm_ref"))
+
+
+@pytest.fixture(scope="module")
+def runs():
+    pool = RankPool(4)
+    try:
+        yield tp.run_port(pool, CASES)
+    finally:
+        pool.close()
+
+
+@pytest.mark.parametrize("case,shape", CASE_MESH, ids=tp.ids)
+def test_split_step_matches_reference(reference, runs, case, shape):
+    """Every step's loss within LOSS_TOL of the reference's on the same
+    mesh on every rank; the final parameters within PARAM_TOL (Zamba2
+    within ZAMBA2's bounds, the grouped Mamba2's share left out under
+    GROUPS')."""
+    tp.check_losses_and_params(reference, runs[case[0], shape], case[0],
+                               shape, **BOUNDS.get(case[0], {}))
+
+
+@pytest.mark.parametrize("case,shape", CASE_MESH, ids=tp.ids)
+def test_step1_grads_match_reference(reference, runs, case, shape):
+    """One step's gradients, gathered whole, equal the reference's
+    ``jax.grad`` of the same batch within float32 across the libraries:
+    a rank's share of the gated norm's mean square, or of a head's group,
+    summed wrongly would show here."""
+    tp.check_step1_grads(reference, runs[case[0], shape], case[0], shape)
+
+
+@pytest.mark.parametrize("case,shape", CASE_MESH, ids=tp.ids)
+def test_blocks_shaped_as_reference_shards(reference, runs, case, shape):
+    """Each rank's parameter and gradient blocks are the reference's
+    shards."""
+    tp.check_block_shapes(reference, runs[case[0], shape], case[0],
+                          case[1], case[2], shape)
+
+
+@pytest.mark.parametrize("case,shape", CASE_MESH, ids=tp.ids)
+def test_norm_grads_equal_on_every_model_rank(runs, case, shape):
+    """The norm scales' (and biases', and the SSM's gated-norm scale's)
+    gradients are bit-equal on every rank of a model team."""
+    tp.check_norm_grads_equal(runs[case[0], shape])
+
+
+@pytest.mark.parametrize("case,shape", CASE_MESH, ids=tp.ids)
+def test_census_of_the_split_ssm(runs, case, shape):
+    """One step's collectives: over "model", all-gathers of only the SSM's
+    in-projection and conv (whose z | x | B | C | dt columns a rank reads
+    whole), exactly their closed form (none for Whisper); FSDP gathers
+    over "data"; the activations' all-reduces over "model"."""
+    tp.check_ssm_census(runs[case[0], shape], case[1], case[2], shape)
