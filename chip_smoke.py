@@ -119,7 +119,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
  14. zoo        the LM zoo's last three families at full width and depth,
                 random seeded weights: (a) Zamba2-7B (81 layers: 27
                 groups of the shared attention block + 3 Mamba2 layers)
-                ``loss_fn`` on 2 batches of 2 x 4096, ``serve_batch`` on 4
+                ``loss_fn`` on 1 batch of 2 x 4096, ``serve_batch`` on 4
                 x 4096 prompts + 64 tokens, a cross-check at a 6-layer cut;
                 (b) Mamba2-130M, 8 x 4096 + 128; (c) Whisper-small (12 +
                 12 layers, 1500 seeded frames), 8 x 64 + 192 within its
@@ -130,19 +130,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 the reference routes none of them through flash)
  15. trainmp    multi-rank training (``train(mesh=)``): (a) danube-1.8b at
                 full width and depth on the (1, 1) mesh of a one-rank NCCL
-                group, 2 steps of 4 x 4096, against one process (the train
+                group, 1 step of 4 x 4096, against one process (the train
                 phase's run), and ``torchrun --nproc-per-node 1 -m
                 repro_torch.launch.train --mesh host`` on a smoke config
                 against ``--mesh none``; (b) P_DIST gloo ranks sharing the
                 card, danube at 4 layers on mesh (2, 2), split over a
-                model team of 2 (the "split" route), 2 steps of 4 x 4096,
+                model team of 2 (the "split" route), 1 step of 4 x 4096,
                 against one process; (c) OLMoE-1B-7B at 1 layer on mesh
                 (4, 1) (the per-shard MoE dispatch), 1 step of 8 x 2048,
                 its step-1 loss against one process dispatching the same
                 token blocks in turn; (d) the int8 ring and the bf16 psum
                 of 16M float32 per rank, their error and wire bytes; (e)
                 OLMoE-1B-7B at 1 layer on mesh (1, 4), 16 of its 64
-                experts on each rank, 2 steps of 8 x 2048 against one
+                experts on each rank, 1 step of 8 x 2048 against one
                 process; (f) Mamba2-130M at full width and depth on mesh
                 (2, 2), its SSM split over a model team of 2 (12 of its
                 24 heads per rank), 2 steps of 8 x 2048; (g) Zamba2-7B at
@@ -156,6 +156,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 rank, each rank's ssm_out / attn_wq blocks, gloo host
                 copies and wire bytes per step, peaks, MoE drops; no
                 kernel launches
+ 15b. servemp   prefill and decode on a mesh (``lm.make_prefill`` /
+                ``make_decode_step`` with ``mesh=``, every rank its
+                blocks of the weights and of the cache under the
+                reference's ``cache_shardings``): P_DIST gloo ranks
+                sharing the card in one spawn, bf16, seeded weights at
+                full width: (a) h2o-danube-1.8b at 4 layers on (2, 2), 4
+                x 4096 + 32 greedy tokens (kv heads over "model", rows
+                over "data"); (b) Qwen2.5-3B at 4 layers on (1, 4), 2 x
+                8192 + 32 (its 2 kv heads whole: the ring split by slots,
+                each step's softmax combined across the ranks); (c)
+                OLMoE-1B-7B at 1 layer on (1, 4), 16 of 64 experts per
+                rank, 2 x 16384 through its chunked prefill + 32; (d)
+                Zamba2-7B at 6 layers on (1, 4), 2 x 4096 + 16 (and in
+                f32, + 4); (e) Whisper-small on (2, 2), 1 x (1500
+                frames, 64 tokens) + 8 (its encoder output split over
+                "data").  Each against
+                one process running the same calls on the same weights:
+                prefill logits and the gathered cache within 5e-2 of
+                their max (``pos`` exact), decode teacher-forced with one
+                process's tokens, at most 2 of a sequence's greedy tokens
+                different beyond a near-tie (one process's top-2 margin
+                within 2^-7 of max |logit|: two bf16 ulps; every flip
+                printed with its margin), no kernel launched; ms per
+                decode step, wire
+                bytes and gloo host copies per step, peak and cache
+                bytes per rank
 
  16. analysis   ``repro_torch.analysis`` on the card: (a) the differential
                 fuzzer over every ``configs`` and ``card_configs`` entry of
@@ -316,7 +342,7 @@ SERVE_LOGIT_TOL = 5e-2
 #: (SERVE_LOGIT_TOL) and in f32 (ZOO_F32_TOL, the CPU tests'
 #: decode-vs-forward tolerance)
 ZAMBA_ARCH, ZAMBA_LOSS_B, ZAMBA_LOSS_L, ZAMBA_LOSS_BATCHES = (
-    "zamba2_7b", 2, 4096, 2)
+    "zamba2_7b", 2, 4096, 1)
 ZAMBA_B, ZAMBA_PROMPT, ZAMBA_GEN, ZAMBA_CUT = 4, 4096, 64, 6
 MAMBA_ARCH, MAMBA_B, MAMBA_PROMPT, MAMBA_GEN = "mamba2_130m", 8, 4096, 128
 WHISPER_ARCH, WHISPER_B, WHISPER_PROMPT, WHISPER_GEN, WHISPER_CTX = (
@@ -344,7 +370,8 @@ FAMILY_STEPS = 2
 #: TRAIN_B x TRAIN_L, held within MP_W1_TOL (relative) of a one-process
 #: ``train()`` (the train phase's, whose first steps run the same
 #: warm-up learning rates); (b) P_DIST gloo ranks sharing the card on
-#: MP_DENSE_MESH, the same at MP_DENSE_LAYERS layers, against one process
+#: MP_DENSE_MESH, MP_DENSE_STEPS step(s) at MP_DENSE_LAYERS layers,
+#: against one process
 #: within MP_STEP1_TOL at step 1 and MP_LATER_TOL later (bf16 compute,
 #: other summation orders); (c) OLMOE_ARCH cut to MP_MOE_LAYERS layer(s)
 #: on MP_MOE_MESH (the per-shard MoE dispatch), MP_MOE_C_STEPS step(s) of
@@ -362,10 +389,10 @@ FAMILY_STEPS = 2
 #: route: each layer's blocks gathered as it runs, its compute split over
 #: "model" (the SSM by heads)
 MP_DIR = ROOT / "build" / "trainmp_phase"
-TRAINMP_STEPS, MP_W1_TOL = 2, 1e-6
-MP_DENSE_MESH, MP_DENSE_LAYERS = (2, 2), 4
+TRAINMP_STEPS, MP_W1_TOL = 1, 1e-6
+MP_DENSE_MESH, MP_DENSE_LAYERS, MP_DENSE_STEPS = (2, 2), 4, 1
 MP_STEP1_TOL, MP_LATER_TOL = 1e-4, 2e-3
-MP_MOE_MESH, MP_MOE_LAYERS, MP_MOE_STEPS = (4, 1), 1, 2
+MP_MOE_MESH, MP_MOE_LAYERS, MP_MOE_STEPS = (4, 1), 1, 1
 MP_MOE_C_STEPS = 1
 MP_MOE_B, MP_MOE_L, MP_MOE_MICRO, MP_MOE_TOL = 8, 2048, 2, 2e-3
 MP_EP_MESH = (1, 4)
@@ -376,6 +403,42 @@ MP_HYB_STEPS, MP_HYB_B, MP_HYB_L = 1, 4, 2048
 MP_AUD_ARCH, MP_AUD_MESH, MP_AUD_STEPS = "whisper_small", (2, 2), 1
 MP_AUD_B, MP_AUD_L = 8, 448
 MP_COLL_N, MP_RING_BOUND, MP_PSUM_BOUND = 1 << 24, 0.15, 2e-2
+#: the servemp phase (prefill and decode on a mesh, ``lm.make_prefill`` /
+#: ``make_decode_step`` with ``mesh=``): P_DIST gloo ranks sharing the
+#: card, bf16, seeded weights at full width; each case (tag, arch,
+#: layers (0: full depth), mesh, batch, prompt, greedy tokens, max_len):
+#: (a) danube, kv heads over "model", rows over "data"; (b) Qwen2.5-3B,
+#: its 2 kv heads whole, the ring split by slots over "model" (max_len
+#: divisible by 4); (c) OLMoE-1B-7B, 16 of 64 experts per rank, its
+#: chunked prefill (2 segments of 8192); (d) Zamba2-7B cut to 6 layers;
+#: (e) Whisper-small at one sequence, its encoder output held split over
+#: "data" and its ring's slots over "data".  Each held against one
+#: process running the same calls on the same weights: prefill logits
+#: and the gathered cache within SMP_TOL of their max, decode teacher-
+#: forced with one process's tokens, at most SMP_FLIPS of a sequence's
+#: greedy tokens different where one process's top-2 margin exceeds
+#: SMP_TIE of max |logit|.  The logits are bf16 products widened, so a
+#: vocabulary of 32000+ random lanes holds exact and one-ulp ties (on an
+#: H100, 4 of danube's 32 tokens flipped, each at a margin of at most
+#: 3.7e-3, one bf16 ulp, and one process's own logits hold exact ties);
+#: SMP_TIE is two ulps, 2^-7.  The cases of SMP_F32 also run in float32,
+#: mesh against one process within ZOO_F32_TOL: bf16 Zamba2 drifts too
+#: far from itself for SMP_TOL (the zoo's 6-layer cut: 3.4e-2 of max
+#: |logit| between one process's cached decode and its cache-free
+#: forward; on an H100 its mesh-against-one gap is 6.05e-2 in bf16 and
+#: 5.0e-5 in f32), so there the bf16 run is held at SMP_BF16_SPREAD
+#: times one process's own bf16 error against its f32 run, each leaf and
+#: the logits
+SMP_DIR = ROOT / "build" / "servemp_phase"
+SMP_CASES = (
+    ("a", "h2o_danube_1p8b", 4, (2, 2), 4, 4096, 32, 4128),
+    ("b", "qwen2p5_3b", 4, (1, 4), 2, 8192, 32, 8224),
+    ("c", "olmoe_1b_7b", 1, (1, 4), 2, 16384, 32, 16416),
+    ("d", "zamba2_7b", 6, (1, 4), 2, 4096, 16, 4112),
+    ("e", "whisper_small", 0, (2, 2), 1, 64, 8, 448),
+)
+SMP_TOL, SMP_FLIPS, SMP_TIE = 5e-2, 2, 2.0 ** -7
+SMP_F32, SMP_F32_GEN, SMP_BF16_SPREAD = ("d",), 4, 2.0
 #: the flash kernel's shape on that path: (B, Hq, Hkv, L, D, window)
 FLASH_MAIN = (LM_B, 32, 8, LM_L, 80, 4096)
 #: the main shape's tolerance beside rtol, in units of each output row's
@@ -1602,7 +1665,7 @@ def trainmp_world1(torch, dev, ops, want) -> None:
               f"{TRAIN_B * TRAIN_L / wall:.0f} tokens/s, loss {loss:.6f} "
               f"(one process {want[i]:.6f})")
     print(f"trainmp (a): {cfg.name} on mesh (1, 1) of a one-rank NCCL "
-          f"group, {TRAINMP_STEPS} steps of {TRAIN_B} x {TRAIN_L}: max "
+          f"group, {TRAINMP_STEPS} step(s) of {TRAIN_B} x {TRAIN_L}: max "
           f"relative loss difference to one process {rel:.3e} (tolerance "
           f"{MP_W1_TOL}); state {sb / 2**30:.2f} GiB; peak "
           f"{peak / 2**30:.2f} GiB; kernel launches {launched}")
@@ -1772,7 +1835,7 @@ def _trainmp_rank(rank, cfg, out_q):
         moe = configs.get(OLMOE_ARCH).with_(n_layers=MP_MOE_LAYERS)
         out = {
             "b": _mp_train(torch, dev, dense, MP_DENSE_MESH, mp_train_config(
-                TRAINMP_STEPS, TRAIN_B, TRAIN_L, dense.n_micro), "(b)"),
+                MP_DENSE_STEPS, TRAIN_B, TRAIN_L, dense.n_micro), "(b)"),
             "c": _mp_train(torch, dev, moe, MP_MOE_MESH, mp_train_config(
                 MP_MOE_C_STEPS, MP_MOE_B, MP_MOE_L, MP_MOE_MICRO), "(c)"),
             "d": _mp_collectives(torch, dev, cfg["world"], MP_COLL_N),
@@ -1796,7 +1859,7 @@ def trainmp_ranks(torch, dev) -> None:
     from repro_torch.train.loop import train
     dense = configs.get(TRAIN_ARCH).with_(n_layers=MP_DENSE_LAYERS)
     moe = configs.get(OLMOE_ARCH).with_(n_layers=MP_MOE_LAYERS)
-    tc = mp_train_config(TRAINMP_STEPS, TRAIN_B, TRAIN_L, dense.n_micro)
+    tc = mp_train_config(MP_DENSE_STEPS, TRAIN_B, TRAIN_L, dense.n_micro)
     torch.cuda.reset_peak_memory_stats()
     one = train(dense, tc, log=lambda *a: None, device=dev)
     one_bytes, one_peak = state_bytes(one.state), \
@@ -1834,7 +1897,8 @@ def trainmp_ranks(torch, dev) -> None:
     # (b) the dense model on (2, 2)
     b0 = rows[0]["b"]
     print(f"trainmp (b): {dense.name} at {MP_DENSE_LAYERS} layers on mesh "
-          f"{MP_DENSE_MESH}, {TRAINMP_STEPS} steps of {TRAIN_B} x {TRAIN_L}"
+          f"{MP_DENSE_MESH}, {MP_DENSE_STEPS} step(s) of {TRAIN_B} x "
+          f"{TRAIN_L}"
           f", n_micro {dense.n_micro}; one process: state "
           f"{one_bytes / 2**30:.3f} GiB, peak {one_peak / 2**30:.2f} GiB, "
           f"steps {', '.join(f'{w:.3f}' for w in one_steps)} s")
@@ -2026,6 +2090,319 @@ def trainmp_phase(torch, dev, ops, want) -> None:
     trainmp_ranks(torch, dev)
     print(f"trainmp (b)-(h): part wall {time.perf_counter() - t0:.1f} s")
     shutil.rmtree(MP_DIR, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# the servemp phase: prefill and decode on a mesh of gloo ranks
+# ---------------------------------------------------------------------------
+
+def _smp_config(configs, arch: str, layers: int, dtype: str):
+    cfg = configs.get(arch).with_(dtype=dtype)
+    return cfg.with_(n_layers=layers) if layers else cfg
+
+
+def _smp_runs():
+    """(case, dtype) of every servemp run: each case in bfloat16, the
+    SMP_F32 cases in float32 too, decoding SMP_F32_GEN tokens there."""
+    runs = []
+    for case in SMP_CASES:
+        runs.append((case, "bfloat16"))
+        if case[0] in SMP_F32:
+            runs.append((case[:6] + (SMP_F32_GEN,) + case[7:], "float32"))
+    return runs
+
+
+def _smp_err(got, want) -> float:
+    """max |got - want| over max |want| (exact equality for ``pos``)."""
+    if not want.is_floating_point():
+        return 0.0 if got.shape == want.shape and bool(
+            (got == want).all()) else 1.0
+    scale = float(want.float().abs().max()) or 1.0
+    return float((got.float() - want.float()).abs().max()) / scale
+
+
+def _smp_inputs(torch, cfg, b: int, prompt: int, dev):
+    """The case's seeded prompts and (Whisper) frames."""
+    return (lm_prompts(torch, cfg, b, prompt, seed=3, dev=dev),
+            zoo_frames(torch, cfg, b, seed=4, dev=dev))
+
+
+def _smp_cache_bytes(cache) -> int:
+    return sum(t.numel() * t.element_size() for _, t in cache_leaves(cache))
+
+
+def _smp_one(torch, dev, case, dtype: str) -> dict:
+    """One process on the card in ``dtype``: prefill, then ``gen`` greedy
+    decode steps; the logits, the cache after prefill (to the host), the
+    tokens fed and returned, each step's top-2 margin, ms per decode
+    step, peak, cache bytes."""
+    from repro_torch import configs
+    from repro_torch.models import lm, transformer
+    tag, arch, layers, _, b, prompt, gen, max_len = case
+    cfg = _smp_config(configs, arch, layers, dtype)
+    model = transformer.init_params(cfg, seed=0, max_len=max_len,
+                                    device=dev)
+    pc = lm.cast_params(cfg, model)
+    toks, frames = _smp_inputs(torch, cfg, b, prompt, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cache = transformer.init_cache(cfg, b, max_len, device=dev)
+    args = [pc, cache, toks] + ([frames] if frames is not None else [])
+    t0 = time.perf_counter()
+    cache, logits = lm.make_prefill(cfg, max_len)(*args)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    snap = {"/".join(path): t.to("cpu", copy=True)
+            for path, t in cache_leaves(cache)}
+    decode = lm.make_decode_step(cfg)
+    fed = [torch.argmax(logits, dim=-1).to(torch.int32)]
+    # each step's top-2 margin over max |logit| (kept on the card): how
+    # near a tie each greedy token is
+    margins, greedy = [], lm._greedy
+
+    def margin_greedy(step_logits):
+        real = step_logits[..., :cfg.vocab]
+        top = torch.topk(real, 2, dim=-1).values
+        margins.append((top[..., 0] - top[..., 1])
+                       / real.abs().amax(dim=-1))
+        return greedy(step_logits)
+    lm._greedy = margin_greedy
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(gen):
+            cache, nxt = decode(pc, cache, fed[-1], prompt + i)
+            fed.append(nxt)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / gen
+    finally:
+        lm._greedy = greedy
+    out = dict(logits=logits.cpu(), cache=snap,
+               fed=torch.stack(fed).cpu(), prefill_s=prefill_s,
+               margins=torch.stack(margins).float().cpu(),
+               step_ms=step_ms, peak=torch.cuda.max_memory_allocated(),
+               cache_bytes=_smp_cache_bytes(cache))
+    del model, pc, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def _smp_rank_case(torch, dev, ops, case, dtype: str, one, yard) -> dict:
+    """One case on this rank of the mesh in ``dtype``: its blocks of the
+    weights (cast to ``dtype`` once) and of the cache, its rows of the
+    prompts and block of the frames; prefill, the gathered logits and
+    cache against one process's (``one``; and against ``yard``, one
+    process's float32 run, where given), ``gen`` decode steps fed one
+    process's tokens; ms per step, wire bytes and host copies per step,
+    peak, cache bytes."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm, transformer
+    tag, arch, layers, shape, b, prompt, gen, max_len = case
+    cfg = _smp_config(configs, arch, layers, dtype)
+    mesh = make_mesh(shape, ("data", "model"), device=dev)
+    specs = lm.param_shardings(cfg, mesh, max_len)
+    model = transformer.init_params(cfg, seed=0, max_len=max_len,
+                                    device=dev)
+    lm.shard_params_(model, specs, mesh)
+    pc = lm.cast_params(cfg, model)
+    toks, frames = _smp_inputs(torch, cfg, b, prompt, dev)
+    lay = lm.serve_shardings(cfg, mesh, b, max_len)
+    kw = dict(mesh=mesh, specs=specs, batch=b)
+    prefill = lm.make_prefill(cfg, max_len, **kw)
+    decode = lm.make_decode_step(cfg, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    cache = lm.init_cache_blocks(cfg, mesh, b, max_len, device=dev)
+    args = [pc, cache, mesh.shard(toks, lay["tokens"])]
+    if frames is not None:
+        args.append(mesh.shard(frames, lay["frames"]))
+    mesh.barrier()
+    t0 = time.perf_counter()
+    cache, logits = prefill(*args)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    logits = mesh.gather(logits, lay["logits"]).cpu()
+    whole = lm.gather_tree(cache, lay["cache"], mesh)
+    errs, yard_errs = {}, {}
+    for path, t in cache_leaves(whole):
+        key = "/".join(path)
+        errs[key] = _smp_err(t.cpu(), one["cache"][key])
+        if yard is not None:
+            yard_errs[key] = _smp_err(t.cpu(), yard["cache"][key])
+    del whole
+    fed = one["fed"].to(dev)
+    rows = [mesh.shard(fed[i], lay["token"]) for i in range(gen)]
+    mesh.barrier()
+    copies0 = mesh.host_copies
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+
+    def steps():
+        nonlocal cache
+        outs = []
+        for i in range(gen):
+            cache, nxt = decode(pc, cache, rows[i], prompt + i)
+            outs.append(nxt)
+        return outs
+    outs, wire = _mp_watch(steps)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / gen
+    got = torch.stack([mesh.gather(o, lay["token"]) for o in outs]).cpu()
+    flipped = got != one["fed"][1:]
+    real = flipped & (one["margins"] > SMP_TIE)
+    out = dict(
+        tag=tag, coords=mesh.coords,
+        logit_err=_smp_err(logits[:, :cfg.vocab],
+                           one["logits"][:, :cfg.vocab]),
+        yard_logit_err=(None if yard is None else _smp_err(
+            logits[:, :cfg.vocab], yard["logits"][:, :cfg.vocab])),
+        cache_err=errs, yard_cache_err=yard_errs,
+        flips=int(flipped.sum(dim=0).max()),
+        real_flips=int(real.sum(dim=0).max()),
+        flip_margin=float(one["margins"][flipped].max()) if bool(
+            flipped.any()) else 0.0,
+        min_margin=float(one["margins"].min()),
+        prefill_s=prefill_s, step_ms=step_ms,
+        wire=str(wire / gen), copies=(mesh.host_copies - copies0) / gen,
+        peak=torch.cuda.max_memory_allocated(),
+        cache_bytes=_smp_cache_bytes(cache),
+        launched=dict(ops.LAUNCHES))
+    del model, pc, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def _servemp_rank(rank, cfg, out_q):
+    """One of ``cfg["world"]`` gloo ranks sharing ``cfg["device"]``: every
+    case of SMP_CASES against one process's results under SMP_DIR."""
+    import datetime
+    import traceback
+    sys.path.insert(0, str(SRC))
+    import torch
+    from repro_torch.comm import group
+    from repro_torch.kernels import ops
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = group.init_process_group(
+            cfg["device"], backend="gloo", world_size=cfg["world"],
+            rank=rank, init_method=f"file://{cfg['init_file']}",
+            timeout=datetime.timedelta(seconds=600))
+        out = {}
+        for case, dtype in _smp_runs():
+            one = torch.load(SMP_DIR / f"one_{case[0]}_{dtype}.pt")
+            yard = None
+            if dtype != "float32" and case[0] in SMP_F32:
+                yard = torch.load(SMP_DIR / f"one_{case[0]}_float32.pt")
+            out[case[0], dtype] = _smp_rank_case(torch, dev, ops, case,
+                                                 dtype, one, yard)
+            del one, yard
+        out_q.put((rank, True, out))
+    except BaseException:
+        out_q.put((rank, False, traceback.format_exc()))
+        raise
+    finally:
+        group.destroy_process_group()
+
+
+def servemp_phase(torch, dev) -> None:
+    """(a)-(e) of SMP_CASES: one process on the card first (its results
+    under SMP_DIR), then P_DIST gloo ranks sharing the card in one spawn,
+    each case held against one process."""
+    shutil.rmtree(SMP_DIR, ignore_errors=True)
+    SMP_DIR.mkdir(parents=True)
+    ones = {}
+    t0 = time.perf_counter()
+    for case, dtype in _smp_runs():
+        one = _smp_one(torch, dev, case, dtype)
+        torch.save(one, SMP_DIR / f"one_{case[0]}_{dtype}.pt")
+        ones[case[0], dtype] = {k: one[k] for k in (
+            "prefill_s", "step_ms", "peak", "cache_bytes", "logits",
+            "cache")}
+        del one
+    print(f"servemp: one process, every case, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    cfg = dict(device=str(dev), world=P_DIST, init_file=str(SMP_DIR / "pg"))
+    t0 = time.perf_counter()
+    results = spawn_ranks(_servemp_rank, cfg, "servemp")
+    print(f"servemp: {P_DIST} gloo ranks on one card, (a)-(e) in "
+          f"{time.perf_counter() - t0:.1f} s (process start included)")
+    for case, dtype in _smp_runs():
+        tag, arch, layers, shape, b, prompt, gen, max_len = case
+        one = ones[tag, dtype]
+        rows = [results[r][tag, dtype] for r in range(P_DIST)]
+        tol, leaf_tol = SMP_TOL, {}
+        if dtype == "float32":
+            tol = ZOO_F32_TOL
+        yard = ones.get((tag, "float32")) if dtype != "float32" else None
+        if yard is not None:
+            # one process's own bf16 error against its f32 run, the
+            # yardstick of the mesh's bf16 run (against the same f32 run)
+            own = _smp_err(one["logits"], yard["logits"])
+            leaf_tol = {k: SMP_BF16_SPREAD * _smp_err(v, yard["cache"][k])
+                        for k, v in one["cache"].items()}
+            print(f"servemp ({tag}) {dtype}: one process against its f32 "
+                  f"run: logits {own:.3e} of max |logit|, cache worst "
+                  f"{max(leaf_tol.values()) / SMP_BF16_SPREAD:.3e}")
+        print(f"servemp ({tag}) {dtype}: {arch}"
+              f"{f' at {layers} layers' if layers else ''} on mesh {shape}, "
+              f"{b} x {prompt} + {gen} greedy tokens (max_len {max_len}); "
+              f"one process: prefill {one['prefill_s']:.3f} s, "
+              f"{one['step_ms']:.2f} ms per decode step, peak "
+              f"{one['peak'] / 2**30:.2f} GiB, cache "
+              f"{one['cache_bytes'] / 2**30:.4f} GiB")
+        for r, x in enumerate(rows):
+            worst = max(x["cache_err"].items(), key=lambda kv: kv[1])
+            yard_line = ""
+            if yard is not None:
+                yworst = max(x["yard_cache_err"].items(),
+                             key=lambda kv: kv[1] / max(leaf_tol[kv[0]],
+                                                        1e-30))
+                yard_line = (f" against one process's f32 run: logits "
+                             f"{x['yard_logit_err']:.3e} (allowed "
+                             f"{SMP_BF16_SPREAD * own:.3e}), cache "
+                             f"{yworst[0]} {yworst[1]:.3e} (allowed "
+                             f"{leaf_tol[yworst[0]]:.3e});")
+            print(f"  rank {r} {x['coords']}: prefill {x['prefill_s']:.3f} "
+                  f"s, logits within {x['logit_err']:.3e} of max |logit|; "
+                  f"cache worst {worst[0]} {worst[1]:.3e} of its max "
+                  f"({f'tolerance {tol}' if yard is None else 'held below'}"
+                  f");"
+                  f"{yard_line} at most {x['flips']} of "
+                  f"{gen} greedy tokens of a sequence differ, one "
+                  f"process's top-2 margin there at most "
+                  f"{x['flip_margin']:.2e} of max |logit| (its least "
+                  f"{x['min_margin']:.2e}), {x['real_flips']} beyond a "
+                  f"margin of {SMP_TIE:.2e} (allowed {SMP_FLIPS}); "
+                  f"{x['step_ms']:.2f} ms per decode step; wire bytes "
+                  f"{float(Fraction(x['wire'])):.4e} and gloo host copies "
+                  f"{x['copies']:.0f} per step; peak "
+                  f"{x['peak'] / 2**30:.2f} GiB; cache "
+                  f"{x['cache_bytes'] / 2**30:.4f} GiB "
+                  f"({x['cache_bytes'] / one['cache_bytes']:.3f} of one "
+                  f"process); kernel-4 launches "
+                  f"{x['launched']['flash_attention']}")
+            what = f"servemp ({tag}) {dtype} rank {r}"
+            if yard is None:
+                check(x["logit_err"] <= tol, f"{what}: logits differ by "
+                      f"{x['logit_err']:.3e}")
+                check(worst[1] <= tol, f"{what}: cache {worst[0]} differs "
+                      f"by {worst[1]:.3e}")
+            else:
+                check(x["yard_logit_err"] <= SMP_BF16_SPREAD * own,
+                      f"{what}: logits {x['yard_logit_err']:.3e} from the "
+                      f"f32 run")
+                check(all(e <= leaf_tol[k]
+                          for k, e in x["yard_cache_err"].items()),
+                      f"{what}: cache {yworst[0]} {yworst[1]:.3e} from the "
+                      f"f32 run")
+            check(x["real_flips"] <= SMP_FLIPS,
+                  f"{what}: {x['real_flips']} greedy tokens beyond a "
+                  f"near-tie differ")
+            check(not any(x["launched"].values()),
+                  f"{what}: a kernel launched: {x['launched']}")
+    shutil.rmtree(SMP_DIR, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -4155,7 +4532,7 @@ def main(argv=None) -> int:
                     help="comma list of kernels,main,batched,adaptive,obs,"
                          "gram,lm,dist,telemetry,serve,pathmode,cross,"
                          "timing,calibrate,brain,lmserve,zoo,train,trainmp,"
-                         "analysis,dryrun "
+                         "servemp,analysis,dryrun "
                          "(default: "
                          "all; "
                          "device and build always run; telemetry and "
@@ -4292,6 +4669,10 @@ def main(argv=None) -> int:
     if run("trainmp"):
         phase("trainmp")
         trainmp_phase(torch, dev, ops, train_losses)
+        torch.cuda.empty_cache()
+    if run("servemp"):
+        phase("servemp")
+        servemp_phase(torch, dev)
         torch.cuda.empty_cache()
     if run("analysis"):
         phase("analysis")

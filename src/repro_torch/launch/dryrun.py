@@ -17,15 +17,19 @@ devices propagate and nothing is allocated, launched or sent.  Per cell:
   3. the state: the full-size parameters from ``transformer.model_schema``
      (as ``init_params`` builds them, without its draws); for train,
      each rank's blocks (``lm.shard_params_``) in ``lm.init_train_state``;
-  4. one step through the port's entry point: ``lm.make_train_step(...,
-     mesh=)`` with AdamW and ``cosine_schedule(3e-4, 100, 10000)``, on
-     route ``"split"`` for every family (each layer's blocks gathered
-     over the FSDP axis as it runs, its compute split over ``"model"``);
-     ``lm.make_prefill`` / ``lm.make_decode_step`` at the rank's rows.
-     The port has no mesh-aware prefill or decode: on a mesh it serves
-     as data-parallel replicas (route ``"replicas"``), each rank the
-     whole model on its rows of the batch team (all rows where the team
-     does not divide them);
+  4. one step through the port's entry point, on route ``"split"`` for
+     every family and kind (each layer's blocks gathered over the FSDP
+     axis as it runs, its compute split over ``"model"``):
+     ``lm.make_train_step(..., mesh=)`` with AdamW and
+     ``cosine_schedule(3e-4, 100, 10000)``; ``lm.make_prefill`` /
+     ``lm.make_decode_step`` with ``mesh=``, the rank's blocks of the
+     parameters and of the cache (``lm.init_cache_blocks``: the ring
+     split by kv heads and / or slots, the SSM state by channels and
+     heads, Whisper's encoder output by width, as the reference's
+     ``cache_shardings``), its rows of the tokens (all rows where the
+     batch team does not divide them) and its block of the frames, as
+     the reference's jit of the cell lays them out.  A layout the split
+     route cannot honour raises: nothing is replicated silently;
   5. four counters around the step: ``FlopCounterMode`` (flops; kernel 4
      counts its visible (query, key) pairs through its custom op's
      rule), a dispatch mode counting the bytes every op that touches
@@ -258,26 +262,17 @@ def _on(tree, dev):
     return tree
 
 
-def _rows(cfg, mesh, batch: int) -> int:
-    """Rows of a serve batch on one rank: the batch team splits them
-    when it divides them, else every rank takes all of them."""
-    if mesh is None:
-        return batch
-    n = mesh.axes_size(Lyr.batch_axes(cfg, mesh))
-    return batch // n if batch % n == 0 else batch
-
-
 def _prepare(cfg, kind: str, batch_size: int, seq_len: int, mesh, dev):
     """(run, entry tensors, in-place tensors, rows per device) of one
     step of ``kind`` at a global batch of ``batch_size``; ``run()``
     returns the step's outputs."""
     params = fake_params(cfg, seq_len, dev)
+    specs = None
+    if mesh is not None:
+        specs = lm.param_shardings(cfg, mesh, seq_len)
+        lm.shard_params_(params, specs, mesh)
     if kind == "train":
         opt = AdamW()
-        specs = None
-        if mesh is not None:
-            specs = lm.param_shardings(cfg, mesh, seq_len)
-            lm.shard_params_(params, specs, mesh)
         state = lm.init_train_state(params, opt)
         step = lm.make_train_step(cfg, opt, cosine_schedule(3e-4, 100, 10000),
                                   mesh=mesh, specs=specs)
@@ -294,18 +289,31 @@ def _prepare(cfg, kind: str, batch_size: int, seq_len: int, mesh, dev):
         held = _tensors(state)
         return (lambda: step(state, batch)), held + _tensors(batch), held, \
             rows
-    rows = _rows(cfg, mesh, batch_size)
-    spec = _on(C.step_inputs(cfg, kind, rows, seq_len), dev)
+    spec = _on(C.step_inputs(cfg, kind, batch_size, seq_len), dev)
+    serve = {}
+    if mesh is not None:
+        # this rank's blocks of the cache, rows of the tokens and block
+        # of the frames
+        serve = dict(mesh=mesh, specs=specs, batch=batch_size)
+        lay = lm.serve_shardings(cfg, mesh, batch_size, seq_len)
+        spec["cache"] = lm.init_cache_blocks(cfg, mesh, batch_size, seq_len,
+                                             device=dev)
+        for name in ("tokens", "token", "frames"):
+            t = spec.get(name)
+            if t is not None:
+                spec[name] = torch.empty(
+                    lm.block_shape(t.shape, lay[name], mesh), dtype=t.dtype,
+                    device=dev)
     if kind == "prefill":
-        fn = lm.make_prefill(cfg, seq_len)
+        fn = lm.make_prefill(cfg, seq_len, **serve)
         args = [params, spec["cache"], spec["tokens"]]
         if spec["frames"] is not None:
             args.append(spec["frames"])
     else:
-        fn = lm.make_decode_step(cfg)
+        fn = lm.make_decode_step(cfg, **serve)
         args = [params, spec["cache"], spec["token"], spec["step"]]
     return (lambda: fn(*args)), _tensors(args), _tensors(spec["cache"]), \
-        rows
+        args[2].shape[0]
 
 
 def _unique_bytes(counters: StepCounters, tensors) -> int:
@@ -315,12 +323,10 @@ def _unique_bytes(counters: StepCounters, tensors) -> int:
     return sum(seen.values())
 
 
-def _route(kind: str, mesh_shape) -> str:
-    """How the step runs on its mesh: ``"split"`` for a train step on a
-    mesh, ``"replicas"`` for serving on one, else ``"one process"``."""
-    if mesh_shape is None:
-        return "one process"
-    return "split" if kind == "train" else "replicas"
+def _route(mesh_shape) -> str:
+    """How the step runs: ``"split"`` on a mesh (every kind), else
+    ``"one process"``."""
+    return "one process" if mesh_shape is None else "split"
 
 
 def trace_step(cfg, kind: str, batch_size: int, seq_len: int, *,
@@ -386,7 +392,7 @@ def trace_step(cfg, kind: str, batch_size: int, seq_len: int, *,
         "arg_bytes": arg, "out_bytes": out_bytes, "alias_bytes": alias_bytes,
         "temp_bytes": peak - arg - out_bytes + alias_bytes,
         "peak_bytes": peak, "rows_per_dev": rows, "backend": backend,
-        "route": _route(kind, mesh_shape),
+        "route": _route(mesh_shape),
         "kernel_calls": dict(counters.kernel_calls),
         "kernel_flops": kernel_flops,
         "wall_s": time.time() - t0,

@@ -254,15 +254,17 @@ def constrain(x, logical: Sequence[str], rules: dict):
     """The reference's ``with_sharding_constraint`` hint, a no-op here.
 
     XLA's partitioner reads the hint and places collectives; the port
-    places them itself.  A train step on a mesh (``lm.sharded_grads``)
-    runs every family inside ``models.parallel.split_model``: each layer
+    places them itself.  A train step on a mesh (``lm.sharded_grads``),
+    and prefill and decode on one (``lm.make_prefill`` /
+    ``make_decode_step`` with ``mesh=``), run every family inside
+    ``models.parallel.split_model``: each layer
     computes this rank's block of the dimensions the reference constrains
     over ``"model"`` (query heads, SSM heads, ``mlp``, experts, ``vocab``;
     :func:`local_span` gives the block), with ``parallel.copy_to`` /
     ``reduce_from`` where a replicated activation enters or leaves the
     split; the batch rows split over the batch team before the step.
-    Serving and one process compute each layer whole, so an activation
-    there has no layout to constrain."""
+    One process computes each layer whole, so an activation there has no
+    layout to constrain."""
     return x
 
 

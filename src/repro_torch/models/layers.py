@@ -12,11 +12,12 @@ The reference's numerics are kept: norms and RoPE in float32 and cast
 back to the compute dtype, rmsnorm's ``1 + scale``, RoPE on halves (not
 interleaved), attention logits in float32 and the ``-1e30`` mask
 sentinel.  The MoE dispatch is the reference's unsharded branch, or,
-inside :func:`batch_shards` (a train step on a mesh), its per-data-shard
-branch: each shard of the batch dispatches its own tokens into its own
-slice of the capacity.  Inside ``parallel.split_model`` (the "split"
-route of a train step on a mesh) the attention, the MLP and the MoE
-compute this rank's share over the model team (see each function).
+inside :func:`batch_shards` (a train step, prefill or decode on a
+mesh), its per-data-shard branch: each shard of the batch dispatches its
+own tokens into its own slice of the capacity.  Inside
+``parallel.split_model`` (the "split" route on a mesh) the attention,
+the MLP and the MoE compute this rank's share over the model team (see
+each function), the cached attention on this rank's block of the ring.
 """
 from __future__ import annotations
 
@@ -169,6 +170,20 @@ def _mea_forward(q, k, v, qpos, kpos, window, causal, scale, softcap,
     """The online-softmax loop of :func:`mea_attention`; with
     ``with_lse`` also the (B, H, Lq) float32 log-sum-exp of each row's
     scaled, capped and masked logits."""
+    m, l, acc = _mea_partial(q, k, v, qpos, kpos, window, causal, scale,
+                             softcap, chunk)
+    l = torch.clamp_min(l, 1e-30)
+    out = (acc / l[..., None]).to(q.dtype)
+    return (out, m + torch.log(l)) if with_lse else out
+
+
+def _mea_partial(q, k, v, qpos, kpos, window, causal, scale, softcap,
+                 chunk):
+    """The online softmax over kv chunks of ``chunk`` keys, unnormalised:
+    (m, l, acc), each row's running maximum (B, H, Lq), sum of
+    exponentials and weighted values (B, H, Lq, D), float32.  A row whose
+    keys are all masked has m = -1e30 and adds nothing once rescaled by
+    exp(m - M) against a real maximum M."""
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
     nc = max(1, Lk // chunk)
@@ -191,9 +206,7 @@ def _mea_forward(q, k, v, qpos, kpos, window, causal, scale, softcap,
         l = l * alpha + torch.sum(p, dim=-1)
         acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vc)
         m = m_new
-    l = torch.clamp_min(l, 1e-30)
-    out = (acc / l[..., None]).to(q.dtype)
-    return (out, m + torch.log(l)) if with_lse else out
+    return m, l, acc
 
 
 def _mea_backward(q, k, v, qpos, kpos, out, lse, dout, window, causal,
@@ -328,25 +341,125 @@ def _write_ring(cache, k, v, positions):
     cache["pos"].index_copy_(0, slots, positions.to(cache["pos"].dtype))
 
 
+def _write_ring_split(cache, k, v, positions, ring):
+    """:func:`_write_ring` into this rank's block of a ring split by
+    slots (``ring.span``): the block's k and v hold slots [s0, s1) of the
+    W, ``pos`` all W.  Every rank of the slot team computes the same keys
+    and values; each writes those whose slot it holds, with no host sync
+    (the call's positions are consecutive, as prefill and decode make
+    them):
+
+      * one position (decode): its slot, or the block's old value where
+        another rank holds it;
+      * a prompt: each slot j of the block takes the position at offset
+        (j - p0) mod W of the call when that is < L, else keeps its
+        value (a prompt longer than the ring first keeps its last W)."""
+    w_loc = cache["k"].shape[2]
+    W = w_loc * ring.n_seq
+    if positions.shape[0] > W:
+        k, v, positions = k[:, :, -W:], v[:, :, -W:], positions[-W:]
+    L = positions.shape[0]
+    s0, _ = ring.span(w_loc)
+    cache["pos"].index_copy_(0, (positions % W).long(),
+                             positions.to(cache["pos"].dtype))
+    if L == 1:
+        local = positions % W - s0
+        mine = ((local >= 0) & (local < w_loc))[None, None, :, None]
+        at = local.clamp(0, w_loc - 1).long()
+        for name, new in (("k", k), ("v", v)):
+            old = cache[name].index_select(2, at)
+            cache[name].index_copy_(
+                2, at, torch.where(mine, new.to(old.dtype), old))
+        return
+    slots = torch.arange(s0, s0 + w_loc, device=positions.device)
+    off = (slots - positions[0]) % W
+    mine = (off < L)[None, None, :, None]
+    at = off.clamp(max=L - 1).long()
+    for name, new in (("k", k), ("v", v)):
+        blk = cache[name]
+        blk.copy_(torch.where(mine, new.index_select(2, at).to(blk.dtype),
+                              blk))
+
+
+def _kv_for_heads(kc, vc, heads: tuple[int, int], kv0: int, group: int):
+    """The ring's kv heads (its first ``kv0``) for the query heads [qa,
+    qb), grouped: (kc, vc, gq) with query head qa + i gq + j reading kv
+    head i of the result; ``gq`` = ``group`` when [qa, qb) covers whole
+    groups, the span's width when it reads one kv head, else 1 (each
+    query head its own copy of its kv head)."""
+    qa, qb = heads
+    ka, kb = qa // group, (qb - 1) // group + 1
+    if (ka, kb) != (kv0, kv0 + kc.shape[1]):
+        kc, vc = kc[:, ka - kv0:kb - kv0], vc[:, ka - kv0:kb - kv0]
+    if qa % group == 0 and qb - qa == (kb - ka) * group:
+        return kc, vc, group
+    if kb - ka == 1:
+        return kc, vc, qb - qa
+    idx = torch.arange(qa, qb, device=kc.device) // group - ka
+    return kc.index_select(1, idx), vc.index_select(1, idx), 1
+
+
 def _decode_attention(cfg: ModelConfig, q, cache, positions, *, causal,
-                      window, scale):
-    """One new query per sequence against the whole ring, K/V heads kept
-    grouped (no repeat of the cache).  q: (B, Hq, 1, hd).  Logits in
-    float32 of the compute-dtype operands, softcap, the ring's position
-    mask; probabilities back in the compute dtype for P V.  Returns
-    (B, 1, Hq * hd)."""
-    B, Hq, _, hd = q.shape
+                      window, scale, heads=None, kv0=0, ring=None):
+    """One new query per sequence against the ring, K/V heads kept grouped
+    (no repeat of the cache).  q: (B, Hs, 1, hd), the query heads
+    ``heads`` = [qa, qb) (all by default) against the ring's kv heads
+    from ``kv0`` on.  Logits in float32 of the compute-dtype operands,
+    softcap, the ring's position mask; probabilities back in the compute
+    dtype for P V.  Returns (B, Hs, 1, hd).
+
+    With ``ring`` split by slots the ring is this rank's slots [s0, s1):
+    the row maximum is the slot team's (``pmax``), then the sums of
+    exponentials and of the probability-weighted values are summed over
+    the team, so a rank whose slots are all empty adds exp(-1e30 - M) =
+    0."""
+    B, Hs, _, hd = q.shape
     dt = q.dtype
     kc, vc = cache["k"].to(dt), cache["v"].to(dt)
-    Hkv = kc.shape[1]
-    qg = q.reshape(B, Hkv, Hq // Hkv, hd)
+    kpos = cache["pos"]
+    kc, vc, gq = _kv_for_heads(kc, vc, heads or (0, Hs), kv0,
+                               cfg.n_heads // cfg.n_kv)
+    qg = q.reshape(B, -1, gq, hd)
     logits = torch.matmul(qg.float(), kc.float().transpose(-1, -2))
     logits.mul_(scale)
     logits = _softcap(logits, cfg.softcap)
-    keep = _attn_mask(positions, cache["pos"], causal=causal, window=window)
+    split = ring is not None and ring.seq_axes
+    if split:
+        s0, s1 = ring.span(kc.shape[2])
+        kpos = kpos[s0:s1]
+    keep = _attn_mask(positions, kpos, causal=causal, window=window)
     logits.masked_fill_(~keep, NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(dt)
-    return torch.matmul(probs, vc).reshape(B, 1, Hq * hd)
+    if not split:
+        probs = torch.softmax(logits, dim=-1).to(dt)
+        return torch.matmul(probs, vc).reshape(B, Hs, 1, hd)
+    top = ring.pmax(torch.amax(logits, dim=-1, keepdim=True))
+    e = torch.exp(logits - top)
+    probs = (e / ring.psum(torch.sum(e, dim=-1, keepdim=True))).to(dt)
+    out = ring.psum(torch.matmul(probs, vc).float()).to(dt)
+    return out.reshape(B, Hs, 1, hd)
+
+
+def _ring_attention(cfg: ModelConfig, q, cache, positions, *, causal, win,
+                    scale, heads, kv0, ring):
+    """A chunked-prefill segment's queries (B, Hs, L, hd), the query heads
+    ``heads``, against this rank's slots of a ring split by slots: the
+    memory-efficient online softmax over the block, unnormalised, its
+    row maxima, sums and weighted values combined over the slot team.
+    Returns (B, Hs, L, hd) in q's dtype."""
+    dt = q.dtype
+    kc, vc = cache["k"].to(dt), cache["v"].to(dt)
+    s0, s1 = ring.span(kc.shape[2])
+    group = cfg.n_heads // cfg.n_kv
+    idx = torch.arange(*heads, device=q.device) // group - kv0
+    kc, vc = kc.index_select(1, idx), vc.index_select(1, idx)
+    m, l, acc = _mea_partial(q, kc, vc, positions, cache["pos"][s0:s1], win,
+                             causal, scale, cfg.softcap,
+                             _pick_chunk(kc.shape[2], cfg.attn_chunk))
+    top = ring.pmax(m)
+    alpha = torch.exp(m - top)
+    l = ring.psum(l * alpha)
+    acc = ring.psum(acc * alpha[..., None])
+    return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(dt)
 
 
 def attention(cfg: ModelConfig, p, x, positions, *, prefix="attn",
@@ -376,28 +489,41 @@ def attention(cfg: ModelConfig, p, x, positions, *, prefix="attn",
     runs the materialized einsum path ("ref").
 
     Inside ``parallel.split_model`` with the query heads split over the
-    model team (the cache-free self- and cross-attention of a train
-    step; ``kv_x``, replicated over the team, enters as ``x`` does), a rank
-    computes its own query heads and the kv heads they read (its own
-    block of the kv weights where the kv heads split too, else the
-    columns it needs of the whole weights), and its rows of the output
-    projection: partial sums, all-reduced over the team."""
+    model team (``kv_x``, replicated over the team, enters as ``x``
+    does), a rank computes its own query heads and the kv heads they
+    read (its own block of the kv weights where the kv heads split too,
+    else the columns it needs of the whole weights), and its rows of the
+    output projection: partial sums, all-reduced over the team.  With a
+    cache it holds this rank's block of the ring (``parallel.Ring``): its
+    kv heads where they split over "model", else all of them, computed
+    whole and written for the slots it holds; where the slots split
+    (:func:`_write_ring_split`), decode and the chunked segments combine
+    the slot team's partial softmaxes, each rank attending with every
+    query head (gathered over the model team) when that team splits the
+    slots; the single-shot prefill attends to its fresh keys as the
+    cache-free split does."""
     B, L, d = x.shape
     hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv
     dt = x.dtype
     tp = P.active()
-    split = tp is not None and tp.heads and cache is None
+    split = tp is not None and tp.heads
+    ring = (tp.cached("ring") if tp is not None and cache is not None
+            and kv_x is None else None)
     kv_cols = q_index = None
+    kv0, heads = 0, (0, Hq)
     if split:
         x = tp.copy_to(x)
         if kv_x is not None:
             kv_x = tp.copy_to(kv_x)
         k0, k1 = tp.kv_heads(cfg)
-        if not tp.kv:
+        if tp.kv or ring is None:
+            kv0 = k0
+        if not tp.kv and ring is None:
             kv_cols = slice(k0 * hd, k1 * hd)
+        heads = tp.q_span
         # each of the rank's query heads q reads kv head q // group
-        q_index = (torch.arange(*tp.q_span, device=x.device)
-                   // (Hq // Hkv) - k0)
+        q_index = (torch.arange(*heads, device=x.device)
+                   // (Hq // Hkv) - kv0)
     q, k, v = _project_qkv(cfg, p, x, prefix, kv_x, kv_cols)
     if f"{prefix}_qnorm" in p:
         q = rmsnorm(q, p[f"{prefix}_qnorm"], cfg.norm_eps)
@@ -417,22 +543,42 @@ def attention(cfg: ModelConfig, p, x, positions, *, prefix="attn",
     group = Hq // Hkv
     win = 0 if window is None else int(window)
     wo = p[f"{prefix}_wo"].to(dt)
+    by_slots = ring is not None and bool(ring.seq_axes)
+    # a rank of a model team that splits the slots attends with every
+    # query head, then keeps its own heads' output
+    q_att = q if not (by_slots and ring.q_all) else tp.gather_heads(q, 1)
+    qheads = (0, Hq) if q_att is not q else heads
+
+    def own(out):
+        """(B, H, L, hd) of the heads attended: this rank's heads."""
+        return out if q_att is q else out[:, heads[0]:heads[1]]
 
     if cache is not None:
-        _write_ring(cache, k, v, positions)
-        if L == 1:
-            out = _decode_attention(cfg, q, cache, positions, causal=causal,
-                                    window=win, scale=scale)
-            return out @ wo, cache
+        if by_slots:
+            _write_ring_split(cache, k, v, positions, ring)
+        else:
+            _write_ring(cache, k, v, positions)
 
-    if cache is not None and not fresh_kv:
-        kc, vc = cache["k"].to(dt), cache["v"].to(dt)
-        if group > 1:
-            kc = torch.repeat_interleave(kc, group, dim=1)
-            vc = torch.repeat_interleave(vc, group, dim=1)
-        out = mea_attention(q, kc, vc, positions, cache["pos"], win, causal,
-                            scale, cfg.softcap,
-                            _pick_chunk(kc.shape[2], cfg.attn_chunk))
+    if cache is not None and L == 1:
+        out = own(_decode_attention(cfg, q_att, cache, positions,
+                                    causal=causal, window=win, scale=scale,
+                                    heads=qheads, kv0=kv0, ring=ring))
+    elif cache is not None and not fresh_kv:
+        if by_slots:
+            out = own(_ring_attention(cfg, q_att, cache, positions,
+                                      causal=causal, win=win, scale=scale,
+                                      heads=qheads, kv0=kv0, ring=ring))
+        else:
+            kc, vc = cache["k"].to(dt), cache["v"].to(dt)
+            if split:
+                kc, vc = kc.index_select(1, q_index), vc.index_select(
+                    1, q_index)
+            elif group > 1:
+                kc = torch.repeat_interleave(kc, group, dim=1)
+                vc = torch.repeat_interleave(vc, group, dim=1)
+            out = mea_attention(q, kc, vc, positions, cache["pos"], win,
+                                causal, scale, cfg.softcap,
+                                _pick_chunk(kc.shape[2], cfg.attn_chunk))
     else:
         if split:
             k, v = k.index_select(1, q_index), v.index_select(1, q_index)

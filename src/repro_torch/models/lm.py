@@ -14,12 +14,19 @@ parameters, the optimizer state, the serve cache and the batch
 (``param_shardings``, ``opt_shardings``, ``cache_shardings``,
 ``batch_shardings``, from the config's logical rules), each rank's
 blocks of a tree (``shard_tree``, ``shard_params_``) and the whole tree
-back (``gather_tree``, for checkpoints and tests), and the sharded train
+back (``gather_tree``, for checkpoints and tests), the sharded train
 step (``make_train_step(..., mesh=)``): every family splits each layer
-over the model team (``models.parallel``).
+over the model team (``models.parallel``), and prefill and decode on a
+mesh (``make_prefill`` / ``make_decode_step`` with ``mesh=``): each rank
+its blocks of the parameters and of the cache (``init_cache_blocks``),
+its rows of the tokens, its block of the logits and its rows of the next
+token, as one device of the reference's sharded program
+(``serve_shardings``).
 """
 from __future__ import annotations
 
+import contextlib
+import math
 from functools import partial
 from typing import NamedTuple
 
@@ -27,6 +34,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..device import resolve_device
 from ..train.optim import AdamW, accumulate_gradients, as_tree
 from . import layers as Lyr
 from . import parallel as P
@@ -259,7 +267,8 @@ def _team_mean_rest(g, spec, mesh, team, n_team: int):
     return g / n_team
 
 
-def make_prefill(cfg: ModelConfig, max_len: int):
+def make_prefill(cfg: ModelConfig, max_len: int, *, mesh=None, specs=None,
+                 batch: int | None = None):
     """prefill(params, cache, tokens[, frames]) -> (cache, last_logits).
 
     ``tokens`` (B, L) fill the cache from position 0, which is written in
@@ -269,7 +278,18 @@ def make_prefill(cfg: ModelConfig, max_len: int):
     the Mamba2 state carried from segment to segment): peak activation
     memory drops from O(L) to O(chunk).  An enc-dec model's prompt is
     never chunked; its ``frames`` (B, enc_len, d) are encoded and the
-    encoder output stored in the cache for the decode steps."""
+    encoder output stored in the cache for the decode steps.
+
+    With a ``mesh`` (and the global ``batch``, which the blocks alone do
+    not tell): ``params`` hold this rank's blocks under ``specs``
+    (default :func:`param_shardings` at ``max_len``), ``cache`` its
+    blocks under :func:`cache_shardings` at ``batch`` and ``max_len``,
+    ``tokens`` its rows and ``frames`` its block, as
+    :func:`serve_shardings` lays them out; ``last_logits`` come back as
+    its block under ``("batch", "vocab")``.  Every family splits each
+    layer over the model team (``models.parallel``) as the train step
+    does, the cached attention and the Mamba2 block on the cache's
+    blocks."""
 
     @torch.no_grad()
     def prefill(params, cache, tokens, frames=None):
@@ -289,16 +309,34 @@ def make_prefill(cfg: ModelConfig, max_len: int):
         logits = T.lm_head(cfg, params, hidden[:, -1:])
         return cache, logits[:, 0]
 
-    return prefill
+    if mesh is None:
+        return prefill
+    on = _MeshServe(cfg, mesh, specs, batch, max_len)
+
+    @torch.no_grad()
+    def sharded(params, cache, tokens, frames=None):
+        with on.serving(cache, tokens):
+            if frames is not None:
+                frames = mesh.gather(frames, on.frames_spec)
+            return prefill(params, cache, tokens, frames)
+
+    return sharded
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, *, mesh=None, specs=None,
+                     batch: int | None = None):
     """decode(params, cache, token (B,), step) -> (cache, next (B,)).
 
     ``step`` is the new token's position: a one-element tensor on the
     cache's device (no host copy, so a decode loop never waits on the
     card), or an int.  The cache is written in place and returned;
-    ``next`` is the greedy token, in ``token``'s dtype."""
+    ``next`` is the greedy token, in ``token``'s dtype.
+
+    With a ``mesh`` and the global ``batch``, as :func:`make_prefill`
+    (``specs`` default to :func:`param_shardings` at the ring's width):
+    ``token`` and ``next`` are this rank's rows; where the vocabulary
+    splits over the model team the greedy token is the team's maximum,
+    the smallest lane among equal maxima (``argmax``'s rule)."""
 
     @torch.no_grad()
     def decode(params, cache, token, step):
@@ -307,10 +345,111 @@ def make_decode_step(cfg: ModelConfig):
         hidden, cache, _ = T.forward(cfg, params, token[:, None], positions,
                                      caches=cache)
         logits = T.lm_head(cfg, params, hidden)
-        nxt = torch.argmax(logits[:, 0], dim=-1).to(token.dtype)
+        nxt = _greedy(logits[:, 0]).to(token.dtype)
         return cache, nxt
 
-    return decode
+    if mesh is None:
+        return decode
+    on = _MeshServe(cfg, mesh, specs, batch, None)
+
+    @torch.no_grad()
+    def sharded(params, cache, token, step):
+        with on.serving(cache, token):
+            return decode(params, cache, token, step)
+
+    return sharded
+
+
+def _greedy(logits):
+    """``argmax`` over the last dim; inside ``parallel.split_model`` with
+    the vocabulary split, over the team's lanes: the maximum over the
+    team, then the smallest global lane holding it."""
+    tp = P.active()
+    at = torch.argmax(logits, dim=-1)
+    if tp is None or not tp.vocab:
+        return at
+    best = torch.gather(logits, -1, at[..., None])[..., 0]
+    top = tp.pmax(best)
+    lane = torch.where(best == top, at + tp.vocab_span[0],
+                       torch.iinfo(torch.int64).max)
+    return tp.pmin(lane)
+
+
+def _ring_width(cache) -> int:
+    """The slots of the cache's attention rings (``pos`` is whole on
+    every rank), 0 for a cache without one (Mamba2)."""
+    for name, t in cache.items():
+        if name == "pos":
+            return int(t.shape[-1])
+        if isinstance(t, dict):
+            w = _ring_width(t)
+            if w:
+                return w
+    return 0
+
+
+class _MeshServe:
+    """What prefill and decode on ``mesh`` need around each call: the
+    parameters' specs, the cache's (per ring width), the rows of the
+    global ``batch`` this rank holds, and whether the MoE dispatches per
+    shard of the batch team (the tokens' rows split over all of it) or
+    every rank dispatches the team's blocks (the rows replicated).  A
+    layout the split route cannot honour raises: the rows split over a
+    part of the batch team under an MoE, a cache whose blocks are not
+    the specs'."""
+
+    def __init__(self, cfg: ModelConfig, mesh, specs, batch, max_len):
+        if batch is None:
+            raise ValueError("serving on a mesh needs the global batch "
+                             "(batch=): a rank's rows do not tell it")
+        self.cfg, self.mesh, self.batch = cfg, mesh, int(batch)
+        self.max_len = max_len
+        self.specs = specs
+        lay = serve_shardings(cfg, mesh, self.batch)
+        self.frames_spec = ((None,) + tuple(lay["frames"][1:])
+                            if lay["frames"] is not None else None)
+        axes = spec_axes(lay["tokens"][0])
+        n = mesh.axes_size(axes)
+        self.rows = self.batch // n
+        team = Lyr.batch_axes(cfg, mesh)
+        self.rows_sharded = n > 1
+        if self.rows_sharded and set(axes) != set(team) and cfg.n_experts:
+            raise ValueError(
+                f"the batch of {self.batch} rows splits over {axes}, part "
+                f"of the MoE's dispatch team {team}: no per-shard dispatch "
+                f"honours that")
+        self._caches: dict = {}
+
+    def _cache_layout(self, width: int):
+        if width not in self._caches:
+            specs = cache_shardings(self.cfg, self.mesh, self.batch, width)
+            whole = T.cache_shapes(self.cfg, self.batch, width)
+            blocks = map_with_specs(
+                lambda t, s: block_shape(t.shape, s, self.mesh), whole,
+                specs)
+            self._caches[width] = (specs, blocks)
+        return self._caches[width]
+
+    @contextlib.contextmanager
+    def serving(self, cache, tokens):
+        if tokens.shape[0] != self.rows:
+            raise ValueError(f"this rank holds {self.rows} of the "
+                             f"{self.batch} rows; got {tokens.shape[0]}")
+        width = (self.max_len if self.max_len is not None
+                 else _ring_width(cache))
+        cache_specs, blocks = self._cache_layout(width)
+        got = map_with_specs(lambda t, s: tuple(t.shape), cache,
+                             cache_specs)
+        if got != blocks:
+            raise ValueError(f"the cache's blocks {got} are not this "
+                             f"rank's blocks {blocks} under "
+                             f"cache_shardings")
+        specs = self.specs
+        if specs is None:
+            specs = self.specs = param_shardings(self.cfg, self.mesh, width)
+        with Lyr.batch_shards(self.mesh, self.rows_sharded), \
+                P.split_model(self.cfg, self.mesh, specs, cache_specs):
+            yield
 
 
 # ---------------------------------------------------------------------------
@@ -347,9 +486,54 @@ def opt_shardings(cfg: ModelConfig, mesh, optimizer, max_len: int = 0):
 
 def cache_shardings(cfg: ModelConfig, mesh, batch: int, max_len: int):
     """The serve cache's specs, a tree beside :func:`T.init_cache`'s."""
-    shapes = T.init_cache(cfg, batch, max_len, device="meta")
+    shapes = T.cache_shapes(cfg, batch, max_len)
     return tree_shardings(T.cache_logical_axes(cfg), shapes, mesh,
                           cfg.rules())
+
+
+def serve_shardings(cfg: ModelConfig, mesh, batch: int,
+                    max_len: int | None = None) -> dict:
+    """The specs of prefill's and decode's inputs and outputs at a global
+    ``batch`` and cache ``max_len``, as the reference's dry run jits
+    them: ``tokens`` (B, L) under ``("batch", "seq")``, ``frames`` (B,
+    enc_len, d) under ``("batch", "seq", "embed")`` (None but for an
+    enc-dec model), ``logits`` (B, V_pad) under ``("batch", "vocab")``,
+    ``token`` (B,) under ``("batch",)``, and, given ``max_len``, the
+    ``cache`` (:func:`cache_shardings`)."""
+    rules = cfg.rules()
+    big = 1 << 30
+    out = {
+        "tokens": logical_to_spec(("batch", "seq"), (batch, big), mesh,
+                                  rules),
+        "frames": (logical_to_spec(("batch", "seq", "embed"),
+                                   (batch, cfg.enc_len, cfg.d_model), mesh,
+                                   rules) if cfg.enc_dec else None),
+        "logits": logical_to_spec(("batch", "vocab"),
+                                  (batch, cfg.vocab_pad), mesh, rules),
+        "token": logical_to_spec(("batch",), (batch,), mesh, rules),
+    }
+    if max_len is not None:
+        out["cache"] = cache_shardings(cfg, mesh, batch, max_len)
+    return out
+
+
+def block_shape(shape, spec, mesh) -> tuple:
+    """A rank's block of a tensor of ``shape`` under ``spec``."""
+    return tuple(n // math.prod(mesh.shape[a] for a in spec_axes(e))
+                 for n, e in zip(shape, spec))
+
+
+def init_cache_blocks(cfg: ModelConfig, mesh, batch: int, max_len: int,
+                      device=None):
+    """This rank's blocks of :func:`transformer.init_cache` at a global
+    ``batch`` under :func:`cache_shardings`, made as blocks (the whole
+    cache is never built): zeros, ``pos = -1``."""
+    whole = T.cache_shapes(cfg, batch, max_len)
+    specs = cache_shardings(cfg, mesh, batch, max_len)
+    blocks = map_with_specs(
+        lambda t, s: T.CacheLeaf(block_shape(t.shape, s, mesh), t.dtype),
+        whole, specs)
+    return T.make_cache(blocks, resolve_device(device))
 
 
 def batch_shardings(cfg: ModelConfig, mesh) -> Batch:

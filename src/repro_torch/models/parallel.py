@@ -50,6 +50,16 @@ whole compute reads (the norm scales) gets none: its gradient is equal
 on every model rank.  The MoE's aux loss is computed whole on every rank
 and enters the loss as ``reduce_from(aux / m)``, its gradient a share
 like the rest.
+
+Serving on a mesh (``lm.make_prefill`` / ``make_decode_step`` with
+``mesh=``) runs the same split, and ``split_model`` is then given the
+cache's specs (``lm.cache_shardings``) too: each rank holds its blocks of
+the cache, and :class:`Ring` / :class:`SsmState` say how the cached
+attention and the Mamba2 block read and write them (an attention ring
+split by kv heads over ``"model"`` and / or by slots over the axes of its
+``kv_seq`` entry, the softmax then combined over that team; the SSM's
+``conv`` and ``h`` gathered where their blocks do not follow the
+compute's).
 """
 from __future__ import annotations
 
@@ -180,7 +190,8 @@ def _is_model(entry) -> bool:
 
 
 class Split:
-    """What the layers of one train step split over the model team of
+    """What the layers of one train step (or serve call) split over the
+    model team of
     ``mesh``, decided from the parameters' ``specs`` (``lm.param_shardings``):
     ``heads`` (query heads; ``kv`` when the kv heads split too), ``mlp``,
     ``experts`` ("ep" over the dispatch experts, "tp" over
@@ -188,7 +199,8 @@ class Split:
     each from whichever group holds the piece; ``m`` is the team's
     size."""
 
-    def __init__(self, cfg: ModelConfig, mesh, specs: dict):
+    def __init__(self, cfg: ModelConfig, mesh, specs: dict,
+                 cache_specs: dict | None = None):
         self.mesh, self.specs = mesh, specs
         self.axes = (MODEL,) if MODEL in mesh.shape else ()
         self.m = mesh.axes_size(self.axes)
@@ -248,6 +260,20 @@ class Split:
             h0, h1 = self.ssm_span
             self.ssm_groups = (h0 // per, (h1 - 1) // per + 1)
         self._plans = {group: self._plan(group) for group in specs}
+        #: how this rank holds the serve cache (None outside serving)
+        self.ring = self.ssm_state = None
+        self.enc_out_spec = None
+        if cache_specs is not None:
+            ring = _find_spec(cache_specs, "k")
+            if ring is not None:
+                self.ring = Ring(self, ring[-4:])
+            conv, h = _find_spec(cache_specs, "conv"), _find_spec(
+                cache_specs, "h")
+            if conv is not None:
+                self.ssm_state = SsmState(self, conv[-3:], h[-4:])
+            if "enc_out" in cache_specs:
+                self.enc_out_spec = (None,) + tuple(
+                    cache_specs["enc_out"][1:])
 
     # -- the pieces ----------------------------------------------------
 
@@ -266,6 +292,37 @@ class Split:
     def pmax(self, x):
         """The maximum over the model team (no gradient)."""
         return self.mesh.pmax(x, self.axes) if self.m > 1 else x
+
+    def pmin(self, x):
+        """The minimum over the model team (no gradient)."""
+        return self.mesh.pmin(x, self.axes) if self.m > 1 else x
+
+    def gather_heads(self, x, dim: int):
+        """The model team's blocks of ``x`` joined along ``dim`` (no
+        gradient): every query head from each rank's own."""
+        return self.mesh.gather(x, (None,) * dim + (self.axes,)) \
+            if self.m > 1 else x
+
+    # -- the serve cache -----------------------------------------------
+
+    def cached(self, name: str):
+        """The plan of the cache leaves ``name`` ("ring", "ssm_state")
+        reads; raises when ``split_model`` was given no cache specs."""
+        plan = getattr(self, name)
+        if plan is None:
+            raise ValueError(f"a cached call inside split_model needs the "
+                             f"cache's specs (lm.cache_shardings) for its "
+                             f"{name}")
+        return plan
+
+    def enc_out_whole(self, t):
+        """Whisper's stored encoder output, this rank's rows, whole over
+        the axes its spec splits the sequence and width over."""
+        return self.mesh.gather(t, self.cached("enc_out_spec"))
+
+    def enc_out_block(self, t):
+        """This rank's block of an encoder output whole but for its rows."""
+        return self.mesh.shard(t, self.cached("enc_out_spec"))
 
     # -- the leaves ----------------------------------------------------
 
@@ -347,17 +404,111 @@ class Split:
                 for name in self._plans[group]}
 
 
+def _find_spec(tree, leaf: str):
+    """The spec of the first leaf named ``leaf`` in a cache spec tree
+    (every attention ring of a model has one spec, as has every SSM
+    state's leaf, whatever their leading ``"layers"`` entries)."""
+    if leaf in tree and not isinstance(tree[leaf], dict):
+        return tuple(tree[leaf])
+    for sub in tree.values():
+        if isinstance(sub, dict):
+            found = _find_spec(sub, leaf)
+            if found is not None:
+                return found
+    return None
+
+
+class Ring:
+    """How this rank holds one attention layer's ring ``{"k", "v": (B,
+    Hkv, W, hd), "pos": (W,)}`` under the per-layer spec ``(batch, kv,
+    kv_seq, none)`` of ``lm.cache_shardings``.  It holds the rank's own kv
+    heads (those its query heads read) where the kv heads split over
+    ``"model"`` (``Split.kv``), else every kv head, computed whole, for
+    the slots it holds:
+
+      * ``seq_axes``: the axes of the ``kv_seq`` entry (one or two of
+        ``"data"`` and ``"model"``, those ``"batch"`` and ``"kv"`` left
+        free), over which the W slots split into ``n_seq`` blocks, this
+        rank's the ``seq_at``-th; ``()`` when the ring is whole;
+      * ``q_all``: the slots split over the model team while the query
+        heads split over it too, so each rank attends with every query
+        head (gathered) against its slots, and the team's partial
+        softmaxes combine.
+
+    ``pos`` is replicated: every rank writes every slot's position.  A
+    layout the split cannot honour (kv heads over ``"model"`` while the
+    query heads do not split, or over another axis) raises."""
+
+    def __init__(self, split: "Split", spec):
+        mesh = split.mesh
+        _, kv, seq, _ = spec
+        kv_model = _is_model(kv) and split.m > 1
+        if (spec_axes(kv) and not _is_model(kv)) or kv_model != split.kv:
+            raise ValueError(
+                f"the ring's kv heads are held under {kv!r} while the "
+                f"attention splits them {'over' if split.kv else 'not over'}"
+                f" {MODEL!r}: no split honours that")
+        axes = mesh.key(spec_axes(seq))
+        self.n_seq = mesh.axes_size(axes)
+        self.seq_axes = axes if self.n_seq > 1 else ()
+        self.seq_at = mesh.axes_index(axes) if self.seq_axes else 0
+        self.q_all = split.heads and MODEL in self.seq_axes
+        self.mesh = mesh
+
+    def span(self, w_loc: int) -> tuple[int, int]:
+        """[s0, s1): the ring slots of a block of ``w_loc`` slots."""
+        return self.seq_at * w_loc, (self.seq_at + 1) * w_loc
+
+    def pmax(self, x):
+        return self.mesh.pmax(x, self.seq_axes)
+
+    def psum(self, x):
+        return self.mesh.psum(x, self.seq_axes)
+
+
+class SsmState:
+    """How this rank holds one Mamba2 layer's state: ``conv`` (B, K-1,
+    conv_dim) under ``(batch, none, heads)`` and ``h`` (B, nh, hp, N)
+    under ``(batch, heads, none, none)``.  ``conv``'s "model" blocks
+    follow the channels x | B | C, not a rank's heads, so a call reads it
+    whole (gathered over the model team) and keeps its block of the new
+    rows; ``h`` splits by heads exactly when the block's heads split
+    (``Split.ssm``), else it is read whole and its block kept."""
+
+    def __init__(self, split: "Split", conv, h):
+        self.mesh = split.mesh
+        self.conv_spec = (None,) + tuple(conv[1:])
+        self.h_spec = (None,) + tuple(h[1:])
+        self.conv_axes = self.mesh.key(spec_axes(conv[2]))
+        h_split = self.mesh.axes_size(spec_axes(h[1])) > 1
+        if split.ssm and not (h_split and _is_model(h[1])):
+            raise ValueError(f"the SSM heads split over {MODEL!r} but the "
+                             f"state h is held under {h}")
+        #: the compute's heads are the block's
+        self.h_own = split.ssm
+
+    def conv_span(self, conv_dim: int) -> tuple[int, int]:
+        """[c0, c1): the conv channels of this rank's block."""
+        n = self.mesh.axes_size(self.conv_axes)
+        at = self.mesh.axes_index(self.conv_axes) if n > 1 else 0
+        return at * (conv_dim // n), (at + 1) * (conv_dim // n)
+
+
+
 _ACTIVE: Split | None = None
 
 
 @contextlib.contextmanager
-def split_model(cfg: ModelConfig, mesh, specs: dict):
+def split_model(cfg: ModelConfig, mesh, specs: dict,
+                cache_specs: dict | None = None):
     """Inside the block the layers of ``cfg`` read their blocks under
     ``specs`` on ``mesh`` and split over its model team (see the module's
-    docstring); outside it they compute whole, as in one process."""
+    docstring); outside it they compute whole, as in one process.
+    ``cache_specs`` (``lm.cache_shardings``) are the serve cache's, when
+    the block serves from a cache of this rank's blocks."""
     global _ACTIVE
     prev = _ACTIVE
-    _ACTIVE = Split(cfg, mesh, specs)
+    _ACTIVE = Split(cfg, mesh, specs, cache_specs)
     try:
         yield _ACTIVE
     finally:

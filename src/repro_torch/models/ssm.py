@@ -20,7 +20,10 @@ team (a train step on a mesh), a block computes this rank's heads: their
 columns of z, x and dt, the B / C groups they read (each head its own
 group, wherever the rank's heads fall), the conv on those channels, its
 rows of the out-projection (partial sums, all-reduced), and the gated
-norm's mean square summed over the team.
+norm's mean square summed over the team.  Serving there holds this
+rank's blocks of the state (``parallel.SsmState``): ``conv`` is read
+whole (its "model" blocks follow the channels, not the heads) and the
+block of the new rows kept; ``h`` is the rank's heads where they split.
 """
 from __future__ import annotations
 
@@ -211,9 +214,14 @@ def mamba2_block(cfg: ModelConfig, p, x, *, prefix="ssm", cache=None):
     state before this call and written in place with the state after it
     (decode, chunked prefill).  Returns (out, cache).
 
-    Inside ``parallel.split_model`` with the SSM heads split (the cache-
-    free forward of a train step), this rank's heads only: see the
-    module's docstring."""
+    Inside ``parallel.split_model`` with the SSM heads split, this rank's
+    heads only: see the module's docstring.  With a cache there, the
+    cache holds this rank's blocks: the conv state is gathered whole over
+    the axes its spec splits its channels over, and the block of the new
+    rows (the last K-1 inputs of its channels, the in-projection's
+    columns of the block taken for the call's last K-1 positions) written
+    back; ``h`` is the rank's heads where the compute splits them, else
+    gathered whole and its block kept."""
     B, L, d = x.shape
     dt_ = x.dtype
     ns, hp = cfg.ssm_state, cfg.ssm_headdim
@@ -223,39 +231,49 @@ def mamba2_block(cfg: ModelConfig, p, x, *, prefix="ssm", cache=None):
                        p[f"{prefix}_d"])
     gnorm = p[f"{prefix}_gnorm"]
     tp = P.active()
-    split = tp is not None and tp.ssm and cache is None
+    split = tp is not None and tp.ssm
+    st = (tp.cached("ssm_state") if tp is not None and cache is not None
+          else None)
+    conv0 = h0 = None
+    if cache is not None:
+        conv0, h0 = cache["conv"], cache["h"]
+        if st is not None:
+            conv0 = st.mesh.gather(conv0, st.conv_spec)
+            if not st.h_own:
+                h0 = st.mesh.gather(h0, st.h_spec)
+    state_in = conv0
     group_of = None
     if split:
         x = tp.copy_to(x)
-        (h0, h1), (g0, g1) = tp.ssm_span, tp.ssm_groups
+        (h0_, h1_), (g0, g1) = tp.ssm_span, tp.ssm_groups
         cols, chans = _rank_columns(cfg, tp.ssm_span, tp.ssm_groups,
                                     x.device)
         w_in = w_in.index_select(1, cols)
         w_conv = w_conv.index_select(1, chans)
         b_conv = b_conv.index_select(0, chans)
-        alog, dtb, skip = alog[h0:h1], dtb[h0:h1], skip[h0:h1]
-        gnorm = gnorm[h0 * hp:h1 * hp]
+        if conv0 is not None:
+            state_in = conv0.index_select(2, chans)
+        alog, dtb, skip = alog[h0_:h1_], dtb[h0_:h1_], skip[h0_:h1_]
+        gnorm = gnorm[h0_ * hp:h1_ * hp]
         # each of the rank's heads reads its own group, wherever the
         # rank's heads fall among the groups
-        group_of = (torch.arange(h0, h1, device=x.device)
+        group_of = (torch.arange(h0_, h1_, device=x.device)
                     // (cfg.ssm_nheads // cfg.ssm_ngroups) - g0)
-        nh, g = h1 - h0, g1 - g0
+        nh, g = h1_ - h0_, g1 - g0
     else:
         nh, g = cfg.ssm_nheads, cfg.ssm_ngroups
     di = nh * hp
 
     zxbcdt = x @ w_in.to(dt_)
     z, xbc, dtr = _split_in(zxbcdt, di, g * ns, nh)
-    xbc, new_conv = _causal_conv(
-        xbc, w_conv.to(dt_), b_conv.to(dt_),
-        state=None if cache is None else cache["conv"])
+    xbc, new_conv = _causal_conv(xbc, w_conv.to(dt_), b_conv.to(dt_),
+                                 state=state_in)
     xs = xbc[..., :di].reshape(B, L, nh, hp)
     bmat = xbc[..., di:di + g * ns].reshape(B, L, g, ns)
     cmat = xbc[..., di + g * ns:].reshape(B, L, g, ns)
     dt = _softplus(dtr.float() + dtb.float())
     a = -torch.exp(alog.float())
 
-    h0 = None if cache is None else cache["h"]
     if L == 1:  # decode: one recurrence step, no chunking
         y, h = ssd_recurrent_ref(xs, dt, a, bmat, cmat, h0=h0,
                                  group_of=group_of)
@@ -271,9 +289,31 @@ def mamba2_block(cfg: ModelConfig, p, x, *, prefix="ssm", cache=None):
         y = rmsnorm(y, gnorm, cfg.norm_eps)
         out = y @ p[f"{prefix}_out"].to(dt_)
     if cache is not None:
-        cache["conv"].copy_(new_conv)
-        cache["h"].copy_(h)
+        if st is None:
+            cache["conv"].copy_(new_conv)
+        elif split:
+            cache["conv"].copy_(_conv_block(cfg, st, p[f"{prefix}_in"], x,
+                                            conv0))
+        else:
+            cache["conv"].copy_(st.mesh.shard(new_conv, st.conv_spec))
+        cache["h"].copy_(h if st is None or st.h_own
+                         else st.mesh.shard(h, st.h_spec))
     return out, cache
+
+
+def _conv_block(cfg: ModelConfig, st, w_in, x, conv0):
+    """This rank's block [c0, c1) of the conv state after a call on ``x``
+    (B, L, d), from the whole state before it (``conv0``): the last K-1
+    of the block's old rows and its new inputs, the in-projection's
+    columns of those channels applied to the call's last K-1
+    positions."""
+    K = cfg.ssm_conv
+    c0, c1 = st.conv_span(conv0.shape[-1])
+    tail = x[:, -(K - 1):]
+    di = cfg.d_inner
+    rows = tail @ w_in[:, di + c0:di + c1].to(x.dtype)
+    full = torch.cat([conv0[..., c0:c1].to(x.dtype), rows], dim=1)
+    return full[:, -(K - 1):]
 
 
 def _team_rmsnorm(tp, x, scale, eps, width: int):

@@ -31,10 +31,13 @@ never recomputes.
 The cache is the reference's stacked tree (:func:`init_cache`); each
 layer writes its slice in place, so the cache is never double-buffered
 (the reference's ``_serve_loop`` carries it through a ``fori_loop`` for
-the same end).
+the same end).  Serving on a mesh (``lm.make_prefill(..., mesh=)``)
+reads every layer's blocks through ``parallel.view`` as the train step
+does, and the cache holds this rank's blocks.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from functools import partial
 
 import torch
@@ -410,11 +413,13 @@ def forward(cfg: ModelConfig, params: DecoderLM, tokens, positions, *,
     remat = caches is None and _remat(cfg, h)
 
     if cfg.enc_dec:
+        stored = False
         if enc_out is None:
             if enc_frames is not None:
                 enc_out = encode(cfg, params, enc_frames)
             elif caches is not None:
-                enc_out = caches["enc_out"].to(h.dtype)
+                enc_out, stored = _enc_out_whole(caches["enc_out"]), True
+                enc_out = enc_out.to(h.dtype)
             else:
                 raise ValueError("enc-dec forward needs frames or enc_out")
         if caches is None:
@@ -425,10 +430,10 @@ def forward(cfg: ModelConfig, params: DecoderLM, tokens, positions, *,
         else:
             for layer, p in enumerate(params.blocks):
                 h, _ = apply_xdec_block(
-                    cfg, p, h, positions, enc_out,
+                    cfg, P.view("blocks", p), h, positions, enc_out,
                     cache=layer_cache(caches["layers"], layer))
-            if enc_out is not caches["enc_out"]:
-                caches["enc_out"].copy_(enc_out)
+            if not stored and enc_out is not caches["enc_out"]:
+                caches["enc_out"].copy_(_enc_out_block(enc_out))
     elif cfg.family == "ssm":
         if caches is None:
             (h,) = _run_layers(
@@ -437,7 +442,7 @@ def forward(cfg: ModelConfig, params: DecoderLM, tokens, positions, *,
                 [(p,) for p in params.blocks], remat)
         else:
             for layer, p in enumerate(params.blocks):
-                h, _ = apply_ssm_block(cfg, p, h,
+                h, _ = apply_ssm_block(cfg, P.view("blocks", p), h,
                                        cache=layer_cache(caches, layer))
     elif cfg.family == "hybrid":
         per = cfg.shared_every
@@ -456,12 +461,12 @@ def forward(cfg: ModelConfig, params: DecoderLM, tokens, positions, *,
         else:
             for grp, members in enumerate(groups):
                 h, _ = apply_shared_block(
-                    cfg, params.shared, h, positions,
+                    cfg, P.view("shared", params.shared), h, positions,
                     cache=layer_cache(caches["shared"], grp),
                     fresh_kv=fresh_kv)
                 for j, p in enumerate(members):
                     h, _ = apply_ssm_block(
-                        cfg, p, h,
+                        cfg, P.view("blocks", p), h,
                         cache=layer_cache(layer_cache(caches["mamba"], grp),
                                           j))
     else:
@@ -479,10 +484,24 @@ def forward(cfg: ModelConfig, params: DecoderLM, tokens, positions, *,
         else:
             for layer, (p, w) in enumerate(layers):
                 h, _, _ = apply_decoder_block(
-                    cfg, p, h, positions, w,
+                    cfg, P.view("blocks", p), h, positions, w,
                     cache=layer_cache(caches, layer), fresh_kv=fresh_kv)
     h = L.apply_norm(cfg, params.final, "fn", h)
     return h, caches, aux
+
+
+def _enc_out_whole(t):
+    """The stored encoder output as the decoder reads it: whole over the
+    width and sequence its cache spec splits (inside a serving
+    ``parallel.split_model``), else as it is."""
+    tp = P.active()
+    return t if tp is None else tp.enc_out_whole(t)
+
+
+def _enc_out_block(t):
+    """The block of an encoder output the cache holds on this rank."""
+    tp = P.active()
+    return t if tp is None else tp.enc_out_block(t)
 
 
 def head_weight(params: DecoderLM):
@@ -536,6 +555,54 @@ def cache_width(cfg: ModelConfig, max_len: int) -> int:
     return max_len
 
 
+@dataclass(frozen=True)
+class CacheLeaf:
+    """A cache leaf's shape and dtype (:func:`cache_shapes`)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """The tree of :func:`init_cache` as :class:`CacheLeaf`\\ s, no tensor
+    made (a dry run's fake tensors would count even meta ones)."""
+    dt = getattr(torch, cfg.dtype)
+
+    def rings(n: int) -> dict:
+        width = cache_width(cfg, max_len)
+        shape = (n, batch, cfg.n_kv, width, cfg.hd)
+        return {"k": CacheLeaf(shape, dt), "v": CacheLeaf(shape, dt),
+                "pos": CacheLeaf((n, width), torch.int32)}
+
+    def ssm_state(*lead) -> dict:
+        shp = S.ssm_cache_shape(cfg, batch)
+        return {"conv": CacheLeaf(lead + shp["conv"], dt),
+                "h": CacheLeaf(lead + shp["h"], torch.float32)}
+
+    if cfg.family == "ssm":
+        return ssm_state(cfg.n_layers)
+    if cfg.family == "hybrid":
+        groups = cfg.n_layers // cfg.shared_every
+        return {"shared": rings(groups),
+                "mamba": ssm_state(groups, cfg.shared_every)}
+    if cfg.enc_dec:
+        return {"layers": {"self": rings(cfg.n_layers)},
+                "enc_out": CacheLeaf((batch, cfg.enc_len, cfg.d_model), dt)}
+    return rings(cfg.n_layers)
+
+
+def make_cache(shapes, device) -> dict:
+    """A cache of the tree ``shapes`` (:class:`CacheLeaf`\\ s) on
+    ``device``: zeros, ``pos = -1`` (an empty slot)."""
+    def leaf(name, t):
+        if isinstance(t, dict):
+            return {k: leaf(k, v) for k, v in t.items()}
+        if name == "pos":
+            return torch.full(t.shape, -1, dtype=t.dtype, device=device)
+        return torch.zeros(t.shape, dtype=t.dtype, device=device)
+
+    return {k: leaf(k, v) for k, v in shapes.items()}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     """The serve path's cache on ``device`` (default: the CUDA card), the
     reference's tree, zeros (``pos = -1``: an empty slot):
@@ -551,35 +618,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
         (batch, enc_len, d)}``.
 
     K/V, ``conv`` and ``enc_out`` are in the compute dtype."""
-    dev = resolve_device(device)
-    dt = getattr(torch, cfg.dtype)
-
-    def rings(n: int) -> dict:
-        width = cache_width(cfg, max_len)
-        shape = (n, batch, cfg.n_kv, width, cfg.hd)
-        return {"k": torch.zeros(shape, dtype=dt, device=dev),
-                "v": torch.zeros(shape, dtype=dt, device=dev),
-                "pos": torch.full((n, width), -1, dtype=torch.int32,
-                                  device=dev)}
-
-    def ssm_state(*lead) -> dict:
-        shp = S.ssm_cache_shape(cfg, batch)
-        return {"conv": torch.zeros(lead + shp["conv"], dtype=dt,
-                                    device=dev),
-                "h": torch.zeros(lead + shp["h"], dtype=torch.float32,
-                                 device=dev)}
-
-    if cfg.family == "ssm":
-        return ssm_state(cfg.n_layers)
-    if cfg.family == "hybrid":
-        groups = cfg.n_layers // cfg.shared_every
-        return {"shared": rings(groups),
-                "mamba": ssm_state(groups, cfg.shared_every)}
-    if cfg.enc_dec:
-        return {"layers": {"self": rings(cfg.n_layers)},
-                "enc_out": torch.zeros((batch, cfg.enc_len, cfg.d_model),
-                                       dtype=dt, device=dev)}
-    return rings(cfg.n_layers)
+    return make_cache(cache_shapes(cfg, batch, max_len),
+                      resolve_device(device))
 
 
 def cache_logical_axes(cfg: ModelConfig) -> dict:

@@ -290,11 +290,12 @@ def test_lower_cell_on_smoke_configs(arch, shape, multi_pod):
     assert rec["temp_bytes_per_dev"] >= 0
     assert rec["fits_hbm"] is True
     json.dumps(rec)
-    if C.SHAPES[shape]["kind"] == "train":
-        assert rec["wire_bytes"] > 0 and rec.get("n_all-gather", 0) > 0
-        assert rec["alias_bytes_per_dev"] > 0
-    else:
-        assert rec["wire_bytes"] == 0
+    # every kind runs split on the mesh: each layer's blocks gathered
+    # over the FSDP axis, the state (train state, serve cache) updated in
+    # place
+    assert rec["route"] == "split"
+    assert rec["wire_bytes"] > 0 and rec.get("n_all-gather", 0) > 0
+    assert rec["alias_bytes_per_dev"] > 0
 
 
 def _real_inputs(cfg, kind: str, rows: int, length: int, seed: int):
@@ -348,17 +349,18 @@ def _real_step(cfg, kind: str, rows: int, length: int):
                                   "mamba2_130m", "zamba2_7b",
                                   "whisper_small"])
 def test_counted_flops_and_peak_equal_a_real_step(arch, kind):
-    """Rank 0 of the fake 16 x 16 mesh counts the flops FlopCounterMode
+    """Rank 0 of the fake 16 x 1 mesh counts the flops FlopCounterMode
     counts around the same step run for real on the CPU at a (1, 1) mesh
-    on rank 0's rows; at a fake (1, 1) mesh the peak of live storages is
-    the real step's, storage for storage (on 16 x 16 the train state is
-    sharded, so its peak is another step's).  A train step computes its
-    model share on 16 x 16 (held in ``test_split_route_cuts_a_rank_s_flops``
-    and against real ranks in ``test_torch_tp*.py``), so its rank 0 is
-    the fake 16 x 1 mesh's."""
+    (train) or in one process (prefill, decode) on rank 0's rows; at a
+    fake (1, 1) mesh the peak of live storages is the real step's,
+    storage for storage (on 16 x 1 the state and the cache are sharded,
+    so its peak is another step's).  Every kind computes its model share
+    on 16 x 16 (held in ``test_split_route_cuts_a_rank_s_flops``, in
+    ``test_serve_flops_equal_a_real_gloo_rank_s`` and against real ranks
+    in ``test_torch_tp*.py``), so its rank 0 is the fake 16 x 1 mesh's."""
     cfg = C.get_smoke(arch)
     batch, length = 32, 64
-    shape = (16, 1) if kind == "train" else POD[0]
+    shape = (16, 1)
     cnt = D.trace_step(cfg, kind, batch, length, mesh_shape=shape,
                        mesh_axes=POD[1], device="cpu")
     rows = cnt["rows_per_dev"]
@@ -372,8 +374,6 @@ def test_counted_flops_and_peak_equal_a_real_step(arch, kind):
         out = run()
     assert cnt["flops"] == one["flops"] == fc.get_total_flops() > 0
     assert one["peak_bytes"] == tracker.peak
-    if kind != "train":
-        assert cnt["peak_bytes"] == tracker.peak
     assert all(torch.isfinite(t.float()).all() for t in D._tensors(out)
                if t.is_floating_point())
 
@@ -623,6 +623,83 @@ def test_split_route_gathers_each_layer_inside_remat():
     assert remat_peak < plain_peak
 
 
+#: every prefill and decode cell of the reference's table
+SERVE_CELLS = [(a, s) for a, s in C.cells()
+               if C.SHAPES[s]["kind"] != "train"]
+
+
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["16x16",
+                                                          "2x16x16"])
+@pytest.mark.parametrize("arch,shape", SERVE_CELLS, ids=lambda c: str(c))
+def test_every_serve_cell_runs_split(arch, shape, multi_pod):
+    """Every prefill and decode cell on a production mesh runs on route
+    "split" (the rank's blocks of the parameters and of the cache), at the
+    cell's global batch, on the arch's smoke config at 64 positions (the
+    route does not depend on the length): its cache blocks are what
+    ``lm.init_cache_blocks`` makes, its rows the tokens spec's."""
+    cfg = C.get_smoke(arch)
+    sh = C.SHAPES[shape]
+    mesh = MULTIPOD if multi_pod else POD
+    cnt = D.trace_step(cfg, sh["kind"], sh["global_batch"], 64,
+                       mesh_shape=mesh[0], mesh_axes=mesh[1], device="cpu",
+                       measure=False)
+    assert cnt["route"] == "split"
+    n = math.prod(mesh[0][:-1])
+    b = sh["global_batch"]
+    assert cnt["rows_per_dev"] == (b // n if b % n == 0 else b)
+    stub = _MeshStub(*mesh)
+    whole = T.cache_shapes(cfg, b, 64)
+    specs = lm.cache_shardings(cfg, stub, b, 64)
+    blocks = lm.map_with_specs(
+        lambda t, spec: math.prod(lm.block_shape(t.shape, spec, stub))
+        * t.dtype.itemsize, whole, specs)
+    assert cnt["alias_bytes"] == sum(_leaf_list(blocks))
+
+
+def test_danube_decode_cache_bytes_equal_the_closed_form():
+    """h2o-danube-1.8b ``decode_32k`` at full size on 16 x 16: a rank's
+    cache is its 128 / 16 rows ("data") of every kv head over 4096 / 16
+    slots ("model": 8 kv heads do not split over 16), k and v in
+    bfloat16, and the whole (24, 4096) int32 ``pos``."""
+    cfg = C.get("h2o_danube_1p8b")
+    cnt = D.trace_step(cfg, "decode", 128, 32768, mesh_shape=POD[0],
+                       mesh_axes=POD[1], device="cpu", measure=False)
+    rows, slots = 128 // 16, 4096 // 16
+    kv = 2 * cfg.n_layers * rows * cfg.n_kv * slots * cfg.hd * 2
+    assert cnt["alias_bytes"] == kv + cfg.n_layers * 4096 * 4
+    assert cnt["rows_per_dev"] == rows and cnt["route"] == "split"
+
+
+@pytest.fixture(scope="module")
+def gloo_pool():
+    from test_torch_ranks import RankPool
+    pool = RankPool(4)
+    try:
+        yield pool
+    finally:
+        pool.close()
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)], ids=str)
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("arch", ["h2o_danube_1p8b", "olmoe_1b_7b",
+                                  "zamba2_7b", "whisper_small"])
+def test_serve_flops_equal_a_real_gloo_rank_s(gloo_pool, arch, kind,
+                                              shape):
+    """On a 4-rank fake group at smoke size, rank 0's counted flops of a
+    sharded prefill or decode step equal ``FlopCounterMode``'s around the
+    same step on real gloo rank 0 (``lm.make_prefill`` / ``make_decode_
+    step`` with ``mesh=``), as ``test_torch_tp`` holds the train step."""
+    from test_torch_ranks import serve_flops
+    batch, length = 4, 32
+    cfg = C.get_smoke(arch)
+    cnt = D.trace_step(cfg, kind, batch, length, mesh_shape=shape,
+                       mesh_axes=POD[1], device="cpu")
+    real = gloo_pool.run(serve_flops, arch, kind, shape, batch, length)
+    assert cnt["route"] == "split"
+    assert cnt["flops"] == real[0] > 0
+
+
 # ---------------------------------------------------------------------------
 # full size, the CLI, the table
 # ---------------------------------------------------------------------------
@@ -646,13 +723,16 @@ def test_full_size_danube_decode_cell_and_the_cli(tmp_path, capsys):
     assert rec["rows_per_dev"] == 128 // 16
     cfg = C.get("h2o_danube_1p8b")
     weights = 4 * cfg.param_count()
-    assert rec["arg_bytes_per_dev"] > weights
+    # a rank holds 1/256 of the f32 weights (embed over "data", the
+    # heads, d_ff and vocabulary over "model") and its cache blocks
+    assert weights / 256 < rec["arg_bytes_per_dev"] < weights / 16
     assert rec["alias_bytes_per_dev"] > 0 and rec["fits_hbm"] is True
-    assert rec["dominant"] == "memory"
-    # every weight is read at least once per decode step
-    assert rec["hbm_bytes"] >= weights
+    assert rec["dominant"] == "memory" and rec["route"] == "split"
+    # every weight of the rank's model share is read at least once per
+    # decode step (its blocks gathered over "data")
+    assert rec["hbm_bytes"] >= weights / 16
     assert rec["flops"] >= 2 * (cfg.param_count() - cfg.vocab
-                                * cfg.d_model) * rec["rows_per_dev"]
+                                * cfg.d_model) * rec["rows_per_dev"] / 16
     capsys.readouterr()
     assert R.main(["--table", str(out)]) == 0
     table = capsys.readouterr()

@@ -635,3 +635,145 @@ def tp_grads(rank, name, over, shape, seq, batch):
     return {"loss": float(loss),
             "grads": (lm.map_with_specs(lambda t, s: t.numpy(), whole,
                                         specs) if rank == 0 else None)}
+
+
+# ---------------------------------------------------------------------------
+# prefill and decode on a mesh (lm.make_prefill / make_decode_step(mesh=))
+# ---------------------------------------------------------------------------
+
+def _leaf_paths(tree, prefix=""):
+    """(path, leaf) of a nest of dicts, sorted: ``layers/self/k``."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaf_paths(tree[k], f"{prefix}{k}/")
+        else:
+            yield prefix + k, tree[k]
+
+
+def tp_serve(rank, name, over, shape, params, seq, max_len, tokens, frames,
+             forced, events=False):
+    """Prefill and decode of the smoke config ``name`` (float32, ``over``
+    its overrides) from the reference's weights ``params`` (built at
+    ``seq``) on a (data, model) mesh of ``shape``, at the global batch of
+    ``tokens``: this rank's rows of ``tokens`` (and its block of
+    ``frames``), then one decode step per token of ``forced[i]`` (the
+    global tokens fed at step i, teacher forcing) at positions L, L + 1,
+    ....  Returns the rank's coordinates, the logits gathered whole, each
+    step's next tokens gathered over the batch team, (rank 0) the cache
+    gathered whole after prefill and after each step, the shapes of the
+    rank's blocks (``logits``, ``tokN``, ``cacheN/leaf``) and, with
+    ``events``, the collectives watched in the first decode step."""
+    from repro_torch import convert
+    from repro_torch.models import lm
+    cfg, mesh = _lm_mesh(name, shape)
+    cfg = cfg.with_(**over)
+    b, length = tokens.shape
+    specs = lm.param_shardings(cfg, mesh, max_len=seq)
+    model = convert.lm_params_from_numpy(cfg, params, device="cpu")
+    lm.shard_params_(model, specs, mesh)
+    lay = lm.serve_shardings(cfg, mesh, b, max_len)
+    cache = lm.init_cache_blocks(cfg, mesh, b, max_len, device="cpu")
+    prefill = lm.make_prefill(cfg, max_len, mesh=mesh, specs=specs, batch=b)
+    decode = lm.make_decode_step(cfg, mesh=mesh, specs=specs, batch=b)
+    rows = mesh.shard(torch.as_tensor(tokens), lay["tokens"])
+    args = [model, cache, rows]
+    if frames is not None:
+        args.append(mesh.shard(torch.as_tensor(frames), lay["frames"]))
+    blocks, caches, toks, watched = {}, [], [], None
+
+    def keep(i, cache):
+        for path, t in _leaf_paths(cache):
+            blocks[f"cache{i}/{path}"] = tuple(t.shape)
+        whole = lm.gather_tree(cache, lay["cache"], mesh)
+        # a copy: a leaf no spec splits is the cache's own storage
+        caches.append({k: np.array(v) for k, v in _leaf_paths(
+            convert.cache_to_numpy(whole))} if rank == 0 else None)
+
+    cache, logits = prefill(*args)
+    blocks["logits"] = tuple(logits.shape)
+    keep(0, cache)
+    for i, tok in enumerate(forced):
+        fed = mesh.shard(torch.as_tensor(tok), lay["token"])
+        step = torch.tensor([length + i])
+        if events and i == 0:
+            (cache, nxt), watched = _watched(
+                lambda: decode(model, cache, fed, step))
+        else:
+            cache, nxt = decode(model, cache, fed, step)
+        blocks[f"tok{i + 1}"] = tuple(nxt.shape)
+        toks.append(mesh.gather(nxt, lay["token"]).numpy())
+        keep(i + 1, cache)
+    caches = [c for c in caches if c is not None]
+    return {"rank": rank, "coords": mesh.coords,
+            "logits": mesh.gather(logits, lay["logits"]).numpy(),
+            "tokens": toks, "caches": caches, "blocks": blocks,
+            "events": watched}
+
+
+def tp_serve_refusals(rank):
+    """Which misuses of prefill on a (2, 2) mesh raise ``ValueError`` on
+    this rank (danube smoke, a global batch of 4): no global batch, all
+    4 rows where the rank holds 2, the whole cache where it holds
+    blocks."""
+    from repro_torch.models import lm, transformer
+    cfg, mesh = _lm_mesh("h2o_danube_1p8b", (2, 2))
+    specs = lm.param_shardings(cfg, mesh, max_len=32)
+    model = transformer.init_params(cfg, seed=0, device="cpu")
+    lm.shard_params_(model, specs, mesh)
+    toks = torch.zeros((4, 8), dtype=torch.int32)
+    out = []
+    try:
+        lm.make_prefill(cfg, 32, mesh=mesh, specs=specs)
+    except ValueError as e:
+        out.append("batch" if "global batch" in str(e) else str(e))
+    prefill = lm.make_prefill(cfg, 32, mesh=mesh, specs=specs, batch=4)
+    blocks = lm.init_cache_blocks(cfg, mesh, 4, 32, device="cpu")
+    try:
+        prefill(model, blocks, toks)
+    except ValueError as e:
+        out.append("rows" if "rows" in str(e) else str(e))
+    try:
+        prefill(model, transformer.init_cache(cfg, 4, 32, device="cpu"),
+                toks[:2])
+    except ValueError as e:
+        out.append("cache" if "blocks" in str(e) else str(e))
+    return out
+
+
+def serve_flops(rank, name, kind, shape, batch, length):
+    """``FlopCounterMode``'s count of one sharded prefill (of ``length``
+    tokens) or decode step (position ``length // 2``) of the smoke config
+    ``name`` (its own dtype, weights from ``init_params``) on a (data,
+    model) mesh of ``shape`` at a global batch of ``batch``, the cache
+    ``length`` positions wide: the dry run's ``trace_step`` inputs."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm, transformer
+    cfg = configs.get_smoke(name)
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    specs = lm.param_shardings(cfg, mesh, length)
+    model = transformer.init_params(cfg, seed=0, max_len=length,
+                                    device="cpu")
+    lm.shard_params_(model, specs, mesh)
+    lay = lm.serve_shardings(cfg, mesh, batch, length)
+    cache = lm.init_cache_blocks(cfg, mesh, batch, length, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    kw = dict(mesh=mesh, specs=specs, batch=batch)
+    if kind == "prefill":
+        toks = mesh.shard(torch.randint(0, cfg.vocab, (batch, length),
+                                        generator=gen), lay["tokens"])
+        args = [model, cache, toks]
+        if cfg.enc_dec:
+            args.append(mesh.shard(torch.randn(
+                (batch, cfg.enc_len, cfg.d_model), generator=gen).to(
+                    getattr(torch, cfg.dtype)), lay["frames"]))
+        fn = lm.make_prefill(cfg, length, **kw)
+    else:
+        tok = mesh.shard(torch.randint(0, cfg.vocab, (batch,),
+                                       generator=gen), lay["token"])
+        args = [model, cache, tok, torch.tensor(length // 2)]
+        fn = lm.make_decode_step(cfg, **kw)
+    with FlopCounterMode(display=False) as fc:
+        fn(*args)
+    return fc.get_total_flops()
