@@ -821,15 +821,12 @@ class _TeamSum(torch.autograd.Function):
         return grad * ctx.n, None, None
 
 
-def _moe_dispatch_local(cfg: ModelConfig, xt, router, c_loc: int,
-                        experts: tuple[int, int] | None = None):
+def _moe_dispatch_local(cfg: ModelConfig, xt, router, c_loc: int):
     """Router -> top-k -> positions within each expert -> scatter into a
     (E, c_loc, d) capacity buffer.  Kept slots are distinct; dropped
     assignments go to a sentinel row that is thrown away, so the scatter
     is deterministic.  Returns (buf, slot, gates, keep, (me_sum, ce_sum))
-    as the reference does.  With ``experts`` = [e0, e1) the buffer holds
-    those experts' slots only, (e1 - e0, c_loc, d); ``slot`` and ``keep``
-    stay the whole dispatch's."""
+    as the reference does."""
     dt = xt.dtype
     E, K = cfg.n_experts, cfg.top_k
     t_loc, d = xt.shape
@@ -859,35 +856,17 @@ def _moe_dispatch_local(cfg: ModelConfig, xt, router, c_loc: int,
     keep = pos < c_loc
     slot = torch.where(keep, flat_ids * c_loc + pos, E * c_loc)
     xr = xt[:, None].expand(t_loc, K, d).reshape(t_loc * K, d)
-    rows, n = slot, E * c_loc
-    if experts is not None:
-        rows, _ = _expert_rows(slot, keep, experts, c_loc)
-        n = (experts[1] - experts[0]) * c_loc
-    buf = torch.zeros((n + 1, d), dtype=dt, device=xt.device)
-    buf.index_copy_(0, rows, xr)
-    return (buf[:-1].view(-1, c_loc, d), slot, gates, keep,
+    buf = torch.zeros((E * c_loc + 1, d), dtype=dt, device=xt.device)
+    buf.index_copy_(0, slot, xr)
+    return (buf[:-1].view(E, c_loc, d), slot, gates, keep,
             (me_sum, ce_sum))
 
 
-def _expert_rows(slot, keep, experts: tuple[int, int], c_loc: int):
-    """(rows, mine): each assignment's row in a buffer of experts [e0, e1)
-    (the sentinel (e1 - e0) c_loc where dropped or another's), and
-    whether it has one."""
-    start, n = experts[0] * c_loc, (experts[1] - experts[0]) * c_loc
-    mine = keep & (slot >= start) & (slot < start + n)
-    return torch.where(mine, slot - start, n), mine
-
-
-def _moe_combine_local(out_e_loc, slot, gates, keep, K: int,
-                       experts: tuple[int, int] | None = None):
+def _moe_combine_local(out_e_loc, slot, gates, keep, K: int):
     """Gather each assignment's expert output back to its token, weighted
-    by its gate (0 where dropped), and sum over the token's K.  With
-    ``experts`` = [e0, e1), ``out_e_loc`` holds those experts only and
-    the assignments to others weigh 0 (a partial sum)."""
+    by its gate (0 where dropped), and sum over the token's K."""
     E, c_loc, d = out_e_loc.shape
     flat = out_e_loc.reshape(E * c_loc, d)
-    if experts is not None:
-        slot, keep = _expert_rows(slot, keep, experts, c_loc)
     g = flat[slot.clamp(max=E * c_loc - 1)]
     g = g * (gates.reshape(-1)[:, None] * keep[:, None]).to(flat.dtype)
     return g.view(-1, K, d).sum(dim=1)                    # (T, d)
@@ -914,20 +893,23 @@ def apply_moe(cfg: ModelConfig, p, x, prefix: str = "moe"):
     Inside ``parallel.split_model`` with the experts split over the model
     team, every rank dispatches its tokens as above (each rank of a data
     shard holds the same tokens, so no token moves) and then: under "ep"
-    (and "ep_virtual", over the dispatch experts) builds and runs the
-    buffer of its own experts only; under "tp" runs every expert on its
-    columns of ``d_ff_expert``.  Either way its combine is a partial sum,
-    all-reduced over the team, and the aux loss, computed whole on every
-    rank, enters as ``reduce_from(aux / m)``."""
+    (and "ep_virtual", over the dispatch experts) runs the MLP of its own
+    experts on its block of the whole buffer and gathers every expert's
+    output back, so the combine and the aux loss run whole and alike on
+    every rank, in one process's order (the reference's ``shard_map``
+    combine reads the outputs whole too); under "tp" runs every expert on
+    its columns of ``d_ff_expert``, its combine a partial sum all-reduced
+    over the team, and the aux loss, computed whole on every rank, enters
+    as ``reduce_from(aux / m)``."""
     tp = P.active()
-    if tp is not None and tp.experts:
-        experts = tp.expert_span if tp.experts == "ep" else None
-        out, aux = _apply_moe(cfg, p, tp.copy_to(x), prefix, experts)
+    if tp is not None and tp.experts == "tp":
+        out, aux = _apply_moe(cfg, p, tp.copy_to(x), prefix, None)
         return tp.reduce_from(out), tp.reduce_from(aux / tp.m)
-    return _apply_moe(cfg, p, x, prefix, None)
+    split = tp if tp is not None and tp.experts == "ep" else None
+    return _apply_moe(cfg, p, x, prefix, split)
 
 
-def _apply_moe(cfg: ModelConfig, p, x, prefix, experts):
+def _apply_moe(cfg: ModelConfig, p, x, prefix, split):
     B, L, d = x.shape
     T = B * L
     if _BATCH_SHARDS is not None:
@@ -937,7 +919,7 @@ def _apply_moe(cfg: ModelConfig, p, x, prefix, experts):
         t_team = T * n if rows_sharded else T
         if n > 1 and moe_shardable(cfg, t_team, n):
             return _apply_moe_sharded(cfg, p, x, prefix, mesh, axes, n,
-                                      t_team, rows_sharded, experts)
+                                      t_team, rows_sharded, split)
         if rows_sharded and n > 1:
             raise ValueError(
                 f"{t_team} tokens do not dispatch per shard over {n} "
@@ -947,29 +929,34 @@ def _apply_moe(cfg: ModelConfig, p, x, prefix, experts):
     E, K = cfg.n_experts, cfg.top_k
     C = moe_capacity(cfg, T)
     buf, slot, gates, keep, (me_s, ce_s) = _moe_dispatch_local(
-        cfg, x.reshape(T, d), p[f"{prefix}_router"], C, experts)
+        cfg, x.reshape(T, d), p[f"{prefix}_router"], C)
     if _DROP_TALLY is not None:
         _DROP_TALLY.add(keep)
     aux = E * torch.sum((me_s / T) * (ce_s / T))
-    out = _moe_experts(cfg, p, buf, slot, gates, keep, prefix, dt, experts)
+    out = _moe_experts(cfg, p, buf, slot, gates, keep, prefix, dt, split)
     return out.reshape(B, L, d), aux
 
 
 def _moe_experts(cfg: ModelConfig, p, buf, slot, gates, keep, prefix, dt,
-                 experts: tuple[int, int] | None = None):
+                 split=None):
     """Every expert's MLP over its slots of ``buf`` (E, c, d), then the
-    combine of each token's assignments: (tokens, d).  ``experts``: the
-    buffer's experts [e0, e1), when it holds only those."""
+    combine of each token's assignments: (tokens, d).  ``split``: the
+    ``parallel.Split`` whose rank holds its block of the experts only;
+    it runs that block of ``buf`` and gathers the outputs whole."""
     K_comb = cfg.top_k * (cfg.virtual_split
                           if cfg.expert_sharding == "ep_virtual" else 1)
     wg, wu, wd = (p[f"{prefix}_{w}"].to(dt) for w in ("wg", "wu", "wd"))
+    if split is not None:
+        buf = split.block_of(buf, 0)
     h = F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
     out_e = torch.bmm(h, wd)                              # (E, c, d)
-    return _moe_combine_local(out_e, slot, gates, keep, K_comb, experts)
+    if split is not None:
+        out_e = split.gather_whole(out_e, 0)
+    return _moe_combine_local(out_e, slot, gates, keep, K_comb)
 
 
 def _apply_moe_sharded(cfg: ModelConfig, p, x, prefix, mesh, axes, n: int,
-                       t_team: int, rows_sharded: bool, experts):
+                       t_team: int, rows_sharded: bool, split):
     """The per-shard branch of :func:`apply_moe` over the team's
     ``t_team`` tokens: this rank's block alone when the rows are
     sharded (the statistics summed over the team), else all n blocks in
@@ -980,8 +967,7 @@ def _apply_moe_sharded(cfg: ModelConfig, p, x, prefix, mesh, axes, n: int,
     router = p[f"{prefix}_router"]
     xt = x.reshape(B * L, d)
     blocks = [xt] if rows_sharded else list(xt.chunk(n))
-    parts = [_moe_dispatch_local(cfg, blk, router, c_loc, experts)
-             for blk in blocks]
+    parts = [_moe_dispatch_local(cfg, blk, router, c_loc) for blk in blocks]
     me_s = sum(part[4][0] for part in parts)
     ce_s = sum(part[4][1] for part in parts)
     if rows_sharded:
@@ -993,5 +979,5 @@ def _apply_moe_sharded(cfg: ModelConfig, p, x, prefix, mesh, axes, n: int,
         if _DROP_TALLY is not None:
             _DROP_TALLY.add(keep)
         outs.append(_moe_experts(cfg, p, buf, slot, gates, keep, prefix,
-                                 dt, experts))
+                                 dt, split))
     return torch.cat(outs).reshape(B, L, d), aux

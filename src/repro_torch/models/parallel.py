@@ -39,15 +39,23 @@ collective watcher):
                     reverse pair);
   ``gather_whole``  all-gather forward, this rank's block of the gradient
                     backward: a block gathered for compute done whole and
-                    alike on every rank (its gradient is already whole).
+                    alike on every rank (its gradient is already whole);
+  ``block_of``      this rank's block forward, all-gather backward (the
+                    reverse pair): a tensor whole and alike on every rank
+                    enters split compute.
 
 Inside split compute a rank's gradients are its share: summed over the
 model team they make the whole.  So a leaf replicated over ``"model"``
 that split compute reads (the kv projection where the kv heads do not
-divide, the MoE router, chameleon's qk-norm, the SSM's per-head vectors
-and gated-norm scale) gets ``copy_to`` on the weight, and one that only
-whole compute reads (the norm scales) gets none: its gradient is equal
-on every model rank.  The MoE's aux loss is computed whole on every rank
+divide, the MoE router under "tp", chameleon's qk-norm, the SSM's
+per-head vectors and gated-norm scale) gets ``copy_to`` on the weight,
+and one that only whole compute reads (the norm scales, the MoE router
+under "ep") gets none: its gradient is equal on every model rank.  Under
+"ep" the MoE's dispatch, aux loss and combine run whole and alike on
+every rank, as the reference's ``shard_map`` runs them, and only the
+experts' MLP splits: ``block_of`` the dispatch buffer in, ``gather_whole``
+the experts' outputs out, so each token's assignments are summed in one
+process's order.  Under "tp" the aux loss is computed whole on every rank
 and enters the loss as ``reduce_from(aux / m)``, its gradient a share
 like the rest.
 
@@ -143,6 +151,19 @@ class _GatherWhole(torch.autograd.Function):
         return grad.chunk(ctx.n, dim=ctx.dim)[ctx.at], None, None, None
 
 
+class _BlockOf(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, team, axes, dim):
+        ctx.team, ctx.axes, ctx.dim = team, axes, dim
+        n, at = len(team.team(axes)), team.position(axes)
+        return x.chunk(n, dim=dim)[at].contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_cat(ctx.team.all_gather(grad.contiguous(), ctx.axes),
+                     ctx.dim), None, None, None)
+
+
 def _one(team, axes) -> bool:
     return not axes or len(team.team(axes)) == 1
 
@@ -173,6 +194,12 @@ def gather_whole(x, team, axes, dim: int):
     """The team's blocks of ``x`` joined along ``dim``; the gradient, whole
     and alike on every rank, cut back to this rank's block."""
     return x if _one(team, axes) else _GatherWhole.apply(x, team, axes, dim)
+
+
+def block_of(x, team, axes, dim: int):
+    """This rank's block along ``dim`` of ``x``, whole and alike on every
+    rank of the team; the gradient all-gathered."""
+    return x if _one(team, axes) else _BlockOf.apply(x, team, axes, dim)
 
 
 # ---------------------------------------------------------------------------
@@ -246,12 +273,10 @@ class Split:
         self.ssm = (self.m > 1 and nh > 0 and nh % self.m == 0
                     and _is_model(ssm["ssm_out"][0]))
         self.vocab = self.m > 1 and _is_model(specs["embed"]["tok"][0])
-        #: [start, stop) of this rank's query heads, SSM heads, dispatch
-        #: experts and vocabulary rows (the whole range where they do not
-        #: split)
+        #: [start, stop) of this rank's query heads, SSM heads and
+        #: vocabulary rows (the whole range where they do not split)
         self.q_span = span("q_heads", cfg.n_heads)
         self.ssm_span = span("heads", nh) if self.ssm else (0, nh)
-        self.expert_span = span("expert", cfg.n_experts_disp)
         self.vocab_span = span("vocab", cfg.vocab_pad)
         #: [start, stop) of the B / C groups this rank's SSM heads read
         self.ssm_groups = (0, cfg.ssm_ngroups)
@@ -288,6 +313,12 @@ class Split:
 
     def reduce_from(self, x):
         return reduce_from(x, self.mesh, self.axes)
+
+    def block_of(self, x, dim: int):
+        return block_of(x, self.mesh, self.axes, dim)
+
+    def gather_whole(self, x, dim: int):
+        return gather_whole(x, self.mesh, self.axes, dim)
 
     def pmax(self, x):
         """The maximum over the model team (no gradient)."""
@@ -345,7 +376,7 @@ class Split:
             return (SPLIT, 1 if leaf in ("wg", "wu") else 0)
         if kind == "moe" and self.experts:
             if leaf == "router":
-                return PARTIAL
+                return PARTIAL if self.experts == "tp" else WHOLE
             if self.experts == "ep":
                 return (SPLIT, 0)
             return (SPLIT, 1 if leaf == "wd" else 2)

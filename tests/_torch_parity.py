@@ -10,16 +10,42 @@ Import the fixtures into a test module by name::
 JAX is imported only by the ``x64`` fixture, so the card-only tests can
 use this module on a machine without JAX.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import manifest as tman
 
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "src")
+
 # the suite runs under pytest-xdist with several workers on a few cores
 torch.set_num_threads(1)
 
 PROX_STATS = ("out", "logdet", "l1", "sumsq", "min_diag", "block_nnz")
+
+#: XLA flags of every reference subprocess besides its device count: the
+#: dot products in single-threaded Eigen, whose float32 bits cannot depend
+#: on the size of XLA's thread pool.  The default multi-threaded
+#: contraction is another kernel: it moves the reference's step-3 Mamba2
+#: ``ssm_in`` by 1.06e-5 on (2, 2), more than ``_torch_tp.PARAM_TOL``
+PINNED_XLA_FLAGS = "--xla_cpu_multi_thread_eigen=false"
+
+
+def reference_env(n_devices: int | None = None) -> dict:
+    """The environment of a JAX reference subprocess: this one's, with
+    ``src`` on ``PYTHONPATH``, XLA's CPU threads pinned
+    (PINNED_XLA_FLAGS) and, given ``n_devices``, that many virtual
+    devices."""
+    env = dict(os.environ)
+    flags = [PINNED_XLA_FLAGS]
+    if n_devices is not None:
+        flags.insert(0, f"--xla_force_host_platform_device_count={n_devices}")
+    env["XLA_FLAGS"] = " ".join(flags)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    return env
 
 
 @pytest.fixture(scope="module")

@@ -11,7 +11,6 @@ mesh, its step-1 gradient, its parameters' shard shapes and its step-3
 checkpoint.
 """
 import math
-import os
 import subprocess
 import sys
 from fractions import Fraction
@@ -23,12 +22,12 @@ from repro import configs as jconfigs
 from repro.models import transformer as jT
 from repro_torch import configs as tconfigs
 from repro_torch import convert
-from repro_torch.models import lm
+from repro_torch.models import layers, lm
 from repro_torch.models.config import spec_axes
 
 import test_torch_dryrun as td_dry
 import test_torch_ranks as td
-from conftest import SRC
+from _torch_parity import reference_env
 from test_torch_lm_train import GRAD_ATOL, GRAD_RTOL
 
 MESHES = ((1, 4), (2, 2))
@@ -53,6 +52,12 @@ SSM_MODEL_GATHERED = ("ssm_in", "ssm_conv", "ssm_conv_b")
 
 def key(shape) -> str:
     return "x".join(map(str, shape))
+
+
+def bounds(table: dict, case: str, shape) -> dict:
+    """A case's entry of a file's ``BOUNDS``: under ``(case, mesh key)``
+    for that mesh alone, else under ``case``, else none."""
+    return table.get((case, key(shape)), table.get(case, {}))
 
 
 def ids(v) -> str:
@@ -204,9 +209,7 @@ def reference_loop_gathers(name, over, shapes, batch, length):
     ``make_train_step`` under ``param_shardings``, 4 virtual devices) by
     while loop: ``{mesh key: [(trip count, loops nested in it, all-gathers
     in its own body)]}``."""
-    env = dict(os.environ)
-    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    env = reference_env(4)
     script = _SCHEDULE % dict(args=(name, over, list(shapes),
                                     (batch, length)))
     proc = subprocess.run([sys.executable, "-c", script], env=env,
@@ -228,9 +231,7 @@ def run_reference(cases, tmp):
     for case, name, over in cases:
         flat.update(_flat(weights(name, over), f"{case}/"))
     np.savez(tmp / "in.npz", **flat)
-    env = dict(os.environ)
-    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    env = reference_env(4)
     script = _REFERENCE % dict(kw=KW, cases=list(cases),
                                meshes=list(MESHES))
     proc = subprocess.run(
@@ -395,6 +396,23 @@ def ssm_model_gather_bytes(name, over, shape) -> Fraction:
                 if k in SSM_MODEL_GATHERED), Fraction(0))
 
 
+def moe_gather_bytes(name, over, shape) -> Fraction:
+    """The all-gather wire bytes (float32) over "model" of one step's MoE
+    activations on the split route, where the experts split by experts
+    ("ep", "ep_virtual"): per layer the rank's block of the experts'
+    outputs gathered whole (forward) and of the dispatch buffer's gradient
+    (backward), (E / m, c, d) each, c the capacity of a data shard's
+    dispatch; 0 for a model without experts or under "tp"."""
+    cfg = tconfigs.get_smoke(name).with_(dtype="float32", **over)
+    n_data, m = shape
+    if not cfg.n_experts or cfg.expert_sharding == "tp" or m == 1:
+        return Fraction(0)
+    assert not cfg.remat and cfg.n_micro == 1, name
+    c = layers.moe_capacity(cfg, BATCH * SEQ) // n_data
+    block = cfg.n_experts_disp // m * c * cfg.d_model * 4
+    return Fraction(cfg.n_layers * 2 * (m - 1) * block)
+
+
 def _model_gathers(r) -> Fraction:
     return sum((Fraction(b) for prim, axes, b in r["events"]
                 if prim == "all_gather" and "model" in axes), Fraction(0))
@@ -402,15 +420,17 @@ def _model_gathers(r) -> Fraction:
 
 def check_census(res, name, over, shape, share=MODEL_GATHER_SHARE):
     """One step's collectives on every rank: all-gathers over the FSDP
-    axis (per layer) and, over the model team, at most ``share`` of the
-    whole-model gather's bytes (only the leaves a piece reads whole
-    cross "model"); the activations' all-reduces over the model team
-    where it splits."""
+    axis (per layer) and, over the model team, the MoE's activations
+    (:func:`moe_gather_bytes`) and at most ``share`` of the whole-model
+    gather's bytes besides (only the leaves a piece reads whole cross
+    "model"); the activations' all-reduces over the model team where it
+    splits."""
     whole = whole_gather_bytes(name, over, shape)
+    act = moe_gather_bytes(name, over, shape)
     for r in res:
-        assert _model_gathers(r) <= share * whole, (_model_gathers(r),
-                                                    whole)
-        _check_rest(r, shape, whole)
+        got = _model_gathers(r)
+        assert act <= got <= act + share * whole, (got, act, whole)
+        _check_rest(r, shape, whole, act)
 
 
 def check_ssm_census(res, name, over, shape):
@@ -423,10 +443,10 @@ def check_ssm_census(res, name, over, shape):
         _check_rest(r, shape, whole)
 
 
-def _check_rest(r, shape, whole):
+def _check_rest(r, shape, whole, act=0):
     gathers = [(axes, Fraction(b)) for prim, axes, b in r["events"]
                if prim == "all_gather"]
-    assert sum(b for _, b in gathers) < whole
+    assert sum(b for _, b in gathers) - act < whole
     if shape[0] > 1:
         assert any(axes == ("data",) for axes, _ in gathers)
     reduces = {e[1] for e in r["events"] if e[0] == "psum"}

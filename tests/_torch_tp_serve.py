@@ -16,7 +16,6 @@ from the reference's weights (``_torch_tp.weights``) and the same numpy
 tokens (and Whisper's frames).  The reference runs once per file in a
 subprocess; the port once per (case, mesh, batch) on a ``RankPool``.
 """
-import os
 import subprocess
 import sys
 
@@ -24,7 +23,7 @@ import numpy as np
 
 import _torch_tp as tp
 import test_torch_ranks as td
-from conftest import SRC
+from _torch_parity import reference_env
 
 MESHES = tp.MESHES
 BATCHES = (4, 1)
@@ -158,9 +157,7 @@ def run_reference(cases, tmp):
     ``case/mesh/batch/{logits, tokN, cacheN/leaf}`` (and each device's
     block shape under ``tag@i x j``, its mesh coordinates)."""
     np.savez(tmp / "in.npz", **_inputs(cases))
-    env = dict(os.environ)
-    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    env = reference_env(4)
     script = _REFERENCE % dict(seq=tp.SEQ, steps=STEPS, cases=list(cases),
                                meshes=list(MESHES), batches=list(BATCHES))
     proc = subprocess.run(

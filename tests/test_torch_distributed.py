@@ -15,7 +15,6 @@ hands its results back as ``.npz``.  Both get the same numpy inputs.
   * at P = 4: the facade's ``distributed`` and ``auto`` backends,
     ``data.distributed_gram`` and ``launch.solve --backend distributed``.
 """
-import os
 import subprocess
 import sys
 
@@ -38,7 +37,7 @@ from repro_torch.launch import gram as tgram
 import test_torch_ranks as td
 from test_torch_ranks import RankPool
 
-from conftest import SRC
+from _torch_parity import reference_env
 
 AGREE = 1e-10
 LAM1, LAM2, TOL, MAX_ITERS = 0.15, 0.05, 1e-6, 200
@@ -119,9 +118,7 @@ def reference(tmp_path_factory):
                   "-" if _case_kw(c)[0] is None else str(_case_kw(c)[0]),
                   "1" if c[3] == "weighted" else "0",
                   "1" if _case_kw(c)[2] else "0"]) for c in CASES)
-    env = dict(os.environ)
-    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    env = reference_env(8)
     proc = subprocess.run(
         [sys.executable, "-c", _REFERENCE, str(d / "in.npz"),
          str(d / "out.npz"), spec], env=env, capture_output=True, text=True,

@@ -19,7 +19,6 @@ per-shard dispatch against the JAX reference on the CPU.
 
 The reference's outputs come from one 8-device subprocess for the file.
 """
-import os
 import subprocess
 import sys
 from fractions import Fraction
@@ -42,9 +41,8 @@ from repro_torch.models import config as tconfig
 from repro_torch.models import lm as tlm
 from repro_torch.models import transformer as tT
 
-import _torch_parity  # noqa: F401  (pins torch to one thread)
 import test_torch_ranks as td
-from conftest import SRC
+from _torch_parity import reference_env  # also pins torch to one thread
 from test_torch_ranks import RankPool
 
 
@@ -278,9 +276,7 @@ def reference(tmp_path_factory):
         arrays.update({f"moe/{cid}/{k}": v for k, v in p.items()})
         arrays[f"moe/{cid}/x"], arrays[f"moe/{cid}/w"] = x, w
     np.savez(d / "in.npz", **arrays)
-    env = dict(os.environ)
-    env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={WORLD}"
-    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    env = reference_env(WORLD)
     proc = subprocess.run(
         [sys.executable, "-c", _REFERENCE, str(d / "in.npz"),
          str(d / "out.npz"), ",".join(c[0] for c in MOE_CASES)], env=env,

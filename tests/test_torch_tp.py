@@ -258,7 +258,8 @@ OPS = [("copy_to", None, [], ["psum"]),
        ("reduce_from", None, ["psum"], []),
        ("gather_from", 1, ["all_gather"], ["psum"]),
        ("scatter_to", 1, ["psum"], ["all_gather"]),
-       ("gather_whole", 0, ["all_gather"], [])]
+       ("gather_whole", 0, ["all_gather"], []),
+       ("block_of", 1, [], ["all_gather"])]
 TEAMS = [("model",), ("data",), ("data", "model")]
 
 
@@ -276,6 +277,9 @@ def _expected(op, dim, members, at, x, dy, r):
                 np.split(sum(team_dy), n, axis=dim)[at])
     if op == "scatter_to":
         return (np.split(sum(team_x), n, axis=dim)[at],
+                np.concatenate(team_dy, axis=dim))
+    if op == "block_of":
+        return (np.split(x[r], n, axis=dim)[at],
                 np.concatenate(team_dy, axis=dim))
     return (np.concatenate(team_x, axis=dim),
             np.split(dy[r], n, axis=dim)[at])
@@ -297,7 +301,7 @@ def test_autograd_collective_matches_one_process(pool, op, dim, fwd, bwd,
     if op in ("gather_from", "gather_whole"):
         x = rng.standard_normal((4,) + block)
         dy = rng.standard_normal((4,) + whole)
-    elif op == "scatter_to":
+    elif op in ("scatter_to", "block_of"):
         x = rng.standard_normal((4,) + whole)
         dy = rng.standard_normal((4,) + block)
     else:

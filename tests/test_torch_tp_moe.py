@@ -63,9 +63,10 @@ def test_norm_grads_equal_on_every_model_rank(runs, case, shape):
 
 @pytest.mark.parametrize("case,shape", CASE_MESH, ids=tp.ids)
 def test_census_has_no_whole_model_gather(runs, case, shape):
-    """One step's collectives: no whole-model gather, and the combine's
-    partial sums all-reduced over "model" (no all-to-all: every rank of a
-    data shard already holds its tokens)."""
+    """One step's collectives: no whole-model gather; under "ep" the
+    experts' outputs and the dispatch buffer's gradient gathered over
+    "model", under "tp" the combine's partial sums all-reduced (no
+    all-to-all: every rank of a data shard already holds its tokens)."""
     tp.check_census(runs[case[0], shape], case[1], case[2], shape)
     assert not any(e[0] == "all_to_all" for r in runs[case[0], shape]
                    for e in r["events"])

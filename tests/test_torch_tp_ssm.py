@@ -49,7 +49,24 @@ ZAMBA2 = dict(tols=(tp.LOSS_TOL, tp.LOSS_TOL, 5e-5), param_tol=5e-4,
 #: 41984; one group: 4.96%), so the share left out is held under 0.1;
 #: the loss and the parameters kept stay at LOSS_TOL and PARAM_TOL
 GROUPS = dict(left_out_frac=0.1)
-BOUNDS = {"zamba2": ZAMBA2, "mamba2_g2": GROUPS, "mamba2_g3": GROUPS}
+#: Mamba2 on (1, 4): its final parameters within PARAM_TOL + 3e-6.  One
+#: held entry of ``ssm_in`` sits 5.83e-6 from the reference's (one of
+#: ``embed/tok`` 5.75e-6), and the reference's own f32 spread makes it
+#: (torch_f32_spread.py --arch mamba2_130m --mesh 1x4, against a float64
+#: run, over the held entries of ``ssm_in``): the port's f32 run sits
+#: 2.46e-6 from float64, the reference's 3.37e-6 (3.35e-6 at XLA's
+#: default threads, 2.55e-6 on one device), at that entry on opposite
+#: sides (+2.46e-6, -3.37e-6); over the whole leaf the port's RMS
+#: distance is the smaller too (2.83e-8 against 3.19e-8).  The split
+#: route run in float64 equals the one-process float64 run within
+#: 3.0e-14, and weights moved by one
+#: float32 rounding move the entry by 1.34e-6 in float64: AdamW's steps
+#: amplify f32 noise there.  The 3e-6 added is within the reference's own
+#: 3.37e-6 from float64 on that leaf; (2, 2) stays at PARAM_TOL
+MAMBA2_1X4 = dict(param_tol=tp.PARAM_TOL + 3e-6)
+#: by case, or by (case, mesh key) for one mesh only
+BOUNDS = {"zamba2": ZAMBA2, "mamba2_g2": GROUPS, "mamba2_g3": GROUPS,
+          ("mamba2", "1x4"): MAMBA2_1X4}
 
 
 @pytest.fixture(scope="module")
@@ -71,9 +88,9 @@ def test_split_step_matches_reference(reference, runs, case, shape):
     """Every step's loss within LOSS_TOL of the reference's on the same
     mesh on every rank; the final parameters within PARAM_TOL (Zamba2
     within ZAMBA2's bounds, the grouped Mamba2's share left out under
-    GROUPS')."""
+    GROUPS', Mamba2 on (1, 4) within MAMBA2_1X4's)."""
     tp.check_losses_and_params(reference, runs[case[0], shape], case[0],
-                               shape, **BOUNDS.get(case[0], {}))
+                               shape, **tp.bounds(BOUNDS, case[0], shape))
 
 
 @pytest.mark.parametrize("case,shape", CASE_MESH, ids=tp.ids)

@@ -14,7 +14,6 @@ on the meshes (data, model) = (1, 4), (2, 2) and (4, 1).  On (4, 1) and
 one-device run's by 1e-4 to 2e-3, so the 1e-5 bound tells the branches
 apart.
 """
-import os
 import subprocess
 import sys
 
@@ -35,9 +34,8 @@ from repro_torch.train import checkpoint as tckpt
 from repro_torch.train import loop as tloop
 from repro_torch.train import optim as topt
 
-import _torch_parity  # noqa: F401  (pins torch to one thread)
 import test_torch_ranks as td
-from conftest import SRC
+from _torch_parity import reference_env  # also pins torch to one thread
 from test_torch_ranks import RankPool
 
 NAMES = ("h2o_danube_1p8b", "olmoe_1b_7b")
@@ -153,9 +151,7 @@ def reference(tmp_path_factory):
     for name in NAMES:
         flat.update(_flat(_weights(name), f"{name}/"))
     np.savez(d / "in.npz", **flat)
-    env = dict(os.environ)
-    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    env = reference_env(4)
     proc = subprocess.run(
         [sys.executable, "-c", _REFERENCE, str(d / "in.npz"),
          str(d / "out.npz"), str(d / "ckpt")], env=env, capture_output=True,
