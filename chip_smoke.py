@@ -8,7 +8,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
   1. device     card name, device count, ``nvidia-smi`` name + power limit
   2. build      nvcc builds ``src/repro_torch/kernels/csrc/*.cu`` for
                 sm_90a (one process per source, all at once) and prints
-                registers / shared memory / spills per kernel
+                registers / shared memory / spills per kernel; the
+                checked builds (``-DREPRO_KCHECK``) and their probes
+                start at the same time and compile on beside the next
+                phases until the analysis phase waits for them
   3. kernels    each kernel against its plain PyTorch version on the card:
                 every config of ``repro_torch/kernels/manifest.py`` (the
                 reference's configs; f32 and f64, weighted with inf
@@ -192,7 +195,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
                 bf16 for flash) at 4 seeds, under its guard (NaN guard bands
                 around the inputs, a poisoned allocator, each case twice
                 bit for bit), every case passing and every kernel
-                launched; (b) with ``--sanitize`` only, ``compute-sanitizer``
+                launched; (b') the kernels' checked build (``-DREPRO_KCHECK``,
+                ``kernelpass.kcheck``): its five planted-fault probes each
+                reported under its rule (CA403 a store past the end and a
+                shared access past the allocation, CA402 a tile never
+                stored, CA401 a tile stored twice and, by jitter, a
+                missing barrier), then every seed-0 case through the
+                checked libraries with 0 findings: every access inside
+                its buffers, every output element stored exactly once,
+                the outputs bit-identical across 3 jitter seeds; (b) with
+                ``--sanitize`` only, ``compute-sanitizer``
                 memcheck, racecheck and initcheck over the seed-0 cases,
                 each with a clean summary (a tool that refuses the card
                 fails); (c) the CLI's default run on the card (AST engine,
@@ -236,6 +248,7 @@ package.
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import os
 import shutil
@@ -514,14 +527,43 @@ def device_line(torch) -> tuple[str, int, str]:
 
 
 def build_kernels(build):
+    """The four kernels' production libraries, built here, and their
+    checked builds and the probes, started at the same time and left
+    compiling beside the next phases until the analysis phase waits for
+    them (:func:`wait_checked`).  Returns the checked builds' jobs; they
+    are killed at exit if no phase waited."""
     t0 = time.perf_counter()
+    checked = build.Jobs([(n, True)
+                          for n in (*build.EXTRA_FLAGS, *build.PROBES)])
+    atexit.register(checked.stop)
     libs = build.build()
-    print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
-    for name, log in build.PTXAS_REPORT.items():
-        for line in log.splitlines():
+    print(f"built {sorted(libs)} in "
+          f"{time.perf_counter() - t0:.1f} s; their checked builds and "
+          f"{sorted(build.PROBES)} compile on beside the next phases")
+    print_ptxas(build, list(build.EXTRA_FLAGS))
+    return checked
+
+
+def print_ptxas(build, keys) -> None:
+    for key in keys:
+        for line in build.PTXAS_REPORT.get(key, "").splitlines():
             if any(k in line for k in ("Compiling entry", "registers",
                                        "spill", "smem")):
-                print(f"  ptxas[{name}] {line.strip()}")
+                print(f"  ptxas[{key}] {line.strip()}")
+
+
+def wait_checked(build, checked) -> None:
+    """Wait for the checked builds started in the build phase; print
+    each one's compile seconds and ptxas report (a checked build may
+    spill: its checks add registers)."""
+    t0 = time.perf_counter()
+    libs = checked.wait()
+    keys = [f"{n} checked" for n, _ in sorted(libs)]
+    print(f"checked builds {sorted(n for n, _ in libs)} ready after "
+          f"{time.perf_counter() - t0:.1f} s of waiting; compile s "
+          + ", ".join(f"{k}: {build.BUILD_SECONDS[k]:.1f}" for k in keys
+                      if k in build.BUILD_SECONDS))
+    print_ptxas(build, keys)
 
 
 def _dt(dtype) -> str:
@@ -4079,6 +4121,53 @@ def analysis_fuzz(torch, kman, ops, dev) -> None:
           f"the fuzzer did not launch every kernel: {launched}")
 
 
+def analysis_kcheck(kman, dev) -> None:
+    """(b') the kernels' checked build (ROADMAP C3): first its five
+    negative controls, each of which must trip its rule (one under
+    jitter), then every configs and card_configs case at seed 0 in each
+    declared dtype, unjittered and under 3 jitter seeds: 0 findings
+    (CA401-CA403), no failure, every output element stored exactly once
+    and the outputs bit-identical across the jitter seeds."""
+    from repro_torch.analysis import kernelpass
+    t0 = time.perf_counter()
+    probe_results = kernelpass.probes(device=dev)
+    for pr in probe_results:
+        rules = sorted({f.rule for f in pr.findings})
+        first = next((f for f in pr.findings if f.rule == pr.rule), None)
+        print(f"analysis kcheck probe {pr.probe}: must trip {pr.rule}, "
+              f"found {rules} in {pr.seconds:.2f} s"
+              + (f" — {first.message}" if first else ""))
+    check(all(p.tripped for p in probe_results),
+          "a kcheck probe did not trip its rule: "
+          + ", ".join(p.probe for p in probe_results if not p.tripped))
+    t1 = time.perf_counter()
+    cases = kernelpass.kcheck(seed=0, device=dev)
+    for e in kman.KERNEL_ENTRIES:
+        mine = [c for c in cases if c.entry == e["name"]]
+        print(f"analysis kcheck {e['name']}: {len(mine)} cases, "
+              f"{sum(c.launches for c in mine)} launches, "
+              f"{sum(c.accesses for c in mine)} checked accesses, worst "
+              f"write count {max(c.worst_count for c in mine)}, "
+              f"{sum(c.jitter_runs for c in mine)} jitter runs, "
+              f"{sum(len(c.findings) for c in mine)} findings, "
+              f"{sum(len(c.failures) for c in mine)} failures, "
+              f"{sum(c.seconds for c in mine):.1f} s")
+    bad = [c for c in cases if not c.ok]
+    for c in bad[:10]:
+        for f in c.findings[:3]:
+            print(f"  {f.render()}")
+        for why in c.failures[:3]:
+            print(f"  {c.entry} [{c.config}]: {why}")
+    print(f"analysis kcheck: {len(probe_results)} probes in "
+          f"{t1 - t0:.1f} s, {len(cases)} cases in "
+          f"{time.perf_counter() - t1:.1f} s, {len(bad)} not clean")
+    check(not bad, f"{len(bad)} kcheck case(s) not clean on the card")
+    check(all(c.worst_count == 1 for c in cases),
+          "an output element was stored more than once")
+    check(all(c.jitter_runs == len(kernelpass.JITTER_SEEDS) for c in cases),
+          "a kcheck case missed a jitter run")
+
+
 def analysis_sanitize(dev) -> None:
     """(b) compute-sanitizer memcheck, racecheck and initcheck over the
     seed-0 cases (``--sanitize`` only): each must print a clean summary;
@@ -4179,6 +4268,8 @@ def analysis_census(torch, dev) -> dict:
 
 def analysis_phase(torch, kman, ops, dev, sanitize: bool) -> None:
     analysis_fuzz(torch, kman, ops, dev)
+    torch.cuda.empty_cache()
+    analysis_kcheck(kman, dev)
     torch.cuda.empty_cache()
     if sanitize:
         analysis_sanitize(dev)
@@ -4671,7 +4762,7 @@ def main(argv=None) -> int:
     phase("device")
     name, count, smi = device_line(torch)
     phase("build")
-    build_kernels(build)
+    checked_builds = build_kernels(build)
     errs, state, lm_state, launches, measured = {}, None, None, {}, {}
     serve_stats = None
     if run("kernels"):
@@ -4771,6 +4862,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if run("analysis"):
         phase("analysis")
+        wait_checked(build, checked_builds)
         analysis_phase(torch, kman, ops, dev, args.sanitize)
     if run("dryrun"):
         phase("dryrun")

@@ -13,8 +13,10 @@ by ``ctypes``:
   ``ANALYSIS_ENTRIES`` run at f64 under a ``TorchDispatchMode`` (f64
   downcasts, obs changing the device work, a host-sync census);
 * :mod:`repro_torch.analysis.kernelpass` — CA405, the CUDA kernels'
-  registry, and the memory checks: compute-sanitizer over the fuzz
-  cases; the companion :mod:`repro_torch.analysis.kernelfuzz`
+  registry; CA401-CA403, write races, unwritten outputs and out-of-range
+  accesses found by the kernels' checked build on the card; and the
+  opt-in compute-sanitizer runs; the companion
+  :mod:`repro_torch.analysis.kernelfuzz`
   differentially fuzzes each kernel against its plain version, on the
   card under its guard (bands, a poisoned allocator, each case twice).
 

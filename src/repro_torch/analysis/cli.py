@@ -2,12 +2,14 @@
 
 Port of ``repro.analysis.cli``.  Exit status: 0 = clean (after the
 baseline), 1 = unsuppressed findings, stale baseline entries, kernel-fuzz
-failures or sanitizer errors, 2 = usage / internal error (a missing
-compute-sanitizer included).  ``--format json`` (optionally with
+failures, checked-build findings (CA401-CA403) or sanitizer errors, 2 =
+usage / internal error (a missing compute-sanitizer or a checked build
+that fails to compile included).  ``--format json`` (optionally with
 ``--output``) emits the machine report; it carries the dispatch engine's
 host-sync census (``dispatch_census``), and with ``--fuzz-kernels`` the
-fuzzer's case table (``kernel_fuzz``, the reference's shape), and with
-``--sanitize`` each tool's result (``kernel_sanitize``).
+fuzzer's case table (``kernel_fuzz``, the reference's shape), with
+``--kcheck`` the checked build's probes and cases (``kernel_kcheck``),
+and with ``--sanitize`` each tool's result (``kernel_sanitize``).
 
 The dispatch engine, the fuzzer and the sanitizer run on ``--device``,
 which is the CUDA card unless the caller asks for the CPU
@@ -15,7 +17,10 @@ which is the CUDA card unless the caller asks for the CPU
 kernel); without a card the default is an error, as everywhere in the
 port (``repro_torch.device.resolve_device``).  The AST engine and CA405
 need no device.  On the card the fuzzer also runs its guard
-(``kernelfuzz.run_case``).  ``--sanitize`` needs the card.
+(``kernelfuzz.run_case``).  ``--kcheck`` (the kernels' checked build:
+its five negative controls, each of which must trip its rule, then every
+fuzz case at ``--seed``, unjittered and under three jitter seeds) and
+``--sanitize`` need the card.
 
 ``--changed [BASE]`` restricts the AST engine to files touched since
 ``BASE`` (``git diff --name-only``, default HEAD) under the scan targets,
@@ -35,7 +40,7 @@ from pathlib import Path
 
 from . import astpass
 from .baseline import load_baseline, split_by_baseline, write_baseline
-from .findings import sort_findings
+from .findings import Finding, sort_findings
 from .rules import DEFAULT_PROFILE, NO_ANALOGUE, all_rules, profile_for_path
 
 DEFAULT_TARGETS = ("src/repro_torch", "chip_smoke.py", "examples/torch_*.py")
@@ -136,6 +141,20 @@ def run_kernel_fuzz(seed: int, device, changed_rel=None):
         seconds=time.perf_counter() - t0)
 
 
+def run_kcheck(seed: int, device, changed_rel=None):
+    """Returns (failed, report dict): the checked build's probes, then
+    its cases; a probe that does not trip its rule fails like a
+    finding."""
+    from . import kernelpass
+    t0 = time.perf_counter()
+    probe_results = kernelpass.probes(device=device)
+    cases = kernelpass.kcheck(seed=seed, device=device,
+                              entries=_entries(changed_rel))
+    return kernelpass.kcheck_failed(probe_results, cases), \
+        kernelpass.kcheck_report(probe_results, cases, seed=seed,
+                                 seconds=time.perf_counter() - t0)
+
+
 def run_sanitize(tools, seed: int, device, root: Path):
     """Returns (failed, {tool: result json}); a tool that refuses the
     device fails like one that reports errors."""
@@ -181,6 +200,12 @@ def build_parser() -> argparse.ArgumentParser:
                     metavar="N",
                     help="base seed of the fuzzer (default: 0; per-case "
                          "seeds derive deterministically from it)")
+    ap.add_argument("--kcheck", action="store_true",
+                    help="run every fuzz case through the kernels' checked "
+                         "build on the card (bounds, write counts, jitter: "
+                         "CA401-CA403) after its five negative controls; "
+                         "a finding, or a control that does not trip, "
+                         "fails the gate")
     ap.add_argument("--sanitize", action="append", default=[],
                     choices=SANITIZER_TOOLS,
                     help="re-run the fuzz cases under compute-sanitizer "
@@ -199,8 +224,27 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _render_kcheck(kc) -> list:
+    lines = [""]
+    for pr in kc["probes"]:
+        hit = [f["message"] for f in pr["findings"] if f["rule"] == pr["rule"]]
+        lines.append(f"kcheck probe {pr['probe']}: "
+                     + ("tripped " if pr["tripped"] else "DID NOT TRIP ")
+                     + pr["rule"] + (f" — {hit[0]}" if hit else ""))
+    for c in kc["cases"]:
+        for f in c["findings"]:
+            lines.append(Finding(**f).render())
+        lines.extend(f"  {c['entry']} [{c['config']}]: {why}"
+                     for why in c["failures"])
+    n = kc["counts"]
+    lines.append(f"kcheck (seed {kc['seed']}): {n['cases']} case(s), "
+                 f"{n['findings']} finding(s), {n['failures']} failure(s), "
+                 f"{n['probes_tripped']} of {n['probes']} probes tripped.")
+    return lines
+
+
 def _render_report(new, suppressed, stale, fmt: str, census=None,
-                   kernel_fuzz=None, sanitize=None) -> str:
+                   kernel_fuzz=None, sanitize=None, kcheck=None) -> str:
     if fmt == "json":
         report = {
             "findings": [f.to_json() for f in new],
@@ -218,6 +262,8 @@ def _render_report(new, suppressed, stale, fmt: str, census=None,
             report["kernel_fuzz"] = kernel_fuzz
         if sanitize:
             report["kernel_sanitize"] = sanitize
+        if kcheck is not None:
+            report["kernel_kcheck"] = kcheck
         return json.dumps(report, indent=2)
     lines = [f.render() for f in new]
     if stale:
@@ -237,6 +283,8 @@ def _render_report(new, suppressed, stale, fmt: str, census=None,
         lines.append(f"kernel fuzz (seed {kernel_fuzz['seed']}): "
                      f"{counts['cases']} case(s), "
                      f"{counts['failures']} failure(s).")
+    if kcheck is not None:
+        lines.extend(_render_kcheck(kcheck))
     for tool, res in (sanitize or {}).items():
         lines.append(f"sanitize {tool}: {res['status']}, {res['errors']} "
                      f"error(s) in {res['seconds']:.1f} s"
@@ -264,7 +312,7 @@ def main(argv=None) -> int:
     device = None
     try:
         if args.engine in ("dispatch", "all") or args.fuzz_kernels \
-                or args.sanitize:
+                or args.kcheck or args.sanitize:
             from ..device import resolve_device
             device = resolve_device(args.device)
         if args.changed is not None:
@@ -296,11 +344,14 @@ def main(argv=None) -> int:
         return 0
 
     fuzz_failed, fuzz_report = [], None
+    kc_failed, kc_report = False, None
     san_failed, san_report = False, {}
     try:
         if args.fuzz_kernels:
             fuzz_failed, fuzz_report = run_kernel_fuzz(
                 args.seed, device, changed_rel)
+        if args.kcheck:
+            kc_failed, kc_report = run_kcheck(args.seed, device, changed_rel)
         if args.sanitize:
             san_failed, san_report = run_sanitize(
                 args.sanitize, args.seed, device, root)
@@ -314,9 +365,10 @@ def main(argv=None) -> int:
     if args.changed is not None:
         stale = []      # a partial scan cannot adjudicate staleness
     report = _render_report(new, suppressed, stale, args.format, census,
-                            fuzz_report, san_report)
+                            fuzz_report, san_report, kc_report)
     print(report)
     if args.output:
         Path(args.output).parent.mkdir(parents=True, exist_ok=True)
         Path(args.output).write_text(report + "\n", encoding="utf-8")
-    return 1 if (new or stale or fuzz_failed or san_failed) else 0
+    return 1 if (new or stale or fuzz_failed or kc_failed
+                 or san_failed) else 0

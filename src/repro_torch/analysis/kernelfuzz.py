@@ -27,7 +27,9 @@ output element the kernel never writes stays NaN and fails the
 comparison), and the case runs twice, its outputs held bit for bit (a
 race that changes a result shows as a difference).  A race that gives the
 same result twice, or an access that lands in other live memory, is
-beyond it: that is compute-sanitizer's work (``kernelpass.sanitize``).
+beyond it: that is the checked build's work (``kernelpass.kcheck``:
+write counts and bounds on every access) and compute-sanitizer's
+(``kernelpass.sanitize``, where the tool runs).
 
 Seeding is deterministic per (seed, entry, config) via
 ``np.random.SeedSequence`` over stable CRC32 digests, as in the

@@ -11,9 +11,11 @@ at what the port is: eager PyTorch plus CUDA C++ kernels loaded by
     ``TorchDispatchMode`` that records every aten op.
   * ``CA4xx`` — kernel engine (``kernelpass``): every CUDA source in
     ``kernels/csrc`` is registered, with its plain twin and tolerance
-    classes; the differential fuzzer (``kernelfuzz``) and the
-    compute-sanitizer runs (``kernelpass.sanitize``) hold the kernels on
-    the card.
+    classes (CA405); the checked build (``kernelpass.kcheck``) finds write
+    races, unwritten outputs and out-of-range accesses on the card
+    (CA401-CA403); the differential fuzzer (``kernelfuzz``) and the
+    opt-in compute-sanitizer runs (``kernelpass.sanitize``) hold the
+    kernels on the card too.
 
 Reference rules with no torch counterpart are listed in
 :data:`NO_ANALOGUE` with the reason, the way ``kernels.manifest.NOT_PORTED``
@@ -130,6 +132,29 @@ register_rule(Rule(
 ))
 
 register_rule(Rule(
+    "CA401", "kernel-write-race", "kernels",
+    "in the kernels' checked build on the card (kernelpass.kcheck), an "
+    "output or scratch element stored more than once by one launch "
+    "against its manifest write contract (\"once\" by default: two "
+    "blocks or threads own the same element), or an output whose bits "
+    "move when the case re-runs under schedule jitter (a barrier "
+    "missing; no kernel sums its outputs with atomics)",
+))
+register_rule(Rule(
+    "CA402", "kernel-coverage-gap", "kernels",
+    "in the kernels' checked build on the card, an output element that "
+    "no store of the launch reached (it ships whatever stale memory the "
+    "buffer held), or a load of output or scratch memory before any "
+    "store to it",
+))
+register_rule(Rule(
+    "CA403", "kernel-block-oob", "kernels",
+    "in the kernels' checked build on the card, a global access outside "
+    "every buffer the launch registered (or off its natural alignment), "
+    "a store into an input, a shared-memory access outside the block's "
+    "allocation, or a TMA tensor map reaching past its tensor",
+))
+register_rule(Rule(
     "CA405", "kernel-missing-oracle", "kernels",
     "a CUDA source in kernels/csrc ships without exactly one "
     "KERNEL_ENTRIES registration, or its entry names a missing plain twin "
@@ -166,15 +191,6 @@ NO_ANALOGUE: dict[str, str] = {
              "counts against the contract's wire",
     "CA400": "the kernel engine builds no Pallas layout; a fuzz builder "
              "that raises is a failed fuzz case",
-    "CA401": "no Pallas grid: a CUDA block owns its output tile; shared-"
-             "memory races are found at run time by compute-sanitizer "
-             "racecheck (--sanitize racecheck)",
-    "CA402": "no Pallas grid: an output element never written shows as a "
-             "read of uninitialized memory under compute-sanitizer "
-             "initcheck (--sanitize initcheck)",
-    "CA403": "no BlockSpec index maps: out-of-bounds accesses of the "
-             "pointer-indexed kernels are found at run time by "
-             "compute-sanitizer memcheck (--sanitize memcheck)",
     "CA404": "no traced kernel body: a CUDA kernel's accumulators are "
              "C++ types, held by the fuzzer's f64 tolerance classes",
     "CA406": "no SMEM scalar tables or BlockSpecs: the wrappers check "

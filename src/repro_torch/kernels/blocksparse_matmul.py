@@ -98,7 +98,12 @@ def blocksparse_matmul(values: torch.Tensor, row_idx, col_idx,
     row_ptr_d = torch.as_tensor(row_ptr, device=b.device)
     cols_d = torch.as_tensor(cols.astype(np.int32), device=b.device)
     c = torch.empty((p, m), dtype=b.dtype, device=b.device)
-    rc = _kernel_fn("csr", b.dtype)(
+    fn = _kernel_fn("csr", b.dtype)
+    build.regions("blocksparse_matmul",
+                  inputs={"values": values, "row_ptr": row_ptr_d,
+                          "col_idx": cols_d, "b": b},
+                  outputs={"c": c})
+    rc = fn(
         values.data_ptr(), row_ptr_d.data_ptr(),
         cols_d.data_ptr(), bs, b.data_ptr(), m, c.data_ptr(), m, p, p, m,
         torch.cuda.current_stream(b.device).cuda_stream)
@@ -130,7 +135,10 @@ def masked_matmul(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor, *,
         raise ValueError(f"mask shape {tuple(mask.shape)} does not tile a "
                          f"{tuple(a.shape)} at block_size={bs}")
     c = torch.empty((M, N), dtype=b.dtype, device=b.device)
-    rc = _kernel_fn("mask", b.dtype)(
+    fn = _kernel_fn("mask", b.dtype)
+    build.regions("blocksparse_matmul",
+                  inputs={"a": a, "mask": mask, "b": b}, outputs={"c": c})
+    rc = fn(
         a.data_ptr(), K, mask.data_ptr(), nbc, bs, b.data_ptr(), N,
         c.data_ptr(), N, M, K, N,
         torch.cuda.current_stream(b.device).cuda_stream)

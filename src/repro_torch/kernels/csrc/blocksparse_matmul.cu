@@ -65,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kcheck.cuh"  // KC_*: checks in the checked build, else nothing
+
 namespace {
 
 // ---------------------------------------------------------------------------
@@ -77,12 +79,21 @@ struct CsrTiles {
   const int* row_ptr;
   const int* col_idx;
   int bs;
-  __device__ int count(int r) const { return row_ptr[r + 1] - row_ptr[r]; }
+  __device__ int count(int r) const {
+    KC_LD(&row_ptr[r], sizeof(int));
+    KC_LD(&row_ptr[r + 1], sizeof(int));
+    return row_ptr[r + 1] - row_ptr[r];
+  }
   // column block of the i-th occupied tile of block-row r
-  __device__ int col(int r, int i) const { return col_idx[row_ptr[r] + i]; }
+  __device__ int col(int r, int i) const {
+    KC_LD(&row_ptr[r], sizeof(int));
+    KC_LD(&col_idx[row_ptr[r] + i], sizeof(int));
+    return col_idx[row_ptr[r] + i];
+  }
   // element (r*bs, col*bs) of A inside the i-th tile, and its row stride
   __device__ const T* tile(int r, int i, int, int& ld) const {
     ld = bs;
+    KC_LD(&row_ptr[r], sizeof(int));
     return values + (size_t)(row_ptr[r] + i) * bs * bs;
   }
   // the entries of a block-row are a list already
@@ -109,8 +120,10 @@ struct MaskTiles {
   // the f32 body's scan
   __device__ int next(int r, int e) const {
     const int8_t* row = mask_row(r);
-    for (++e; e < nbc; ++e)
+    for (++e; e < nbc; ++e) {
+      KC_LD(&row[e], 1);
       if (row[e] > 0) break;
+    }
     return e;
   }
 };
@@ -142,6 +155,10 @@ __device__ __forceinline__ void cp_async(double* dst, const double* src,
                                          int n) {
   const uint32_t d = smem_u32(dst);
   const int bytes = n * 8;
+  // the destination's VEC doubles are written (zero past n); only the n
+  // in range are read
+  KC_SH(dst, VEC * 8);
+  if (n > 0) KC_LD(src, n * 8);
   if (VEC == 2)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                  :: "r"(d), "l"(src), "r"(bytes) : "memory");
@@ -182,16 +199,23 @@ __device__ int compact_tiles(const Tiles& tiles, int r, int c_lo, int c_hi,
   int count = 0;
   for (int c0 = c_lo; c0 < c_hi; c0 += kTcThreads) {
     const int c = c0 + threadIdx.x;
+    KC_JITTER(c0);
+    if (c < c_hi) KC_LD(&row[c], 1);
     const bool occ = c < c_hi && row[c] > 0;
     const unsigned bal = __ballot_sync(0xffffffffu, occ);
     if (lane == 0) warp_tot[warp] = __popc(bal);
+    KC_JITTER(c0);
     __syncthreads();
     int base = count;
     for (int w = 0; w < kTcThreads / 32; ++w) {
       if (w < warp) base += warp_tot[w];
       count += warp_tot[w];
     }
-    if (occ) list[base + __popc(bal & ((1u << lane) - 1u))] = c;
+    if (occ) {
+      KC_SH(&list[base + __popc(bal & ((1u << lane) - 1u))], sizeof(int));
+      list[base + __popc(bal & ((1u << lane) - 1u))] = c;
+    }
+    KC_JITTER(c0);
     __syncthreads();
   }
   return count;
@@ -253,8 +277,11 @@ bsmm_f64_tc(Tiles tiles, const double* __restrict__ b, int ldb,
       n_tiles = compact_tiles(tiles, r, c_lo, c_hi, list, warp_tot);
     } else {
       n_tiles = c_hi - c_lo;
-      for (int i = tid; i < n_tiles; i += kTcThreads)
+      for (int i = tid; i < n_tiles; i += kTcThreads) {
+        KC_SH(&list[i], sizeof(int));
         list[i] = tiles.col(r, c_lo + i);
+      }
+      KC_JITTER(c_lo);
       __syncthreads();
     }
     const int n_slices = n_tiles * spt;
@@ -263,6 +290,7 @@ bsmm_f64_tc(Tiles tiles, const double* __restrict__ b, int ldb,
     auto load = [&](int s) {
       const int i = s / spt;
       const int kk = (s - i * spt) * kBK;        // k offset inside the tile
+      KC_SH(&list[i], sizeof(int));
       const int cb = list[i];
       const int k_tile = min(bs, K - cb * bs);   // the tile's columns in K
       int lda;
@@ -295,11 +323,17 @@ bsmm_f64_tc(Tiles tiles, const double* __restrict__ b, int ldb,
     }
     for (int s = 0; s < n_slices; ++s) {
       cp_wait<kStages - 2>();
+      KC_JITTER(s);
       __syncthreads();   // slice s landed; stage (s - 1) % kStages is free
       if (s + kStages - 1 < n_slices) load(s + kStages - 1);
       cp_commit();
       const double* sa = as + (s % kStages) * kStageA + wm * kLdA;
       const double* sb = bsm + (s % kStages) * kStageB + wn;
+      // the first and last fragment doubles this thread reads of the slice
+      KC_SH(sa + g * kLdA + t, sizeof(double));
+      KC_SH(sa + (56 + g) * kLdA + 12 + t, sizeof(double));
+      KC_SH(sb + t * kLdB + g, sizeof(double));
+      KC_SH(sb + (12 + t) * kLdB + 24 + g, sizeof(double));
 #pragma unroll
       for (int k8 = 0; k8 < kBK; k8 += 8) {
         double bf[4][2];
@@ -319,6 +353,7 @@ bsmm_f64_tc(Tiles tiles, const double* __restrict__ b, int ldb,
       }
     }
     cp_wait<0>();
+    KC_JITTER(c_lo);
     __syncthreads();   // the stages and the list are free for the next pass
   }
 
@@ -335,11 +370,18 @@ bsmm_f64_tc(Tiles tiles, const double* __restrict__ b, int ldb,
       for (int j = 0; j < 4; ++j) {
         const int gc = col0 + wn + j * 8 + 2 * t;   // even
         if (gc + 1 < N && st16) {
+          KC_ST(dst + gc, 2 * sizeof(double));
           *reinterpret_cast<double2*>(dst + gc) =
               make_double2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
         } else {
-          if (gc < N) dst[gc] = acc[i][j][2 * h];
-          if (gc + 1 < N) dst[gc + 1] = acc[i][j][2 * h + 1];
+          if (gc < N) {
+            KC_ST(&dst[gc], sizeof(double));
+            dst[gc] = acc[i][j][2 * h];
+          }
+          if (gc + 1 < N) {
+            KC_ST(&dst[gc + 1], sizeof(double));
+            dst[gc + 1] = acc[i][j][2 * h + 1];
+          }
         }
       }
     }
@@ -412,9 +454,13 @@ bsmm_fma(Tiles tiles, const float* __restrict__ b, int ldb,
     const int k0 = cb * bs;
     const int k_end = min(k0 + bs, K);
     for (int kk = k0; kk < k_end; kk += kTK) {
+      KC_JITTER(kk);
       for (int l = threadIdx.x; l < kTM * kTK; l += kThreads) {
         const int i = l / kTK, q = l % kTK;
         const int gr = row0 + i, gk = kk + q;
+        if (gr < row_end && gk < k_end)
+          KC_LD(&at[(size_t)(gr - r * bs) * lda + (gk - k0)], sizeof(float));
+        KC_SH(&As[i][q], sizeof(float));
         As[i][q] = (gr < row_end && gk < k_end)
                        ? at[(size_t)(gr - r * bs) * lda + (gk - k0)]
                        : 0.f;
@@ -422,8 +468,12 @@ bsmm_fma(Tiles tiles, const float* __restrict__ b, int ldb,
       for (int l = threadIdx.x; l < kTK * kTN; l += kThreads) {
         const int q = l / kTN, j = l % kTN;
         const int gk = kk + q, gc = col0 + j;
+        if (gk < k_end && gc < N)
+          KC_LD(&b[(size_t)gk * ldb + gc], sizeof(float));
+        KC_SH(&Bs[q][j], sizeof(float));
         Bs[q][j] = (gk < k_end && gc < N) ? b[(size_t)gk * ldb + gc] : 0.f;
       }
+      KC_JITTER(kk);
       __syncthreads();
 #pragma unroll
       for (int q = 0; q < kTK; ++q) {
@@ -437,6 +487,7 @@ bsmm_fma(Tiles tiles, const float* __restrict__ b, int ldb,
 #pragma unroll
           for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
       }
+      KC_JITTER(kk);
       __syncthreads();
     }
     if constexpr (Tiles::kMaskRow) e = tiles.next(r, e);
@@ -450,7 +501,10 @@ bsmm_fma(Tiles tiles, const float* __restrict__ b, int ldb,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int gc = col0 + tx + 16 * j;
-      if (gc < N) c[(size_t)gr * ldc + gc] = acc[i][j];
+      if (gc < N) {
+        KC_ST(&c[(size_t)gr * ldc + gc], sizeof(float));
+        c[(size_t)gr * ldc + gc] = acc[i][j];
+      }
     }
   }
 }

@@ -98,6 +98,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "kcheck.cuh"  // KC_*: checks in the checked build, else nothing
+
 namespace {
 
 constexpr int kBQ = 64;                   // query rows per block (f32)
@@ -147,6 +149,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int r = e / D, c = e % D;
+    if (r < nrows) KC_LD(&qp[r * p.ql + c], sizeof(float));
+    KC_SH(&qs[r * DP + c], sizeof(float));
     qs[r * DP + c] = r < nrows ? qp[r * p.ql + c] : 0.f;
   }
 
@@ -167,14 +171,22 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int kt = kt_first; kt <= kt_last; ++kt) {
     const int k0 = kt * kBK;
     const int nk = min(kBK, p.Lkv - k0);
+    KC_JITTER(kt);
     __syncthreads();                      // the last tile's K, V, P are read
     for (int e = tid; e < kBK * D; e += kThreads) {
       const int r = e / D, c = e % D;
       const bool in = r < nk;
       const long long key = k0 + r;
+      if (in) {
+        KC_LD(&kp[key * p.kl + c], sizeof(float));
+        KC_LD(&vp[key * p.vl + c], sizeof(float));
+      }
+      KC_SH(&ks[r * DP + c], sizeof(float));
+      KC_SH(&vs[r * DP + c], sizeof(float));
       ks[r * DP + c] = in ? kp[key * p.kl + c] : 0.f;
       vs[r * DP + c] = in ? vp[key * p.vl + c] : 0.f;
     }
+    KC_JITTER(kt);
     __syncthreads();
 
     float s[kRows][kCols];
@@ -218,6 +230,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         const float pj = expf(s[i][j] - m_new);
+        KC_SH(&ps[(ty + kTY * i) * kPP + tx + kTX * j], sizeof(float));
         ps[(ty + kTY * i) * kPP + tx + kTX * j] = pj;
         sum += pj;
       }
@@ -230,6 +243,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
       m[i] = m_new;
     }
+    KC_JITTER(kt);
     __syncthreads();                      // P complete
 
 #pragma unroll 4
@@ -252,8 +266,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     if (r >= nrows) continue;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < DC; ++c)
+    for (int c = 0; c < DC; ++c) {
+      KC_ST(&op[r * p.ol + tx + kTX * c], sizeof(float));
       op[r * p.ol + tx + kTX * c] = acc[i][c] / den;
+    }
   }
 }
 
@@ -285,22 +301,26 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  KC_SH(bar, sizeof(uint64_t));
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
                :: "r"(smem_u32(bar)), "r"(count) : "memory");
 }
 
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  KC_SH(bar, sizeof(uint64_t));
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
 }
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  KC_SH(bar, sizeof(uint64_t));
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
                :: "r"(smem_u32(bar)) : "memory");
 }
 
 // wait until the phase of parity `parity` has completed
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  KC_SH(bar, sizeof(uint64_t));
   const uint32_t addr = smem_u32(bar);
   uint32_t done;
   do {
@@ -577,6 +597,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  KC_JITTER(0);
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
@@ -585,17 +606,22 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 256) {
       mbar_expect_tx(q_full, T::kQBytes);
-      for (int c = 0; c < NC; ++c)
+      for (int c = 0; c < NC; ++c) {
+        KC_SH(q_s + c * kQT * kPanelBytes, kQT * kPanelBytes);
         tma_load(q_s + c * kQT * kPanelBytes, &tq, 16 * c, row0, hq, b,
                  q_full);
+      }
       for (int kt = kt_first, i = 0; kt <= kt_last; ++kt, ++i) {
         const int s = i % kKvStages, ph = (i / kKvStages) & 1;
+        KC_JITTER(i);
         mbar_wait(&empty[s], ph ^ 1);
         mbar_expect_tx(&full[s], 2 * T::kKvBytes);
         uint8_t* ks = k_s + s * T::kKvBytes;
         uint8_t* vs = v_s + s * T::kKvBytes;
         for (int c = 0; c < NC; ++c) {
           const int off = c * BK * kPanelBytes;
+          KC_SH(ks + off, BK * kPanelBytes);
+          KC_SH(vs + off, BK * kPanelBytes);
           tma_load(ks + off, &tk, 16 * c, kt * BK, hk, b, &full[s]);
           tma_load(vs + off, &tv, 16 * c, kt * BK, hk, b, &full[s]);
         }
@@ -628,20 +654,27 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     auto issue_s = [&](int s) {
       const uint8_t* ks = k_s + s * T::kKvBytes;
 #pragma unroll
-      for (int c = 0; c < NC; ++c)
+      for (int c = 0; c < NC; ++c) {
+        KC_SH(q_s + (c * kQT + 64 * wg) * kPanelBytes, 64 * kPanelBytes);
+        KC_SH(ks + c * BK * kPanelBytes, BK * kPanelBytes);
         wgmma_ss<BK>(sc,
                      desc_b32(q_s + (c * kQT + 64 * wg) * kPanelBytes, 16,
                               256),
                      desc_b32(ks + c * BK * kPanelBytes, 16, 256), c > 0);
+      }
       wgmma_commit();
     };
     auto issue_pv = [&](int s) {
       const uint8_t* vs = v_s + s * T::kKvBytes;
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // 16 keys of every d panel: NC panels BK * 32 bytes apart
+        KC_SH(vs + kk * 16 * kPanelBytes,
+              (NC - 1) * BK * kPanelBytes + 16 * kPanelBytes);
         wgmma_rs<D>(acc, pa[kk],
                     desc_b32(vs + kk * 16 * kPanelBytes, BK * kPanelBytes,
                              256));
+      }
       wgmma_commit();
     };
     // S of kv tile kt -> unnormalised probabilities in sc, running max and
@@ -705,11 +738,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     auto turn_end = [&]() { bar_arrive(2 - wg, 256); };
     if (wg == 1) bar_arrive(1, 256);      // warpgroup 0 goes first
 
+    KC_JITTER(0);
     mbar_wait(q_full, 0);
     mbar_wait(&full[0], 0);
     float al0, al1;
     fence_regs<NS * 4>(sc);
     wgmma_fence();
+    KC_JITTER(0);
     turn_begin();
     issue_s(0);
     turn_end();
@@ -720,10 +755,12 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     for (int kt = kt_first + 1, i = 1; kt <= kt_last; ++kt, ++i) {
       const int s = i % kKvStages, ph = (i / kKvStages) & 1;
       const int prev = (i - 1) % kKvStages;
+      KC_JITTER(i);
       mbar_wait(&full[s], ph);
       fence_regs<NS * 4>(sc);
       fence_regs<ND * 4>(acc);
       wgmma_fence();
+      KC_JITTER(i);
       turn_begin();
       issue_s(s);
       issue_pv(prev);
@@ -748,9 +785,11 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     const int last = (kt_last - kt_first) % kKvStages;
     fence_regs<ND * 4>(acc);
     wgmma_fence();
+    KC_JITTER(kt_last);
     turn_begin();
     issue_pv(last);
     turn_end();
+    KC_JITTER(kt_last);
     if (wg == 0) bar_sync(1, 256);        // warpgroup 1's last hand-over
     wgmma_wait<0>();
     fence_regs<ND * 4>(acc);
@@ -768,14 +807,18 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
       const int c = 8 * n + 2 * t;
-      if (r0 < nrows)
+      if (r0 < nrows) {
+        KC_ST(op + (long long)(row0 + r0) * p.ol + c, 2 * sizeof(*op));
         *reinterpret_cast<__nv_bfloat162*>(
             op + (long long)(row0 + r0) * p.ol + c) =
             __floats2bfloat162_rn(acc[4 * n] * d0, acc[4 * n + 1] * d0);
-      if (r1 < nrows)
+      }
+      if (r1 < nrows) {
+        KC_ST(op + (long long)(row0 + r1) * p.ol + c, 2 * sizeof(*op));
         *reinterpret_cast<__nv_bfloat162*>(
             op + (long long)(row0 + r1) * p.ol + c) =
             __floats2bfloat162_rn(acc[4 * n + 2] * d1, acc[4 * n + 3] * d1);
+      }
     }
   }
 }
@@ -807,6 +850,9 @@ EncodeTiled encode_fn() {
 // 32-byte swizzled; rows past L read as zeros
 bool make_map(CUtensorMap* map, const void* ptr, int B, int H, int L, int D,
               long long sb, long long sh, long long sl, int rows) {
+  // the map's last element lies inside the tensor (TMA bounds the rest)
+  KC_HOST_RANGE(ptr, 2 * (1 + (D - 1) + (L - 1) * sl + (H - 1) * sh +
+                          (B - 1) * sb));
   EncodeTiled enc = encode_fn();
   if (enc == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)H,

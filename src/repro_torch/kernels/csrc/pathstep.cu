@@ -39,6 +39,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "kcheck.cuh"  // KC_*: checks in the checked build, else nothing
+
 namespace {
 
 constexpr int kTile = 32;                 // output tile edge
@@ -67,6 +69,7 @@ path_step_kernel(const T* __restrict__ om, const T* __restrict__ w,
   const int r0 = blockIdx.y * kTile, c0 = blockIdx.x * kTile;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const size_t base = (size_t)lane * p * p;
+  KC_LD(&scal[lane * 3], 3 * sizeof(T));
   const T tau = scal[lane * 3 + 0];
   const T alpha = scal[lane * 3 + 1];
   const T lam2 = scal[lane * 3 + 2];
@@ -74,31 +77,42 @@ path_step_kernel(const T* __restrict__ om, const T* __restrict__ w,
   // wt_tile[k][x] = W[c0 + k][r0 + x]: element (r0 + y, c0 + x) of this
   // tile needs W[c0 + x][r0 + y] = wt_tile[x][y]
   for (int k = ty; k < kTile; k += kRows) {
+    KC_JITTER(k);
     const int row = c0 + k, col = r0 + tx;
     if (row < p && col < p) {
+      KC_LD(&w[base + (size_t)row * p + col], sizeof(T));
+      KC_SH(&wt_tile[k][tx], sizeof(T));
       wt_tile[k][tx] = w[base + (size_t)row * p + col];
     }
   }
+  KC_JITTER(0);
   __syncthreads();
 
   double s_dg = 0.0, s_dd = 0.0, s_sq = 0.0, s_l1 = 0.0;
   int nnz = 0;
   for (int k = ty; k < kTile; k += kRows) {
+    KC_JITTER(k);
     const int r = r0 + k, c = c0 + tx;
     if (r >= p || c >= p) continue;
     const size_t off = base + (size_t)r * p + c;
+    KC_LD(&om[off], sizeof(T));
     const T o = om[off];
     const bool diag = (r == c);
+    KC_LD(&w[off], sizeof(T));
+    KC_SH(&wt_tile[tx][k], sizeof(T));
     T g = (w[off] + wt_tile[tx][k]) * T(0.5);
     g = g + lam2 * o;
     if (diag) g = g - T(1) / o;
     const T z = o - tau * g;
     T thr = alpha;
     if (wts != nullptr) {
+      KC_LD(&wts[(size_t)wts_lane_stride * lane + (size_t)r * p + c],
+            sizeof(T));
       const T wv = wts[(size_t)wts_lane_stride * lane + (size_t)r * p + c];
       thr = isinf(wv) ? T(INFINITY) : alpha * wv;
     }
     const T cv = diag ? z : soft(z, thr);
+    KC_ST(&cand[off], sizeof(T));
     cand[off] = cv;
     const T d = cv - o;
     s_dg += (double)(d * g);
@@ -121,12 +135,15 @@ path_step_kernel(const T* __restrict__ om, const T* __restrict__ w,
   const int tid = ty * kTile + tx;
   const int lid = tid % 32, wid = tid / 32;
   if (lid == 0) {
+    KC_SH(&sh[3][wid], sizeof(double));
+    KC_SH(&shn[wid], sizeof(int));
     sh[0][wid] = s_dg;
     sh[1][wid] = s_dd;
     sh[2][wid] = s_sq;
     sh[3][wid] = s_l1;
     shn[wid] = nnz;
   }
+  KC_JITTER(0);
   __syncthreads();
   if (tid == 0) {
     double a = 0.0, b = 0.0, cc = 0.0, d = 0.0;
@@ -141,6 +158,7 @@ path_step_kernel(const T* __restrict__ om, const T* __restrict__ w,
     double* out = partials +
         (((size_t)lane * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) *
             kStats;
+    KC_ST(out, kStats * sizeof(double));
     out[0] = a;
     out[1] = b;
     out[2] = cc;
@@ -160,19 +178,25 @@ lane_reduce_kernel(const double* __restrict__ partials, long long tiles,
   const double* src = partials + (size_t)lane * tiles * kStats;
   double acc[kStats] = {0.0, 0.0, 0.0, 0.0, 0.0};
   for (long long t = threadIdx.x; t < tiles; t += kReduceThreads) {
+    KC_JITTER(t / kReduceThreads);
+    KC_LD(&src[t * kStats], kStats * sizeof(double));
     for (int k = 0; k < kStats; ++k) acc[k] += src[t * kStats + k];
   }
   for (int k = 0; k < kStats; ++k) sh[k][threadIdx.x] = acc[k];
+  KC_JITTER(0);
   __syncthreads();
   for (int s = kReduceThreads / 2; s > 0; s >>= 1) {
     if (threadIdx.x < s) {
+      KC_SH(&sh[kStats - 1][threadIdx.x + s], sizeof(double));
       for (int k = 0; k < kStats; ++k) {
         sh[k][threadIdx.x] += sh[k][threadIdx.x + s];
       }
     }
+    KC_JITTER(s);
     __syncthreads();
   }
   if (threadIdx.x < kStats) {
+    KC_ST(&stats[lane * kStats + threadIdx.x], sizeof(T));
     stats[lane * kStats + threadIdx.x] = (T)sh[threadIdx.x][0];
   }
 }

@@ -25,6 +25,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "kcheck.cuh"  // KC_*: checks in the checked build, else nothing
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -52,11 +54,14 @@ fused_prox_stats_kernel(const T* __restrict__ z, const T* __restrict__ dmask,
   T logdet = 0, l1 = 0, sumsq = 0, mind = T(INFINITY);
   int nnz = 0;
   for (int e = threadIdx.x; e < count; e += kThreads) {
+    KC_JITTER(e / kThreads);
     const int r = r0 + e / cols, c = c0 + e % cols;
     const size_t off = (size_t)r * n + c;
+    KC_LD(&z[off], sizeof(T));
     const T zv = z[off];
     T thr = alpha;
     if (w != nullptr) {
+      KC_LD(&w[off], sizeof(T));
       const T wv = w[off];
       thr = isinf(wv) ? T(INFINITY) : alpha * wv;
     }
@@ -64,6 +69,7 @@ fused_prox_stats_kernel(const T* __restrict__ z, const T* __restrict__ dmask,
     T o;
     bool diag;
     if (dmask != nullptr) {
+      KC_LD(&dmask[off], sizeof(T));
       const T mv = dmask[off];
       o = st * (T(1) - mv) + zv * mv;
       diag = mv > T(0);
@@ -71,6 +77,7 @@ fused_prox_stats_kernel(const T* __restrict__ z, const T* __restrict__ dmask,
       diag = (r == c);
       o = diag ? zv : st;
     }
+    KC_ST(&out[off], sizeof(T));
     out[off] = o;
     if (diag) {
       logdet += log(o < T(1e-30) ? T(1e-30) : o);
@@ -95,12 +102,15 @@ fused_prox_stats_kernel(const T* __restrict__ z, const T* __restrict__ dmask,
   __shared__ int shn[kThreads / 32];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   if (lane == 0) {
+    KC_SH(&sh[3][warp], sizeof(T));
+    KC_SH(&shn[warp], sizeof(int));
     sh[0][warp] = logdet;
     sh[1][warp] = l1;
     sh[2][warp] = sumsq;
     sh[3][warp] = mind;
     shn[warp] = nnz;
   }
+  KC_JITTER(0);
   __syncthreads();
   if (threadIdx.x == 0) {
     T a = 0, b = 0, c = 0, d = T(INFINITY);
@@ -113,6 +123,7 @@ fused_prox_stats_kernel(const T* __restrict__ z, const T* __restrict__ dmask,
       k += shn[i];
     }
     T* st = stats + ((size_t)ti * gridDim.x + tj) * 5;
+    KC_ST(st, 5 * sizeof(T));
     st[0] = a;
     st[1] = b;
     st[2] = c;

@@ -135,7 +135,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     strides = (ctypes.c_longlong * 12)(*(
         s for t in (q, k, v, out) for s in t.stride()[:3]))
     scale = float(D) ** -0.5 if scale is None else float(scale)
-    rc = _kernel_fn()(
+    fn = _kernel_fn()
+    build.regions("flash_attention", inputs={"q": q, "k": k, "v": v},
+                  outputs={"out": out})
+    rc = fn(
         int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
         v.data_ptr(), out.data_ptr(), strides, B, Hq, Hkv, Lq, Lkv, D,
         int(bool(causal)), 0 if window is None else int(window),

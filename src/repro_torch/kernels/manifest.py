@@ -7,9 +7,13 @@ its plain twin in ``kernels.ref``, its outputs and the tolerance of each
 (bit-exact when named in ``exact``, else fp-tolerant at the dtype's
 ``rtol``), the reference's configs copied as literals (the parity tests
 hold them equal to the reference's), ``card_configs`` at the CUDA
-kernel's own tile edges, and a fuzz builder.  ``chip_smoke.py``, the
-card-only tests and ``repro_torch.analysis.kernelfuzz`` run every config
-through the kernel and its plain version.
+kernel's own tile edges, a fuzz builder, and its write contract
+(``writes``: the checked build's count of stores per element, "once"
+unless the entry declares another with its reason).  ``chip_smoke.py``,
+the card-only tests and ``repro_torch.analysis.kernelfuzz`` run every
+config through the kernel and its plain version;
+``repro_torch.analysis.kernelpass.kcheck`` runs them through the checked
+build.
 
 The problem builders are numpy only and draw exactly what the
 reference's builders draw from the same generator.  A fuzz builder
@@ -46,8 +50,23 @@ SHARED_KERNEL_FILES = (
 )
 
 
+#: the write contracts an output or scratch buffer may have in the
+#: checked build: "once" (every element stored exactly once by one launch;
+#: a scratch element at most once) or "many" (stored more than once, by
+#: design)
+WRITE_CONTRACTS = ("once", "many")
+
+
 def entry(name: str) -> dict:
     return next(e for e in KERNEL_ENTRIES if e["name"] == name)
+
+
+def write_contract(ent: dict, buffer: str) -> str:
+    """The declared write contract of ``buffer`` (a wrapper's output or
+    scratch name): ``ent["writes"][buffer]`` is ``(contract, reason)``,
+    and a buffer it does not name is stored exactly once."""
+    declared = ent.get("writes", {}).get(buffer)
+    return "once" if declared is None else declared[0]
 
 
 def softthresh_problem(cfg, rng, weighted: bool):
@@ -256,6 +275,7 @@ KERNEL_ENTRIES = (
              "block": (128, 128), "weighted": True, "alpha": 0.3},
         ),
         "fuzz": _softthresh_fuzz,
+        "writes": {},   # every output and scratch element stored once
     },
     {
         "name": "fused_path_step",
@@ -288,6 +308,7 @@ KERNEL_ENTRIES = (
              "block": 256, "weighted": True, "zero_lam1_lane": True},
         ),
         "fuzz": _pathstep_fuzz,
+        "writes": {},   # every output and scratch element stored once
     },
     {
         "name": "blocksparse_matmul",
@@ -323,6 +344,7 @@ KERNEL_ENTRIES = (
              "block_n": 128, "density": 0.7, "seed": 7},
         ),
         "fuzz": _blocksparse_fuzz,
+        "writes": {},   # every output and scratch element stored once
     },
     {
         "name": "flash_attention",
@@ -369,5 +391,6 @@ KERNEL_ENTRIES = (
                  "Lq": 1, "Lkv": 65, "D": d, "causal": True},
             )),
         "fuzz": _flash_fuzz,
+        "writes": {},   # every output and scratch element stored once
     },
 )

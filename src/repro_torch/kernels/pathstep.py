@@ -104,6 +104,10 @@ def fused_path_step(omega: torch.Tensor, w: torch.Tensor, tau, lam1, lam2,
     stats = torch.empty((c, PATH_STEP_STATS), dtype=omega.dtype,
                         device=omega.device)
     fn = _kernel_fn(omega.dtype)
+    build.regions("pathstep", inputs={"omega": omega, "w": w,
+                                      "weights": weights, "scal": scal},
+                  outputs={"cand": cand, "stats": stats},
+                  scratch={"partials": partials})
     rc = fn(omega.data_ptr(), w.data_ptr(),
             None if weights is None else weights.data_ptr(), stride,
             scal.data_ptr(), cand.data_ptr(), partials.data_ptr(),

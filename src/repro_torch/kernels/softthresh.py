@@ -73,6 +73,9 @@ def fused_prox_stats(z: torch.Tensor, diag_mask, alpha, *, weights=None,
     out = torch.empty_like(z)
     stats = torch.empty((gm, gn, 5), dtype=z.dtype, device=z.device)
     fn, scalar = _kernel_fn(z.dtype)
+    build.regions("softthresh", inputs={"z": z, "diag_mask": dm,
+                                        "weights": w},
+                  outputs={"out": out, "stats": stats})
     rc = fn(z.data_ptr(), None if dm is None else dm.data_ptr(),
             None if w is None else w.data_ptr(), scalar(float(alpha)),
             out.data_ptr(), stats.data_ptr(), m, n, bm, bn,

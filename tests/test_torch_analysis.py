@@ -13,6 +13,7 @@ import json
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -230,6 +231,58 @@ def _registry(**changes):
     entries = [dict(e) for e in kman.KERNEL_ENTRIES]
     entries[0].update(changes)
     return entries
+
+
+# -- checked-build fixtures (synthetic records and write counts) ---------------
+
+def _checked_launch(record=(), **counts):
+    """A checked fused-prox launch (inputs z, weights; outputs out,
+    stats) decoded by kernelpass: every count 1 unless given, the record
+    clean unless given."""
+    rec = dict(zip(kernelpass.RECORD_FIELDS, [0] * 13), **dict(record))
+    bufs = [kernelpass.Buffer("z", "input", 8),
+            kernelpass.Buffer("weights", "input", 8),
+            kernelpass.Buffer("out", "output", 8,
+                              counts.get("out", np.ones(16, np.int32))),
+            kernelpass.Buffer("stats", "output", 8,
+                              counts.get("stats", np.ones(5, np.int32)))]
+    return kernelpass.launch_findings(
+        kman.entry("fused_prox_stats"), "aligned/float64",
+        kernelpass.Launch("softthresh", bufs,
+                          tuple(rec[f] for f in kernelpass.RECORD_FIELDS)))
+
+
+@trips("CA401")
+def _trip_element_stored_twice():
+    return _checked_launch(stats=np.array([1, 1, 2, 1, 1], np.int32))
+
+
+@clean("CA401")
+def _clean_every_element_once():
+    return _checked_launch()
+
+
+@trips("CA402")
+def _trip_element_never_stored():
+    out = np.ones(16, np.int32)
+    out[9] = 0
+    return _checked_launch(out=out)
+
+
+@clean("CA402")
+def _clean_every_output_stored():
+    return _checked_launch(out=np.ones(16, np.int32))
+
+
+@trips("CA403")
+def _trip_store_past_the_end():
+    return _checked_launch({"code": 1, "region": 2, "offset": 128,
+                            "extent": 128, "site": 79, "errors": 1})
+
+
+@clean("CA403")
+def _clean_no_error_record():
+    return _checked_launch({"accesses": 4096})
 
 
 @trips("CA405")

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis import kernelfuzz, kernelpass
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import manifest as tman
 from repro_torch.kernels import ops as tops
@@ -297,3 +298,34 @@ def test_flash_kernel_refusals_on_card(cuda, monkeypatch):
     monkeypatch.setattr(tfa, "validate", lambda *a: None)
     with pytest.raises(RuntimeError, match="cudaError"):
         tfa.flash_attention(q, q[:, :, :4], q[:, :, :4])
+
+
+# ---------------------------------------------------------------------------
+# the checked build (analysis.kernelpass.kcheck): CA401-CA403 on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [e["name"] for e in tman.KERNEL_ENTRIES])
+def test_checked_build_finds_nothing_in_kernel_on_card(cuda, name):
+    """Every seed-0 case of the entry through its checked library: no
+    finding, every output element stored exactly once, the outputs
+    bit-identical under each jitter seed and within tolerance of the
+    plain version."""
+    cases = kernelpass.kcheck(seed=0, device=cuda,
+                              entries=[tman.entry(name)])
+    assert len(cases) == len(kernelfuzz.entry_cases(tman.entry(name)))
+    bad = [(c.config, [f.render() for f in c.findings], c.failures)
+           for c in cases if not c.ok]
+    assert not bad, bad
+    assert all(c.worst_count == 1 and c.launches > 0 for c in cases)
+    assert all(c.jitter_runs == len(kernelpass.JITTER_SEEDS) for c in cases)
+
+
+@pytest.mark.gpu
+def test_checked_build_probes_trip_their_rules_on_card(cuda):
+    """Each planted fault of csrc/probes/kcheck_faults.cu is reported
+    under its rule: the checker is not blind."""
+    res = kernelpass.probes(device=cuda)
+    assert [(r.probe, r.rule) for r in res] == list(kernelpass.PROBES)
+    assert all(r.tripped for r in res), [
+        (r.probe, r.rule, [f.render() for f in r.findings]) for r in res]
