@@ -50,14 +50,13 @@ solve's device (``torch.matmul``), ``"host"`` runs it through
 """
 from __future__ import annotations
 
-import contextlib
 import math
-import sys
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..census import event, host_sync, span
 from ..kernels import ops as kops
 from . import costmodel
 from .matops import DENSITY_DTYPE
@@ -85,23 +84,6 @@ DEFAULT_CHUNK = 32
 #: product routes of the flat step: "xla" on the solve's device, "host"
 #: through np.matmul on a host copy (bit-stable across waves and lanes)
 BATCH_GEMMS = ("xla", "host")
-
-
-def _obs_span(name: str, **attrs):
-    """A tracer span if the obs package is active (``repro_torch.obs.trace``
-    already imported by the caller's backend), else a no-op context: the
-    engine never imports ``repro_torch.obs``, so ``obs="off"`` runs the
-    untraced code path."""
-    tr = sys.modules.get("repro_torch.obs.trace")
-    if tr is None:
-        return contextlib.nullcontext()
-    return tr.get_tracer().span(name, cat="batch", level="trace", **attrs)
-
-
-def _obs_event(name: str, **attrs) -> None:
-    tr = sys.modules.get("repro_torch.obs.trace")
-    if tr is not None:
-        tr.get_tracer().event(name, cat="batch", level="trace", **attrs)
 
 
 class _Lanes(NamedTuple):
@@ -303,12 +285,14 @@ def _apply_trial(lanes: _Lanes, trial, *, tol: float, max_iters: int,
         done=lanes.done | (accept & done_acc) | exhaust,
     )
     # the flat step's one host sync: which lanes took their candidate
-    accepted, done = torch.stack(  # ca: allow=CA106 (the step's sync)
-        [accept, new.done]).tolist()
-    for i, acc in enumerate(accepted):
-        if acc:
-            lanes.omega[i].copy_(cand[i])
-            lanes.aux[i].copy_(aux_c[i])
+    with host_sync("core/batch.py:_apply_trial"):
+        accepted, done = torch.stack(  # ca: allow=CA106 (the step's sync)
+            [accept, new.done]).tolist()
+    with span("batch.accept", cat="engine"):
+        for i, acc in enumerate(accepted):
+            if acc:
+                lanes.omega[i].copy_(cand[i])
+                lanes.aux[i].copy_(aux_c[i])
     return new, done
 
 
@@ -348,9 +332,10 @@ def _run_segment(lanes: _Lanes, done: list, data, spec, *, trial, variant,
         if not live:
             break
         occ.append(len(live))
-        ops = _lane_ops(variant, live)
-        lanes, done = _apply_trial(lanes, trial(lanes, data, spec, ops),
-                                   **statics)
+        with span("batch.flat_step", cat="engine"):
+            ops = _lane_ops(variant, live)
+            lanes, done = _apply_trial(lanes, trial(lanes, data, spec, ops),
+                                       **statics)
     return lanes, done, occ
 
 
@@ -501,10 +486,13 @@ def _solve_lanes(arr, spec, ridge, omega0, *, variant, tol, max_iters,
         if not slots:
             return
         # one host sync per segment that finished a lane: its counters
-        rows = torch.stack([  # ca: allow=CA106 (the segment's sync)
-            state.step.to(torch.float64), state.ls_total.to(torch.float64),
-            state.g_val.to(torch.float64), state.delta.to(torch.float64),
-            state.stalled.to(torch.float64)]).tolist()
+        with host_sync("core/batch.py:harvest"):
+            rows = torch.stack([  # ca: allow=CA106 (the segment's sync)
+                state.step.to(torch.float64),
+                state.ls_total.to(torch.float64),
+                state.g_val.to(torch.float64),
+                state.delta.to(torch.float64),
+                state.stalled.to(torch.float64)]).tolist()
         for k in slots:
             lane = int(cur_ids[k])
             omega_out[lane].copy_(state.omega[k])
@@ -515,7 +503,7 @@ def _solve_lanes(arr, spec, ridge, omega0, *, variant, tol, max_iters,
     for wave_idx, wave in enumerate(waves):
         ids = np.asarray(wave, np.int64)
         cap = b if monolithic else _capacity(len(ids), b)
-        _obs_event("batch.wave", wave=wave_idx, lanes=len(ids))
+        event("batch.wave", cat="batch", wave=wave_idx, lanes=len(ids))
         pad_idx = np.concatenate(
             [ids, np.full(cap - len(ids), ids[-1], np.int64)])
         idx = torch.as_tensor(pad_idx, device=dev)
@@ -533,36 +521,39 @@ def _solve_lanes(arr, spec, ridge, omega0, *, variant, tol, max_iters,
         while True:
             # a host numpy array: no device sync
             n_real = int(np.count_nonzero(cur_ids >= 0))  # ca: allow=CA106
-            with _obs_span("batch.segment", segment=segments,
-                           wave=wave_idx, lanes=n_real, cap=cap):
+            with span("batch.segment", cat="batch", segment=segments,
+                      wave=wave_idx, lanes=n_real, cap=cap):
                 state, done, occ = _run_segment(
                     state, done, data, spec_w, trial=trial, variant=variant,
                     steps=steps, statics=statics)
             segments += 1
             occupancy.extend(min(v, n_real) for v in occ)
             capacities.extend([cap] * len(occ))
-            harvest(state, done, cur_ids)
+            with span("batch.harvest", cat="engine"):
+                harvest(state, done, cur_ids)
             live = [k for k, d in enumerate(done) if not d]
             if not live:
                 break
-            new_cap = _capacity(len(live), b)
-            slot_list = live + [live[-1]] * (new_cap - len(live))
-            slots = torch.as_tensor(slot_list, device=dev)
-            state = _Lanes(
-                _compact_(state.omega, live, new_cap),
-                _compact_(state.aux, live, new_cap),
-                *(t.index_select(0, slots) for t in state[2:]))
-            done = [k >= len(live) for k in range(new_cap)]
-            state = state._replace(done=torch.as_tensor(done, device=dev))
-            if stacked:
-                arr_w = _compact_(arr_w, live, new_cap)
-            ridge_w = ridge_w.index_select(0, slots)
-            spec_w = _compact_spec(spec_w, live, new_cap)
-            data = _wave_data(arr_w, ridge_w, variant, stacked,
-                              gemm == "host")
-            cur_ids = cur_ids[slot_list]
-            cur_ids[len(live):] = -1
-            cap = new_cap
+            with span("batch.repack", cat="engine"):
+                new_cap = _capacity(len(live), b)
+                slot_list = live + [live[-1]] * (new_cap - len(live))
+                slots = torch.as_tensor(slot_list, device=dev)
+                state = _Lanes(
+                    _compact_(state.omega, live, new_cap),
+                    _compact_(state.aux, live, new_cap),
+                    *(t.index_select(0, slots) for t in state[2:]))
+                done = [k >= len(live) for k in range(new_cap)]
+                state = state._replace(
+                    done=torch.as_tensor(done, device=dev))
+                if stacked:
+                    arr_w = _compact_(arr_w, live, new_cap)
+                ridge_w = ridge_w.index_select(0, slots)
+                spec_w = _compact_spec(spec_w, live, new_cap)
+                data = _wave_data(arr_w, ridge_w, variant, stacked,
+                                  gemm == "host")
+                cur_ids = cur_ids[slot_list]
+                cur_ids[len(live):] = -1
+                cap = new_cap
         del state, data
 
         if pilot_lane >= 0 and wave_idx == 0:

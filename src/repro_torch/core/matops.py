@@ -28,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..census import host_sync, span
 from ..kernels import ops as kops
 
 #: capacity ladder, as fractions of the policy threshold: the dispatch
@@ -83,7 +84,8 @@ def block_density(mask: torch.Tensor) -> torch.Tensor:
 
 def occupied_blocks(mask: torch.Tensor) -> int:
     """Occupied-block count on the host (one device sync)."""
-    return int((mask > 0).sum())
+    with host_sync("core/matops.py:occupied_blocks"):
+        return int((mask > 0).sum())
 
 
 def capacity_tiers(total_blocks: int, threshold: float) -> list[int]:
@@ -122,7 +124,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, mask=None,
     (occupied > ceil(threshold * total)).  Counts are integers, so no
     rounding of a density ratio can under-select a rung."""
     if policy is None or not policy.enabled or mask is None:
-        return a @ b
+        return _dense(a, b)
     bs = policy.block_size
     nbr, nbc = _cdiv(a.shape[0], bs), _cdiv(a.shape[1], bs)
     if tuple(mask.shape) != (nbr, nbc):
@@ -131,11 +133,18 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, mask=None,
             f"{tuple(a.shape)} at block_size={bs} (want {(nbr, nbc)})")
     caps = capacity_tiers(nbr * nbc, policy.threshold)
     if not caps:
-        return a @ b
+        return _dense(a, b)
     cap = select_capacity(caps, occupied_blocks(mask))
     if cap is None:
+        return _dense(a, b)
+    with span("matmul.sparse"):
+        return masked_matmul(a, b, mask, block_size=bs, capacity=cap)
+
+
+def _dense(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The dispatch's dense branch."""
+    with span("matmul.dense"):
         return a @ b
-    return masked_matmul(a, b, mask, block_size=bs, capacity=cap)
 
 
 def panel_gram(x: torch.Tensor, *, panel: int = 512,

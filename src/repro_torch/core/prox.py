@@ -33,6 +33,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..census import host_sync, span
 from ..kernels import ops as kops
 from . import matops
 from .objective import dot, gradient_from_w, smooth_objective_cov, \
@@ -189,24 +190,26 @@ def prox_gradient(
         while True:
             if trials:
                 tau *= 0.5
-            if sparse:
-                z = omega - tau * grad
-                cand, mask_c = ops.prox_stats(z, penalty, tau, data)
-                del z
-                aux_c = ops.aux_of(cand, data, mask_c)
-                g_c = ops.g_of(cand, aux_c, data)
-                diff = cand - omega
-                dot_dd = ops.dot(diff, diff)
-                rhs = g_val + ops.dot(diff, grad) + dot_dd / (2.0 * tau)
-                ok_t = g_c <= rhs
-                del diff
-            else:
-                cand, aux_c, g_c, dot_dd, ok_t = ls_trial(
-                    ops, data, penalty, omega, grad, g_val, tau)
-                mask_c = None
-            # the one host sync of the trial: acceptance + step norms
-            ok, dd, nn = torch.stack([  # ca: allow=CA106 (the trial's sync)
-                ok_t.to(dot_dd.dtype), dot_dd, norm_sq]).tolist()
+            with span("ls_trial"):
+                if sparse:
+                    z = omega - tau * grad
+                    cand, mask_c = ops.prox_stats(z, penalty, tau, data)
+                    del z
+                    aux_c = ops.aux_of(cand, data, mask_c)
+                    g_c = ops.g_of(cand, aux_c, data)
+                    diff = cand - omega
+                    dot_dd = ops.dot(diff, diff)
+                    rhs = g_val + ops.dot(diff, grad) + dot_dd / (2.0 * tau)
+                    ok_t = g_c <= rhs
+                    del diff
+                else:
+                    cand, aux_c, g_c, dot_dd, ok_t = ls_trial(
+                        ops, data, penalty, omega, grad, g_val, tau)
+                    mask_c = None
+                # the trial's own host sync: acceptance + step norms
+                with host_sync("core/prox.py:prox_gradient"):
+                    ok, dd, nn = torch.stack([  # ca: allow=CA106 (the trial's sync)
+                        ok_t.to(dot_dd.dtype), dot_dd, norm_sq]).tolist()
             trials += 1
             if ok or trials >= max_ls:
                 break
@@ -224,15 +227,17 @@ def prox_gradient(
             delta = 0.0
         del cand, aux_c, mask_c, grad
 
+    density = 1.0
     if sparse:
         density_of = ops.density_of or matops.block_density
-        density = float(density_of(mask))
-    else:
-        density = 1.0
+        with host_sync("core/prox.py:prox_gradient"):
+            density = float(density_of(mask))
+    with host_sync("core/prox.py:prox_gradient"):
+        g_final = float(g_val)
     return ProxResult(
         omega=omega, iters=step, ls_total=ls_total,
         converged=(delta < tol) and not stalled,
-        g_final=float(g_val), delta_final=float(delta), stalled=stalled,
+        g_final=g_final, delta_final=float(delta), stalled=stalled,
         block_density=density)
 
 

@@ -43,6 +43,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..census import span
 from ..core.matops import panel_gram
 from ..device import resolve_device
 from .shards import ChunkSource, as_source
@@ -66,35 +67,6 @@ RANK_BUDGET_BYTES = 256 * 1024 * 1024
 
 #: edge of the diagonal blocks that symmetrize a finalized Gram in place
 SYM_BLOCK = 4096
-
-
-class _NoSpan:
-    """Do-nothing stand-in for a tracer span when obs is inactive."""
-    __slots__ = ()
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        return False
-
-    def note(self, **attrs):
-        return self
-
-
-_NO_SPAN = _NoSpan()
-
-
-def _obs_span(name: str, **attrs):
-    """Tracer span IF the obs subsystem is active (``repro_torch.obs.
-    trace`` already imported, mode scoped by the caller); the shared
-    no-op otherwise — the data layer never imports ``repro_torch.obs``
-    itself."""
-    import sys
-    tr = sys.modules.get("repro_torch.obs.trace")
-    if tr is None:
-        return _NO_SPAN
-    return tr.get_tracer().span(name, cat="data", level="trace", **attrs)
 
 
 def _dtype_name(chunk) -> str:
@@ -234,8 +206,8 @@ class GramAccumulator:
         elif arr.shape[1] != self.p:
             raise ValueError(
                 f"chunk has {arr.shape[1]} columns, accumulator is p={self.p}")
-        with _obs_span("gram.chunk", chunk=self.n_chunks,
-                       rows=int(arr.shape[0]), p=int(arr.shape[1])):
+        with span("gram.chunk", cat="data", chunk=self.n_chunks,
+                  rows=int(arr.shape[0]), p=int(arr.shape[1])):
             t = self._to_device(arr)
             if not bool(torch.isfinite(t).all()):
                 raise ValueError(

@@ -20,12 +20,14 @@ only scalars come to the host.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from ..census import host_sync, span
 from ..comm.grid import Grid1p5D
 from ..comm.group import world_size
 from ..core import distributed as dist
@@ -49,7 +51,9 @@ SYMMETRY_RTOL = 1e-6
 
 
 def _require_finite(name: str, arr: torch.Tensor) -> None:
-    if not bool(torch.isfinite(arr).all()):
+    with host_sync("estimator/backends.py:_require_finite"):
+        finite = bool(torch.isfinite(arr).all())
+    if not finite:
         raise ValueError(
             f"{name} contains NaN/Inf; refusing to fit (a non-finite input "
             f"silently produces a garbage estimate — clean or impute the "
@@ -59,8 +63,9 @@ def _require_finite(name: str, arr: torch.Tensor) -> None:
 def _require_symmetric(s: torch.Tensor) -> None:
     if s.numel() == 0:
         return
-    scale, asym = torch.stack([s.abs().max(),
-                               (s - s.T).abs().max()]).tolist()
+    with host_sync("estimator/backends.py:_require_symmetric"):
+        scale, asym = torch.stack([s.abs().max(),
+                                   (s - s.T).abs().max()]).tolist()
     if asym > SYMMETRY_RTOL * max(scale, 1.0):
         raise ValueError(
             f"s must be symmetric: max |s - s^T| = {asym:.3e} at scale "
@@ -156,7 +161,9 @@ def _cast(arr: torch.Tensor, config: SolverConfig) -> torch.Tensor:
 def observed_nnz_per_row(omega: torch.Tensor) -> float:
     """Average nonzeros per row of an iterate (the cost model's ``d``)."""
     om = torch.as_tensor(omega)
-    return max(1.0, int((om.abs() > NNZ_TOL).sum()) / om.shape[0])
+    with host_sync("estimator/backends.py:observed_nnz_per_row"):
+        nnz = int((om.abs() > NNZ_TOL).sum())
+    return max(1.0, nnz / om.shape[0])
 
 
 def _problem_shape(problem: Problem, lam1: float,
@@ -270,10 +277,12 @@ def _report(res, *, lam1, lam2, wall, backend, variant,
     adds no second scan and no host copy of Omega."""
     om = res.omega
     p = om.shape[0]
-    nz = om.abs() > NNZ_TOL
-    bs = config.sparse_block
-    occ = matops.block_mask(nz, bs)
-    nnz, n_occ = torch.stack([nz.sum(), (occ > 0).sum()]).tolist()
+    with span("fit.report", level="summary"):
+        nz = om.abs() > NNZ_TOL
+        bs = config.sparse_block
+        occ = matops.block_mask(nz, bs)
+        with host_sync("estimator/backends.py:_report"):
+            nnz, n_occ = torch.stack([nz.sum(), (occ > 0).sum()]).tolist()
     nnz_per_row = max(1.0, nnz / p)
     if telemetry is not None and "_pending_cost" in telemetry:
         from ..obs.metrics import get_registry, record_solve_cost
@@ -334,6 +343,16 @@ def reference_backend(problem: Problem, penalty, config: SolverConfig,
                    penalty=spec, telemetry=telemetry)
 
 
+def obs_scope(mode: str):
+    """The obs tracer at ``mode`` (``SolverConfig.obs``) for a call's
+    duration; at ``"off"`` nothing, and ``repro_torch.obs`` stays
+    unimported."""
+    if mode == "off":
+        return contextlib.nullcontext()
+    from ..obs.trace import get_tracer
+    return get_tracer().scoped(mode)
+
+
 def _solve_with_obs(config: SolverConfig, backend: str, variant: str,
                     solve, device: torch.device, *, p: int, n: int,
                     n_devices: int = 1, c_x: int = 1, c_omega: int = 1):
@@ -341,7 +360,8 @@ def _solve_with_obs(config: SolverConfig, backend: str, variant: str,
     host wall ending in a device sync, telemetry or None).
 
     ``obs="off"`` is the plain timed solve and never imports
-    ``repro_torch.obs``.  Otherwise the solve runs inside a
+    ``repro_torch.obs`` (its spans are then profiler ranges under a
+    recording profiler, else no-ops).  Otherwise the solve runs inside a
     ``fit.<backend>`` span; at ``"trace"`` it is split into ``dispatch``
     and ``execute`` spans.  Here (the reference's split is trace +
     compile + enqueue against ``block_until_ready``) "dispatch" is the
@@ -356,26 +376,21 @@ def _solve_with_obs(config: SolverConfig, backend: str, variant: str,
         # a float32 solve keeps full float32 products (no TF32)
         torch.backends.cuda.matmul.allow_tf32 = False
     synchronize(device)
-    if config.obs == "off":
+    with obs_scope(config.obs):
         t0 = time.perf_counter()
-        res = solve()
-        synchronize(device)
-        return res, time.perf_counter() - t0, None
-    from ..obs.trace import get_tracer
-    tracer = get_tracer()
-    with tracer.scoped(config.obs):
-        t0 = time.perf_counter()
-        with tracer.span(f"fit.{backend}", variant=variant, p=p, n=n,
-                         n_devices=n_devices) as span:
-            with tracer.span("dispatch", level="trace", variant=variant):
+        with span(f"fit.{backend}", level="summary", variant=variant, p=p,
+                  n=n, n_devices=n_devices) as fit_span:
+            with span("dispatch", variant=variant):
                 res = solve()
             t1 = time.perf_counter()
-            with tracer.span("execute", level="trace", variant=variant):
+            with span("execute", variant=variant):
                 synchronize(device)
         wall = time.perf_counter() - t0
+        if config.obs == "off":
+            return res, wall, None
         iters, ls_total = int(res.iters), int(res.ls_total)
-        span.note(iters=iters, ls_total=ls_total,
-                  converged=bool(res.converged))
+        fit_span.note(iters=iters, ls_total=ls_total,
+                      converged=bool(res.converged))
         telemetry = {
             "obs": config.obs,
             "dispatch_s": t1 - t0,

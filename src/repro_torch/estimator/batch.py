@@ -22,11 +22,12 @@ import time
 import numpy as np
 import torch
 
+from ..census import CENSUS, host_sync, span
 from ..core import batch as core_batch
 from ..core.penalty import PenaltySpec, _as_numpy, normalize_penalty
 from ..core.prox import ProxResult
 from ..device import resolve_device, synchronize
-from .backends import Problem, _cast, _report
+from .backends import Problem, _cast, _report, obs_scope
 from .config import SolverConfig
 from .report import BatchReport, FitReport
 
@@ -67,8 +68,14 @@ def _slice_result(res: ProxResult, i: int) -> ProxResult:
     vals = {f.name: getattr(res, f.name)[i]
             for f in dataclasses.fields(ProxResult)}
     # report assembly after the solve: a few scalars of one lane
-    return ProxResult(**{k: v if k == "omega" else v.item()  # ca: allow=CA106
-                         for k, v in vals.items()})
+    with host_sync("estimator/batch.py:_slice_result", reads=len(vals) - 1):
+        return ProxResult(**{k: v if k == "omega" else v.item()  # ca: allow=CA106
+                             for k, v in vals.items()})
+
+
+def _flat_steps() -> int:
+    """Flat steps the batched engine has run since the census's reset."""
+    return CENSUS.spans.get("batch.flat_step", 0)
 
 
 def batch_reports(res: ProxResult, lam1s, lam2s, wall: float, *,
@@ -142,24 +149,30 @@ def fit_batch(x=None, *, s=None, lam1=None, lam2=0.0, penalty=None,
                                            np.float64), (b,))
         lam2s = np.broadcast_to(np.asarray(_as_numpy(spec.lam2),
                                            np.float64), (b,))
-        synchronize(data.device)
-        t0 = time.perf_counter()
-        res, stats = core_batch.solve_batch(data, penalty=spec, **kw)
+        kw["penalty"] = spec
     else:
         if lam1 is None:
             raise TypeError("pass lam1 (or penalty=)")
         spec = None
         lam1s = np.broadcast_to(np.asarray(lam1, np.float64), (b,))
         lam2s = np.broadcast_to(np.asarray(lam2, np.float64), (b,))
+    with obs_scope(cfg.obs), span("fit_batch", level="summary",
+                                  lanes=b) as batch_span:
+        steps0 = _flat_steps()
         synchronize(data.device)
         t0 = time.perf_counter()
-        res, stats = core_batch.solve_batch(
-            data, torch.tensor(lam1s, dtype=data.dtype),
-            torch.tensor(lam2s, dtype=data.dtype), **kw)
-    synchronize(res.omega.device)
-    wall = time.perf_counter() - t0
-    reports = batch_reports(res, lam1s, lam2s, wall, variant=variant,
-                            config=cfg, penalty=spec)
+        if spec is None:
+            res, stats = core_batch.solve_batch(
+                data, torch.tensor(lam1s, dtype=data.dtype),
+                torch.tensor(lam2s, dtype=data.dtype), **kw)
+        else:
+            res, stats = core_batch.solve_batch(data, **kw)
+        synchronize(res.omega.device)
+        wall = time.perf_counter() - t0
+        batch_span.note(flat_steps=_flat_steps() - steps0,
+                        segments=stats.segments)
+        reports = batch_reports(res, lam1s, lam2s, wall, variant=variant,
+                                config=cfg, penalty=spec)
     return BatchReport(reports=tuple(reports), wall_time_s=wall,
                        stats=stats)
 
@@ -193,22 +206,28 @@ def batched_path_reports(problem: Problem, grid: list[float],
     if data.device.type == "cuda":
         # a float32 solve keeps full float32 products (no TF32)
         torch.backends.cuda.matmul.allow_tf32 = False
-    synchronize(data.device)
-    t0 = time.perf_counter()
-    res, stats = core_batch.solve_path_batched(
-        data, np.asarray(grid, np.float64), lam2, penalty=penalty,
-        omega0=omega0, variant=variant, tol=config.tol,
-        max_iters=config.max_iters, max_ls=config.max_ls,
-        warm_start_tau=config.warm_start_tau,
-        tau_schedule=config.tau_schedule, schedule=config.batch_schedule,
-        chunk=config.batch_chunk, max_lanes=config.batch_max_lanes,
-        use_pallas=config.use_pallas,
-        gemm=_resolve_batch_gemm(config, variant, data),
-        warm_start=config.batch_warm_start, return_stats=True)
-    synchronize(res.omega.device)
-    wall = time.perf_counter() - t0
-    lam2s = [lam2] * len(grid)
-    spec_b = penalty.with_lam1(np.asarray(grid, np.float64)) \
-        if penalty is not None else None
-    return batch_reports(res, grid, lam2s, wall, variant=variant,
-                         config=config, penalty=spec_b), wall, stats
+    with obs_scope(config.obs), span("fit_batch", level="summary",
+                                     lanes=len(grid)) as batch_span:
+        steps0 = _flat_steps()
+        synchronize(data.device)
+        t0 = time.perf_counter()
+        res, stats = core_batch.solve_path_batched(
+            data, np.asarray(grid, np.float64), lam2, penalty=penalty,
+            omega0=omega0, variant=variant, tol=config.tol,
+            max_iters=config.max_iters, max_ls=config.max_ls,
+            warm_start_tau=config.warm_start_tau,
+            tau_schedule=config.tau_schedule,
+            schedule=config.batch_schedule, chunk=config.batch_chunk,
+            max_lanes=config.batch_max_lanes, use_pallas=config.use_pallas,
+            gemm=_resolve_batch_gemm(config, variant, data),
+            warm_start=config.batch_warm_start, return_stats=True)
+        synchronize(res.omega.device)
+        wall = time.perf_counter() - t0
+        batch_span.note(flat_steps=_flat_steps() - steps0,
+                        segments=stats.segments)
+        lam2s = [lam2] * len(grid)
+        spec_b = penalty.with_lam1(np.asarray(grid, np.float64)) \
+            if penalty is not None else None
+        reports = batch_reports(res, grid, lam2s, wall, variant=variant,
+                                config=config, penalty=spec_b)
+    return reports, wall, stats

@@ -32,13 +32,14 @@ from typing import Iterable
 
 import numpy as np
 
+from ..census import span
 from ..core.costmodel import CARD_STEP_COST, choose_path_mode
 from ..core.penalty import PenaltySpec, adaptive_weights, as_penalty
 from ..core.prox import resolve_tau_schedule
 from ..data.gram import compute_gram
 from ..data.shards import is_streaming_input
 from ..device import resolve_device
-from .backends import Problem, _matmul_policy, get_backend
+from .backends import Problem, _matmul_policy, get_backend, obs_scope
 from .batch import batched_path_reports, fit_batch as _fit_batch
 from .config import SolverConfig
 from .report import FitReport, PathResult, pseudo_bic
@@ -211,18 +212,13 @@ class ConcordEstimator:
     def _run_path(self, problem: Problem, grid: list[float],
                   spec: PenaltySpec, mode: str, warm_start: bool,
                   score_bic: bool):
-        if self.config.obs != "off":
-            from ..obs.trace import get_tracer
-            tracer = get_tracer()
-            with tracer.scoped(self.config.obs):
-                with tracer.span("fit_path", points=len(grid),
-                                 mode=mode) as span:
-                    reports, stats = self._run_path_inner(
-                        problem, grid, spec, mode, warm_start, score_bic)
-                span.note(total_iters=sum(r.iters for r in reports))
-            return reports, stats
-        return self._run_path_inner(problem, grid, spec, mode, warm_start,
-                                    score_bic)
+        with obs_scope(self.config.obs):
+            with span("fit_path", level="summary", points=len(grid),
+                      mode=mode) as path_span:
+                reports, stats = self._run_path_inner(
+                    problem, grid, spec, mode, warm_start, score_bic)
+                path_span.note(total_iters=sum(r.iters for r in reports))
+        return reports, stats
 
     def _run_path_inner(self, problem: Problem, grid: list[float],
                         spec: PenaltySpec, mode: str, warm_start: bool,

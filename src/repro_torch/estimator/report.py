@@ -17,6 +17,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..census import host_sync, span
+
 
 @dataclass(frozen=True)
 class FitReport:
@@ -65,22 +67,32 @@ class FitReport:
                 f"{dens} t={self.wall_time_s:.3f}s")
 
 
+#: the census's site of the BIC's three host reads
+_BIC_SITE = "estimator/report.py:pseudo_bic"
+
+
 def pseudo_bic(omega, s, n: int, *, tol: float = 1e-8) -> float:
     """BIC under the CONCORD pseudo-likelihood: ``2n * g0 + log(n) * |E|``
     with g0 the unpenalized smooth objective and |E| the edge count.
 
     Computed in float64 on ``omega``'s device (``om @ s`` is a p^3
     product: minutes in numpy at p = 16384)."""
-    om = torch.as_tensor(omega).to(torch.float64)
-    sm = torch.as_tensor(s, device=om.device).to(torch.float64)
-    diag = om.diagonal()
-    if bool((diag <= 0).any()):
-        return float("inf")
-    g0 = -torch.log(diag).sum() + 0.5 * torch.dot(
-        (om @ sm).reshape(-1), om.reshape(-1))
-    p = om.shape[0]
-    edges = (int((om.abs() > tol).sum()) - p) / 2.0
-    return float(2.0 * n * float(g0) + math.log(max(n, 2)) * edges)
+    with span("bic", level="summary"):
+        om = torch.as_tensor(omega).to(torch.float64)
+        sm = torch.as_tensor(s, device=om.device).to(torch.float64)
+        diag = om.diagonal()
+        with host_sync(_BIC_SITE):
+            nonpos = bool((diag <= 0).any())
+        if nonpos:
+            return float("inf")
+        g0 = -torch.log(diag).sum() + 0.5 * torch.dot(
+            (om @ sm).reshape(-1), om.reshape(-1))
+        with host_sync(_BIC_SITE):
+            g0 = float(g0)
+        p = om.shape[0]
+        with host_sync(_BIC_SITE):
+            edges = (int((om.abs() > tol).sum()) - p) / 2.0
+        return float(2.0 * n * g0 + math.log(max(n, 2)) * edges)
 
 
 @dataclass(frozen=True)

@@ -13,7 +13,9 @@ one per launch and nowhere else, so a run can show that its main path
 went through the kernels (``chip_smoke.py`` zeroes it with
 :func:`reset_launches` before the path and reads it after).
 :data:`WEIGHTED_LAUNCHES` counts, of those, the launches with a weight
-operand (the reference's ``_kernel_weighted`` bodies).
+operand (the reference's ``_kernel_weighted`` bodies).  :data:`CENSUS`
+(``repro_torch.census``) counts the run's spans and host syncs beside
+them, and :func:`reset_launches` zeroes it too.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Optional
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
+from ..census import CENSUS
 from . import blocksparse_matmul as _bsmm
 from . import flash_attention as _fa
 from . import pathstep as _ps
@@ -38,9 +41,11 @@ WEIGHTED_LAUNCHES: dict[str, int] = {"fused_prox_stats": 0,
 
 
 def reset_launches() -> None:
+    """Zero the launch counts and the run census (``repro_torch.census``)."""
     for counts in (LAUNCHES, WEIGHTED_LAUNCHES):
         for name in counts:
             counts[name] = 0
+    CENSUS.reset()
 
 
 def _count(name: str, weights) -> None:

@@ -36,6 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..census import span
 from ..device import resolve_device, synchronize
 
 
@@ -204,11 +205,8 @@ def serve_concord(args, *, device=None):
             xg = torch.as_tensor(xs[idx], device=dev)
             group_shapes.append(tuple(xg.shape))
             g0 = time.perf_counter()
-            group_span = (tracer.span("serve.group", cat="serve",
-                                      requests=len(group), batch=bsz)
-                          if tracer is not None
-                          else contextlib.nullcontext())
-            with group_span:
+            with span("serve.group", cat="serve", level="summary",
+                      requests=len(group), batch=bsz):
                 rep = fit_batch(x=xg, lam1=lam1s[idx], lam2=args.lam2,
                                 config=config)
                 synchronize(dev)

@@ -4,12 +4,17 @@ Port of ``repro.obs.trace``, with the same span names, attribute keys
 and file formats, so a trace written by either package loads in the
 other.  Spans mark host-boundary work (a solve dispatch, a path, a
 Gram chunk update, a serve group); instant events mark
-points in time.  Everything is recorded on the host with
-``time.perf_counter``: the tracer launches nothing on the device and
-reads no device value, so turning it on cannot change a solve's
-arithmetic.  A span around device work measures the host's view of it;
-the callers close such spans after a device sync where the time of the
-work itself is meant.
+points in time.  Everything is recorded on the host: a span starts at
+``time.time_ns()``, the Unix-epoch clock ``torch.profiler`` (kineto)
+stamps its events with, so an export lays over a profiler trace of the
+same run, and lasts what ``time.perf_counter`` measures.  The tracer
+launches nothing on the device and reads no device value, so turning it
+on cannot change a solve's arithmetic.  A span around device work
+measures the host's view of it; the callers close such spans after a
+device sync where the time of the work itself is meant.
+
+The solve path opens its spans through ``repro_torch.census.span``,
+which opens this tracer's span and a profiler range of the same name.
 
 Two verbosity levels nest the taxonomy:
 
@@ -35,6 +40,8 @@ from collections import deque
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 
+from ..census import NULL_SPAN as _NULL_SPAN
+
 MODES = ("off", "summary", "trace")
 _LEVEL_RANK = {"off": 0, "summary": 1, "trace": 2}
 
@@ -46,7 +53,8 @@ RING_CAPACITY = 4096
 @dataclass
 class Span:
     """One recorded span (``phase="span"``) or instant event
-    (``phase="instant"``).  Times are ``time.perf_counter`` seconds."""
+    (``phase="instant"``).  ``t_start`` is Unix-epoch seconds
+    (:func:`now`), ``duration`` seconds of ``time.perf_counter``."""
     name: str
     cat: str = "solver"
     t_start: float = 0.0
@@ -85,39 +93,28 @@ class Span:
         return ev
 
 
-class _NullSpan:
-    """Shared do-nothing span for disabled levels: supports the same
-    ``with``/``note`` surface with no allocation per call."""
-    __slots__ = ()
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        return False
-
-    def note(self, **attrs):
-        return self
-
-
-_NULL_SPAN = _NullSpan()
+def now() -> float:
+    """Unix-epoch seconds: the clock of kineto's event timestamps."""
+    return time.time_ns() * 1e-9
 
 
 class _LiveSpan:
     """Context manager recording one span into the tracer's ring on
     exit (completion order; Chrome sorts by ``ts`` on import)."""
-    __slots__ = ("_tracer", "_span")
+    __slots__ = ("_tracer", "_span", "_t0")
 
     def __init__(self, tracer: "Tracer", span: Span):
         self._tracer = tracer
         self._span = span
+        self._t0 = 0.0
 
     def __enter__(self) -> Span:
-        self._span.t_start = time.perf_counter()
+        self._span.t_start = now()
+        self._t0 = time.perf_counter()
         return self._span
 
     def __exit__(self, *exc):
-        self._span.duration = time.perf_counter() - self._span.t_start
+        self._span.duration = time.perf_counter() - self._t0
         self._tracer._record(self._span)
         return False
 
@@ -172,7 +169,7 @@ class Tracer:
               level: str = "summary", **attrs) -> None:
         if not self.enabled(level):
             return
-        self._record(Span(name=name, cat=cat, t_start=time.perf_counter(),
+        self._record(Span(name=name, cat=cat, t_start=now(),
                           duration=0.0, level=level, phase="instant",
                           args=dict(attrs)))
 
