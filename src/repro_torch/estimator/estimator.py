@@ -238,10 +238,14 @@ class ConcordEstimator:
             reports = self._score(reports, problem)
         return reports, stats
 
-    @staticmethod
-    def _score(reports, problem: Problem) -> list:
+    def _score(self, reports, problem: Problem) -> list:
+        """Each report with its BIC; the BIC's Omega S goes through the
+        policy the Cov solve of this problem resolves."""
         return [dataclasses.replace(
-            rep, bic=pseudo_bic(rep.omega, problem.s, problem.n))
+            rep, bic=pseudo_bic(
+                rep.omega, problem.s, problem.n,
+                policy=_matmul_policy(self.config, problem.p, problem.p,
+                                      rep.omega.device)))
             for rep in reports]
 
     def fit_path(self, x=None, lam1_grid: Iterable[float] = (), *,

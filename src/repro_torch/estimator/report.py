@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..census import host_sync, span
+from ..core import matops
 
 
 @dataclass(frozen=True)
@@ -67,31 +68,42 @@ class FitReport:
                 f"{dens} t={self.wall_time_s:.3f}s")
 
 
-#: the census's site of the BIC's three host reads
+#: the census's site of the BIC's one host read
 _BIC_SITE = "estimator/report.py:pseudo_bic"
 
 
-def pseudo_bic(omega, s, n: int, *, tol: float = 1e-8) -> float:
+def pseudo_bic(omega, s, n: int, *, tol: float = 1e-8,
+               policy: matops.MatmulPolicy | None = None) -> float:
     """BIC under the CONCORD pseudo-likelihood: ``2n * g0 + log(n) * |E|``
     with g0 the unpenalized smooth objective and |E| the edge count.
 
-    Computed in float64 on ``omega``'s device (``om @ s`` is a p^3
-    product: minutes in numpy at p = 16384)."""
+    Computed in float64 on ``omega``'s device.  ``Omega S`` is the
+    Omega-side product: with ``policy`` on (the solve's own
+    ``MatmulPolicy``) it goes through the matops dispatch on Omega's
+    observed block occupancy, so a sparse Omega takes the block-sparse
+    product (kernel 2 on the card); with ``policy`` None or off it is the
+    dense ``om @ s`` (a p^3 product).  The minimum diagonal, g0 and the
+    edge count come to the host in one read; a non-positive diagonal
+    scores ``inf`` (g0 is then discarded)."""
     with span("bic", level="summary"):
         om = torch.as_tensor(omega).to(torch.float64)
         sm = torch.as_tensor(s, device=om.device).to(torch.float64)
+        if policy is None or not policy.enabled:
+            prod = om @ sm
+        else:
+            prod = matops.matmul(
+                om, sm, mask=matops.block_mask(om, policy.block_size),
+                policy=policy)
         diag = om.diagonal()
-        with host_sync(_BIC_SITE):
-            nonpos = bool((diag <= 0).any())
-        if nonpos:
-            return float("inf")
         g0 = -torch.log(diag).sum() + 0.5 * torch.dot(
-            (om @ sm).reshape(-1), om.reshape(-1))
+            prod.reshape(-1), om.reshape(-1))
+        del prod    # the p x p product goes before the edge count's pass
+        nnz = (om.abs() > tol).sum().to(torch.float64)
         with host_sync(_BIC_SITE):
-            g0 = float(g0)
-        p = om.shape[0]
-        with host_sync(_BIC_SITE):
-            edges = (int((om.abs() > tol).sum()) - p) / 2.0
+            min_diag, g0, nnz = torch.stack([diag.min(), g0, nnz]).tolist()
+        if min_diag <= 0:
+            return float("inf")
+        edges = (nnz - om.shape[0]) / 2.0
         return float(2.0 * n * g0 + math.log(max(n, 2)) * edges)
 
 

@@ -111,17 +111,23 @@ def test_reset_launches_zeroes_the_census():
 
 
 def test_path_counts_every_read_of_its_points():
-    """Per point: two reads a trial, three a solve, the report's scan and
-    the BIC's three; per path: the input's finiteness and symmetry."""
+    """Per point: two reads a trial, three a solve, the report's scan, the
+    BIC product's occupied-block count and the BIC's one read; per path:
+    the input's finiteness and symmetry."""
     ops.reset_launches()
     path = _path()
     c = census.CENSUS
     trials, points = path.total_ls, len(path)
-    assert sum(c.syncs.values()) == 2 * trials + 7 * points + 2
-    assert c.syncs["estimator/report.py:pseudo_bic"] == 3 * points
+    assert sum(c.syncs.values()) == 2 * trials + 6 * points + 2
+    assert c.syncs["estimator/report.py:pseudo_bic"] == points
+    assert c.syncs["core/matops.py:occupied_blocks"] == (
+        trials + 2 * points)
     assert c.syncs["estimator/backends.py:_report"] == points
     assert c.spans["bic"] == c.spans["fit.report"] == points
     assert c.spans["fit_path"] == 1
+    # one dispatch a trial, one to start each solve and one a BIC
+    assert (c.spans.get("matmul.sparse", 0)
+            + c.spans.get("matmul.dense", 0)) == trials + 2 * points
 
 
 def test_flat_steps_match_the_engine_stats():

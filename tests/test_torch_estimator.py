@@ -15,11 +15,13 @@ from repro.core import costmodel as jcost
 from repro.core import graphs
 from repro.core import prox as jprox
 from repro.estimator import report as jreport
-from repro_torch import convert
+from repro_torch import census, convert
 from repro_torch import estimator as test_
 from repro_torch.core import costmodel as tcost
+from repro_torch.core import matops as tmatops
 from repro_torch.core import prox as tprox
 from repro_torch.estimator import report as treport
+from repro_torch.kernels import ops
 
 from _torch_parity import x64  # noqa: F401
 
@@ -141,6 +143,70 @@ def test_pseudo_bic_matches(x64, data):
     bad = om.copy()
     bad[0, 0] = -1.0
     assert treport.pseudo_bic(torch.as_tensor(bad), s, 150) == float("inf")
+
+
+#: the BIC's product on the sparse route: 6 x 6 tiles of 8, dense past 18
+BIC_POLICY = tmatops.MatmulPolicy("on", block_size=8, threshold=0.5)
+
+
+def _bic_omega(kind: str, p: int = 48) -> np.ndarray:
+    """A banded Omega (16 of 36 tiles occupied) or a dense one."""
+    rng = np.random.default_rng(7)
+    if kind == "banded":
+        off = -0.4 * rng.uniform(0.5, 1.0, p - 1)
+        return 1.5 * np.eye(p) + np.diag(off, 1) + np.diag(off, -1)
+    g = 0.05 * rng.standard_normal((p, p))
+    return 2.0 * np.eye(p) + g + g.T
+
+
+@pytest.mark.parametrize("kind,route", [("banded", "matmul.sparse"),
+                                        ("dense", "matmul.dense")])
+def test_pseudo_bic_under_a_policy(x64, data, kind, route):
+    """Under a policy that is on, the BIC's Omega S takes the dispatch's
+    route for Omega's occupancy, and scores what the dense product and
+    the reference score."""
+    _, s = data
+    om = _bic_omega(kind)
+    dense = treport.pseudo_bic(torch.as_tensor(om), s, 150)
+    ops.reset_launches()
+    got = treport.pseudo_bic(torch.as_tensor(om), s, 150, policy=BIC_POLICY)
+    spans = census.CENSUS.spans
+    assert spans.get(route) == 1
+    assert spans.get("matmul.sparse", 0) + spans.get("matmul.dense", 0) == 1
+    assert census.CENSUS.syncs["estimator/report.py:pseudo_bic"] == 1
+    np.testing.assert_allclose(got, dense, rtol=1e-12)
+    np.testing.assert_allclose(got, jreport.pseudo_bic(om, s, 150),
+                               rtol=1e-12)
+
+
+@pytest.mark.parametrize("policy", [None, tmatops.DENSE, BIC_POLICY],
+                         ids=["none", "off", "sparse"])
+@pytest.mark.parametrize("kind", ["banded", "dense"])
+def test_pseudo_bic_nonpositive_diagonal_is_inf(data, policy, kind):
+    _, s = data
+    bad = _bic_omega(kind)
+    bad[3, 3] = -1.0
+    assert treport.pseudo_bic(torch.as_tensor(bad), s, 150,
+                              policy=policy) == float("inf")
+    bad[3, 3] = 0.0
+    assert treport.pseudo_bic(torch.as_tensor(bad), s, 150,
+                              policy=policy) == float("inf")
+
+
+def test_fit_path_bic_same_on_either_route(data):
+    """The path's BIC per point under ``sparse_matmul="on"`` (the BIC's
+    product on the dispatch) is the one under ``"off"`` (dense)."""
+    _, s = data
+    bics = {}
+    for mode in ("on", "off"):
+        cfg = test_.SolverConfig(backend="reference", variant="cov",
+                                 device="cpu",
+                                 **{**KNOBS, "sparse_matmul": mode})
+        est = test_.ConcordEstimator(lam1=0.3, lam2=0.05, config=cfg)
+        path = est.fit_path(s=s, lam1_grid=[0.3, 0.25, 0.2], n_samples=150)
+        assert path[0].sparse_matmul == mode
+        bics[mode] = [r.bic for r in path]
+    np.testing.assert_allclose(bics["on"], bics["off"], rtol=1e-12)
 
 
 def test_convert_carries_a_jax_setup_across(x64, data):
