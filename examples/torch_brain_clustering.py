@@ -6,7 +6,7 @@ grid form 'functional regions' with strong intra-region partial
 correlations.  Pipeline (exactly the paper's, as in
 ``examples/brain_clustering.py``):
   (i)  HP-CONCORD estimate over a small (lam1, lam2) grid: one
-       warm-started path per lam2 through the estimator facade;
+       warm-started path per lam2 (``ConcordEstimator.fit_grid``);
   (ii) persistent-homology watershed clustering of the vertex-degree
        field + the Louvain-class label-propagation baseline + the
        thresholded-covariance baseline;
@@ -92,7 +92,7 @@ class PipelineResult:
     lp: np.ndarray                # label propagation's labels
     lp_score: float
     baseline: dict                # keep -> Jaccard
-    path_wall_s: float            # the fit_path calls
+    path_wall_s: float            # the fit_grid call
     graph_wall_s: float           # supports, degrees, thresholded graphs
     cluster_wall_s: float         # watershed, propagation, Jaccard (host)
 
@@ -106,19 +106,21 @@ def run_pipeline(s, n, labels, nbrs, *, config: SolverConfig,
     """Steps (i)-(iii) on the covariance ``s`` (a tensor on the solve's
     device) of ``n`` samples, scored against the true ``labels``."""
     dev = s.device
-    path_wall = graph_wall = cluster_wall = 0.0
-    paths, degrees, scores, best = {}, {}, {}, None
+    graph_wall = cluster_wall = 0.0
+    degrees, scores, best = {}, {}, None
 
-    # (i) + (ii): one warm-started path per lam2, each point's degree
-    #     field through the watershed at every eps
-    for lam2 in lam2_grid:
-        synchronize(dev)
-        t0 = time.perf_counter()
-        path = ConcordEstimator(lam2=lam2, config=config).fit_path(
-            s=s, n_samples=n, lam1_grid=lam1_grid, score_bic=False)
-        synchronize(dev)
-        path_wall += time.perf_counter() - t0
-        paths[lam2] = path
+    # (i): one warm-started path per lam2, through the estimator's grid
+    synchronize(dev)
+    t0 = time.perf_counter()
+    grid = ConcordEstimator(config=config).fit_grid(
+        s=s, n_samples=n, lam1_grid=lam1_grid, lam2_grid=lam2_grid,
+        score_bic=False)
+    synchronize(dev)
+    path_wall = time.perf_counter() - t0
+    paths = dict(grid.paths)
+
+    # (ii): each point's degree field through the watershed at every eps
+    for lam2, path in paths.items():
         for rep in path:
             t0 = time.perf_counter()
             sup = clustering.estimate_support(rep.omega, SUPPORT_TOL)

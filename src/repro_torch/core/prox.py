@@ -313,7 +313,8 @@ def obs_ops(sparse_matmul: matops.MatmulPolicy | None = None,
 
     def grad_of(omega, y, data):
         x = data["x"]
-        z = (y @ x) / x.shape[0]              # Z = Omega S
+        with span("grad.obs"):
+            z = (y @ x) / x.shape[0]          # Z = Omega S
         return gradient_from_w(omega, z, data["lam2"])
 
     if policy is None or not policy.enabled:

@@ -10,6 +10,8 @@
     est.fit_cov(S, n_samples=n)     # -> est.omega_, est.report_
     path = est.fit_path(X, lam1_grid=[0.3, 0.2, 0.15])
     best = path.best_bic()
+    grid = est.fit_grid(X, lam1_grid=[0.25, 0.2], lam2_grid=[0.05, 0.1])
+    best = grid.best_bic()          # over every (lam1, lam2) point
     path = est.fit_path(X, lam1_grid=[0.3, 0.2, 0.15], mode="batched")
     batch = fit_batch(s=S_stack, lam1=[0.2, 0.3], device="cpu")
 
@@ -41,6 +43,7 @@ from .estimator import ConcordEstimator, fit, fit_path  # noqa: F401
 from .report import (  # noqa: F401
     BatchReport,
     FitReport,
+    GridResult,
     PathResult,
     pseudo_bic,
 )
@@ -49,6 +52,7 @@ __all__ = [
     "BatchReport",
     "ConcordEstimator",
     "FitReport",
+    "GridResult",
     "PathResult",
     "PenaltySpec",
     "Problem",

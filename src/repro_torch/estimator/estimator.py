@@ -11,6 +11,8 @@ Port of ``repro.estimator.estimator``:
     path = est.fit_path(X, lam1_grid=[...])        # warm-started path
     path = est.fit_path(X, lam1_grid=[...], mode="batched")  # in lock step
     best = path.best_bic()                         # model selection
+    grid = est.fit_grid(X, lam1_grid=[...], lam2_grid=[...])  # per lam2
+    best = grid.best_bic()                         # over every point
     est.fit_batch(s=S_stack, lam1=[...])           # B stacked problems
 
 Inputs may be numpy arrays or tensors; they move to ``config.device``
@@ -42,20 +44,23 @@ from ..device import resolve_device
 from .backends import Problem, _matmul_policy, get_backend, obs_scope
 from .batch import batched_path_reports, fit_batch as _fit_batch
 from .config import SolverConfig
-from .report import FitReport, PathResult, pseudo_bic
+from .report import FitReport, GridResult, PathResult, pseudo_bic
 
-def _validate_grid(lam1_grid) -> list[float]:
+def _validate_grid(values, name: str = "lam1_grid", *,
+                   positive: bool = True, unique: bool = False) -> list[float]:
     try:
-        grid = [float(v) for v in lam1_grid]
+        grid = [float(v) for v in values]
     except TypeError:
-        raise ValueError(f"lam1_grid must be an iterable of floats, got "
-                         f"{lam1_grid!r}") from None
+        raise ValueError(f"{name} must be an iterable of floats, got "
+                         f"{values!r}") from None
     if not grid:
-        raise ValueError("lam1_grid must be non-empty")
+        raise ValueError(f"{name} must be non-empty")
     for v in grid:
-        if not math.isfinite(v) or v <= 0:
-            raise ValueError(f"lam1_grid values must be finite and > 0, "
-                             f"got {v}")
+        if not math.isfinite(v) or v < 0 or (positive and v == 0):
+            raise ValueError(f"{name} values must be finite and "
+                             f"{'>' if positive else '>='} 0, got {v}")
+    if unique and len(set(grid)) != len(grid):
+        raise ValueError(f"{name} repeats a value: {grid}")
     return grid
 
 
@@ -239,14 +244,38 @@ class ConcordEstimator:
         return reports, stats
 
     def _score(self, reports, problem: Problem) -> list:
-        """Each report with its BIC; the BIC's Omega S goes through the
-        policy the Cov solve of this problem resolves."""
+        """Each report with its BIC.  Its product goes through the policy
+        the solve of this problem resolves at the product's width: Omega S
+        (m = p) on Cov, Omega X^T (m = n) on an Obs problem, which holds
+        no S and never forms one."""
+        obs = problem.s is None
+        m = problem.n if obs else problem.p
         return [dataclasses.replace(
             rep, bic=pseudo_bic(
                 rep.omega, problem.s, problem.n,
-                policy=_matmul_policy(self.config, problem.p, problem.p,
+                x=problem.x if obs else None,
+                policy=_matmul_policy(self.config, problem.p, m,
                                       rep.omega.device)))
             for rep in reports]
+
+    def _path_problem(self, x, s, n_samples, score_bic: bool,
+                      transform=None, chunk_rows=None) -> Problem:
+        """The problem a path or a grid solves: a chunk stream (or an
+        array with ``transform`` set) reduced to its Gram first; a Cov
+        (or auto) problem given x forms its covariance once here, an Obs
+        problem never does."""
+        if x is not None and (is_streaming_input(x)
+                              or transform is not None):
+            gram = self._gram(x, transform, chunk_rows)
+            x, s, n_samples = None, gram.s, gram.n
+        if score_bic and x is None and n_samples is None:
+            raise ValueError(
+                "BIC scoring needs the sample count: pass n_samples "
+                "alongside s, or score_bic=False")
+        problem = self._problem(x=x, s=s, n_samples=n_samples)
+        if problem.s is None and self.config.variant != "obs":
+            problem = problem._replace(s=problem.cov())
+        return problem
 
     def fit_path(self, x=None, lam1_grid: Iterable[float] = (), *,
                  s=None, n_samples: int | None = None,
@@ -258,7 +287,8 @@ class ConcordEstimator:
                  transform: str | None = None,
                  chunk_rows: int | None = None) -> PathResult:
         """Fit a descending lam1 path with a pseudo-likelihood BIC per
-        point (``score_bic``) for ``PathResult.best_bic()``.
+        point (``score_bic``) for ``PathResult.best_bic()``.  An Obs
+        problem never forms S: its BIC takes Omega X^T.
 
         ``x`` may be a chunk stream, as in ``fit``: it (or an array with
         ``transform`` set) is reduced to its Gram first, which then
@@ -280,18 +310,8 @@ class ConcordEstimator:
             raise ValueError(f"mode must be 'sequential', 'batched' or "
                              f"'auto', got {mode!r}")
         grid = _validate_grid(lam1_grid)
-        if x is not None and (is_streaming_input(x)
-                              or transform is not None):
-            gram = self._gram(x, transform, chunk_rows)
-            x, s, n_samples = None, gram.s, gram.n
-        if score_bic and x is None and n_samples is None:
-            raise ValueError(
-                "BIC scoring needs the sample count: pass n_samples "
-                "alongside s, or score_bic=False")
-        problem = self._problem(x=x, s=s, n_samples=n_samples)
-        # form the covariance once for the whole path
-        if problem.s is None and (score_bic or self.config.variant != "obs"):
-            problem = problem._replace(s=problem.cov())
+        problem = self._path_problem(x, s, n_samples, score_bic, transform,
+                                     chunk_rows)
         mode = self._resolve_path_mode(mode, grid, problem)
         grid = sorted(grid, reverse=True)
         warm = warm_start and mode == "sequential"
@@ -330,6 +350,36 @@ class ConcordEstimator:
                             batch_stats=bstats2)
         self._finish(reports2[-1])
         return result
+
+    def fit_grid(self, x=None, lam1_grid: Iterable[float] = (),
+                 lam2_grid: Iterable[float] = (), *, s=None,
+                 n_samples: int | None = None,
+                 score_bic: bool = True) -> GridResult:
+        """Fit a (lam1, lam2) grid, as the paper's Section 5 selects a
+        subject's model: one sequential path over the descending lam1
+        grid per lam2, each warm within itself and each starting from
+        the identity, with a pseudo-likelihood BIC per point
+        (``score_bic``) for ``GridResult.best_bic()``.
+
+        The data are validated, and a Cov problem's covariance formed,
+        once for the whole grid; an Obs problem never forms S, its BIC
+        included.  The last point solved lands on ``report_`` /
+        ``omega_``, as after ``fit_path``."""
+        grid = sorted(_validate_grid(lam1_grid), reverse=True)
+        lam2s = _validate_grid(lam2_grid, "lam2_grid", positive=False,
+                               unique=True)
+        problem = self._path_problem(x, s, n_samples, score_bic)
+        paths = {}
+        with obs_scope(self.config.obs), span(
+                "fit_grid", level="summary", points=len(grid) * len(lam2s),
+                lam2s=len(lam2s)):
+            for lam2 in lam2s:
+                spec = dataclasses.replace(self.penalty, lam2=lam2)
+                reports, _ = self._run_path(problem, grid, spec,
+                                            "sequential", True, score_bic)
+                paths[lam2] = PathResult(reports=tuple(reports))
+        self._finish(reports[-1])
+        return GridResult(paths=paths)
 
     # -- batched multi-problem solves -----------------------------------
 
@@ -415,3 +465,4 @@ def fit_path(x=None, lam1_grid: Iterable[float] = (), *, s=None,
                         warm_start=warm_start, score_bic=score_bic,
                         mode=mode, adaptive=adaptive, transform=transform,
                         chunk_rows=chunk_rows)
+

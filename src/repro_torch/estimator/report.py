@@ -1,9 +1,10 @@
 """Fit results for the ``repro_torch.estimator`` facade.
 
 Port of ``repro.estimator.report`` (``FitReport``, ``PathResult``,
-``BatchReport``, ``pseudo_bic``).  ``FitReport.omega`` is the estimate as
-a torch tensor on the device the solve ran on; every other field is a
-Python scalar.
+``BatchReport``, ``pseudo_bic``), with ``GridResult`` for a (lam1, lam2)
+grid and an Obs route for ``pseudo_bic`` that never forms S.
+``FitReport.omega`` is the estimate as a torch tensor on the device the
+solve ran on; every other field is a Python scalar.
 
 ``converged`` is True only on a genuine ``delta < tol`` exit; ``stalled``
 is True when the line search exhausted ``max_ls`` trials without
@@ -72,32 +73,46 @@ class FitReport:
 _BIC_SITE = "estimator/report.py:pseudo_bic"
 
 
-def pseudo_bic(omega, s, n: int, *, tol: float = 1e-8,
+def pseudo_bic(omega, s, n: int, *, x=None, tol: float = 1e-8,
                policy: matops.MatmulPolicy | None = None) -> float:
     """BIC under the CONCORD pseudo-likelihood: ``2n * g0 + log(n) * |E|``
     with g0 the unpenalized smooth objective and |E| the edge count.
 
-    Computed in float64 on ``omega``'s device.  ``Omega S`` is the
-    Omega-side product: with ``policy`` on (the solve's own
-    ``MatmulPolicy``) it goes through the matops dispatch on Omega's
+    Computed in float64 on ``omega``'s device from the sample covariance
+    ``s`` or, given ``x`` (the (rows, p) observations of S = X^T X / rows)
+    instead, without forming S: tr(Omega S Omega) = ||Omega X^T||_F^2 /
+    rows, so the product is Y = Omega X^T (p x rows) where Cov's is
+    Omega S (p x p).  That product is the Omega-side product: with
+    ``policy`` on (the solve's own ``MatmulPolicy``, resolved at the
+    product's width) it goes through the matops dispatch on Omega's
     observed block occupancy, so a sparse Omega takes the block-sparse
-    product (kernel 2 on the card); with ``policy`` None or off it is the
-    dense ``om @ s`` (a p^3 product).  The minimum diagonal, g0 and the
-    edge count come to the host in one read; a non-positive diagonal
-    scores ``inf`` (g0 is then discarded)."""
+    product (kernel 2 on the card); with ``policy`` None or off it is
+    the dense ``om @ s`` or ``om @ x.T``.  The minimum diagonal, g0 and
+    the edge count come to the host in one read; a non-positive
+    diagonal scores ``inf`` (g0 is then discarded).  Pass ``s=None``
+    with ``x``."""
+    if (s is None) == (x is None):
+        raise ValueError("pseudo_bic takes s or x, not both or neither")
     with span("bic", level="summary"):
         om = torch.as_tensor(omega).to(torch.float64)
-        sm = torch.as_tensor(s, device=om.device).to(torch.float64)
+        if x is None:
+            b = torch.as_tensor(s, device=om.device).to(torch.float64)
+        else:
+            b = torch.as_tensor(x, device=om.device).to(
+                torch.float64).T.contiguous()
         if policy is None or not policy.enabled:
-            prod = om @ sm
+            prod = om @ b
         else:
             prod = matops.matmul(
-                om, sm, mask=matops.block_mask(om, policy.block_size),
+                om, b, mask=matops.block_mask(om, policy.block_size),
                 policy=policy)
         diag = om.diagonal()
-        g0 = -torch.log(diag).sum() + 0.5 * torch.dot(
-            prod.reshape(-1), om.reshape(-1))
-        del prod    # the p x p product goes before the edge count's pass
+        if x is None:
+            quad = torch.dot(prod.reshape(-1), om.reshape(-1))
+        else:
+            quad = torch.dot(prod.reshape(-1), prod.reshape(-1)) / b.shape[1]
+        g0 = -torch.log(diag).sum() + 0.5 * quad
+        del prod, b  # the product goes before the edge count's pass
         nnz = (om.abs() > tol).sum().to(torch.float64)
         with host_sync(_BIC_SITE):
             min_diag, g0, nnz = torch.stack([diag.min(), g0, nnz]).tolist()
@@ -195,6 +210,33 @@ class PathResult:
         if self.batch_stats is not None:
             lines.append(self.batch_stats.summary())
         return "\n".join(lines)
+
+
+@dataclass(frozen=True)
+class GridResult:
+    """Result of a (lam1, lam2) grid (``ConcordEstimator.fit_grid``):
+    ``paths`` maps each lam2, in the grid's order, to its
+    :class:`PathResult` over the descending lam1 grid.  Iterating, or
+    ``reports``, gives every point, path by path."""
+    paths: dict = field(default_factory=dict)
+
+    @property
+    def reports(self) -> tuple[FitReport, ...]:
+        return tuple(r for path in self.paths.values() for r in path)
+
+    def best_bic(self) -> FitReport:
+        """Report with the lowest pseudo-likelihood BIC over every point
+        of every path."""
+        scored = [r for r in self.reports if r.bic is not None]
+        if not scored:
+            raise ValueError("no BIC scores on this grid (score_bic=False?)")
+        return min(scored, key=lambda r: r.bic)
+
+    def __len__(self) -> int:
+        return len(self.reports)
+
+    def __iter__(self):
+        return iter(self.reports)
 
 
 @dataclass(frozen=True)
