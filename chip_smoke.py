@@ -509,6 +509,21 @@ def check(cond: bool, msg: str):
         fail(msg)
 
 
+TRIAL_KEY = "fused_prox_stats[trial]"
+
+
+def check_prox_launches(launches: dict, trials: int, what: str, *,
+                        trial: bool = True) -> None:
+    """Kernel 1 ran once per line-search trial: its trial entry (the
+    single-device loop's) or, with ``trial=False``, its stats entry (the
+    distributed solver's), and the other entry never."""
+    key, other = ((TRIAL_KEY, "fused_prox_stats") if trial
+                  else ("fused_prox_stats", TRIAL_KEY))
+    check(launches[key] == trials and launches[other] == 0,
+          f"{what}: {key} launches {launches[key]} != {trials} trials, or "
+          f"{other} ran {launches[other]} times")
+
+
 # ---------------------------------------------------------------------------
 # phases 1-3
 # ---------------------------------------------------------------------------
@@ -588,6 +603,29 @@ def compare_prox(torch, ent, ops, ref, z, dm, alpha, w, block):
     return float((got[0] - want[0]).abs().max())
 
 
+def compare_trial(torch, ent, ops, ref, omega, grad, tau, alpha, w,
+                  block) -> float:
+    """The fused prox's trial entry against its plain twin on the same
+    CUDA inputs: out and the tile nonzeros bit-exact, the step norms and
+    ||out||^2 within the entry's rtol; returns the max abs error of out
+    (0 when bit-exact)."""
+    from repro_torch.kernels.manifest import TRIAL_OUTPUTS
+    got = ops.fused_prox_trial(omega, grad, tau, alpha, weights=w,
+                               block=block)
+    torch.cuda.synchronize()
+    want = ref.fused_prox_trial(omega, grad, tau, alpha, weights=w,
+                                block=block)
+    tol = ent["rtol"][_dt(omega.dtype)]
+    for nm, g, e in zip(TRIAL_OUTPUTS, got, want):
+        if nm in ent["exact"]:
+            check(torch.equal(g, e), f"fused prox trial {nm} is not "
+                  f"bit-exact")
+        else:
+            check(torch.allclose(g, e, rtol=tol, atol=tol),
+                  f"fused prox trial {nm}: {float(g)} vs {float(e)}")
+    return float((got[0] - want[0]).abs().max())
+
+
 def check_kernels(torch, kman, ops, ref, dev):
     """Both kernels against their plain versions at every config of the
     port's kernel manifest (the reference's configs), f64 and f32."""
@@ -605,6 +643,10 @@ def check_kernels(torch, kman, ops, ref, dev):
             for dm in (mt, None):
                 compare_prox(torch, soft, ops, ref, zt, dm,
                              cfg.get("alpha", 0.3), wt, cfg["block"])
+            gt = torch.as_tensor(rng.standard_normal(z.shape), dtype=dtype,
+                                 device=dev)
+            compare_trial(torch, soft, ops, ref, zt, gt, kman.TRIAL_TAU,
+                          cfg.get("alpha", 0.3), wt, cfg["block"])
         tol = bsr["rtol"][_dt(dtype)]
         for cfg in bsr["configs"]:
             a, vals, rows, cols, b = kman.blocksparse_problem(
@@ -638,9 +680,9 @@ def check_kernels(torch, kman, ops, ref, dev):
                 wt = None if wts is None else torch.as_tensor(
                     wts, dtype=dtype, device=dev)
                 compare_step(torch, step, ops, ref, args, wt, cfg["block"])
-    print("manifest configs: fused prox, block-sparse and path step agree "
-          "(f32, f64, weighted inf at alpha=0, explicit and implicit "
-          "diagonal)")
+    print("manifest configs: fused prox (and its trial entry), "
+          "block-sparse and path step agree (f32, f64, weighted inf at "
+          "alpha=0, explicit and implicit diagonal)")
 
 
 def compare_step(torch, ent, ops, ref, args, weights, block) -> float:
@@ -716,7 +758,15 @@ def check_kernels_main_shape(torch, kman, ops, ref, dev) -> dict:
     errs["fused_prox_stats[weighted]"] = compare_prox(
         torch, kman.entry("fused_prox_stats"), ops, ref, z, None, 0.3, wz,
         (bs, bs))
-    del z, wz
+    # the trial entry at z as Omega, a gradient of the same scale, tau 0.5,
+    # unweighted and at the same weights
+    grad = 0.1 * torch.randn((p, p), generator=gen, dtype=torch.float64,
+                             device=dev)
+    for name, w in ((TRIAL_KEY, None), (TRIAL_KEY + "[weighted]", wz)):
+        errs[name] = compare_trial(
+            torch, kman.entry("fused_prox_stats"), ops, ref, z, grad, 0.5,
+            0.15, w, (bs, bs))
+    del z, wz, grad
     step = kman.entry("fused_path_step")
     for weighted in (False, True):
         torch.cuda.empty_cache()
@@ -724,8 +774,9 @@ def check_kernels_main_shape(torch, kman, ops, ref, dev) -> dict:
         name = "fused_path_step" + ("[weighted]" if weighted else "")
         errs[name] = compare_step(torch, step, ops, ref, args, wts, 256)
         del args, wts
-    print(f"main shapes: fused prox {p}x{p} with weights out bit-exact; "
-          f"path step {LANES}x{p}x{p}, both bodies, cand bit-exact")
+    print(f"main shapes: fused prox {p}x{p} with weights and its trial "
+          f"entry, out bit-exact; path step {LANES}x{p}x{p}, both bodies, "
+          f"cand bit-exact")
     torch.cuda.empty_cache()
     return errs
 
@@ -2592,8 +2643,7 @@ def main_path(torch, mods, dev) -> dict:
     check(rep.converged and not rep.stalled, "main fit did not converge")
     check(rep.block_density < 0.25,
           f"final block density {rep.block_density} >= 0.25")
-    check(launches_fit["fused_prox_stats"] == rep.ls_total,
-          "fused prox launches != line-search trials")
+    check_prox_launches(launches_fit, rep.ls_total, "main fit")
     check(launches_fit["blocksparse_matmul"] > 0,
           "the block-sparse kernel never ran on the main path")
     check(bool(torch.isfinite(rep.omega).all()), "non-finite estimate")
@@ -2611,8 +2661,8 @@ def main_path(torch, mods, dev) -> dict:
     for r in path:
         check(r.converged and not r.stalled, f"path point {r.lam1} failed")
         check(r.block_density < 0.25, f"path point {r.lam1} is dense")
-    check(launches["fused_prox_stats"] == rep.ls_total + path.total_ls,
-          "fused prox launches != line-search trials along the path")
+    check_prox_launches(launches, rep.ls_total + path.total_ls,
+                        "main fit and path")
     ppv, fdr = support_stats(torch, best.omega, truth)
     print(f"BIC choice lam1={best.lam1}: PPV={ppv:.4f} FDR={fdr:.4f}")
     return {"launches": launches, "omega": rep.omega, "s": s,
@@ -2665,7 +2715,7 @@ def batched_path(torch, mods, state) -> dict:
 def adaptive_paths(torch, mods, dev) -> dict:
     """The two-stage adaptive lasso at p = 4096, batched (stage 2 through
     the path step's weighted body) and sequential (stage 2 through the
-    fused prox's weighted body)."""
+    fused prox's weighted trial entry)."""
     graphs, est_mod, penalty, ops = mods
     gen = torch.Generator(device=dev).manual_seed(4)
     x = graphs.sample_gaussian_torch(
@@ -2703,11 +2753,11 @@ def adaptive_paths(torch, mods, dev) -> dict:
             out["fused_path_step[weighted]"] = s2
         else:
             t2 = path.total_ls
-            check(weighted["fused_prox_stats"] == t2 > 0,
-                  "weighted fused-prox launches != stage-2 trials")
-            check(launches["fused_prox_stats"] == path.stage1.total_ls + t2,
-                  "fused-prox launches != trials of both stages")
-            out["fused_prox_stats[weighted]"] = t2
+            check(weighted[TRIAL_KEY] == t2 > 0,
+                  "weighted fused-prox trial launches != stage-2 trials")
+            check_prox_launches(launches, path.stage1.total_ls + t2,
+                                "adaptive sequential, both stages")
+            out[TRIAL_KEY + "[weighted]"] = t2
     return out
 
 
@@ -2729,8 +2779,7 @@ def obs_fit(torch, mods, dev):
     print(f"obs fit: p={P_MAIN} n={N_OBS} launches={dict(ops.LAUNCHES)} "
           f"peak={torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     check(rep.converged and not rep.stalled, "obs fit did not converge")
-    check(ops.LAUNCHES["fused_prox_stats"] == rep.ls_total,
-          "obs: fused prox launches != trials")
+    check_prox_launches(ops.LAUNCHES, rep.ls_total, "obs fit")
     check(ops.LAUNCHES["blocksparse_matmul"] > 0,
           "obs: the block-sparse kernel never ran")
 
@@ -2854,8 +2903,7 @@ def gram_path(torch, mods, dev, profile: bool) -> None:
                   f"{name}: the block-sparse kernel never ran")
             check(bool(torch.isfinite(r.omega).all()),
                   f"{name}: non-finite estimate")
-        check(l_fit["fused_prox_stats"] == rep.ls_total,
-              "fit_gram: fused prox launches != line-search trials")
+        check_prox_launches(l_fit, rep.ls_total, "fit_gram")
         ppv, fdr = support_stats(torch, rep.omega, sc.omega)
         print(f"gram phase: PPV={ppv:.4f} FDR={fdr:.4f} vs the scenario's "
               f"Omega")
@@ -3100,11 +3148,17 @@ def dist_world1(torch, mods, dev, profile: bool) -> None:
                   f"beyond 1e-10 of max |Omega|")
             check(b.converged and not b.stalled, f"dist {variant}: no "
                   f"convergence")
-            check(lb["fused_prox_stats"] == b.ls_total > 0
-                  and lb["blocksparse_matmul"] > 0,
-                  f"dist {variant}: kernels 1 and 2 did not run per trial")
-            check(la == lb, f"dist {variant}: launches {lb} differ from the "
-                  f"reference backend's {la}")
+            check(b.ls_total > 0 and lb["blocksparse_matmul"] > 0,
+                  f"dist {variant}: kernel 2 never ran")
+            # kernel 1 per trial: the trial entry on the reference
+            # backend, the stats entry on the distributed one
+            check_prox_launches(la, a.ls_total, f"dist {variant} reference")
+            check_prox_launches(lb, b.ls_total, f"dist {variant}",
+                                trial=False)
+            check({**la, TRIAL_KEY: 0, "fused_prox_stats": 0}
+                  == {**lb, TRIAL_KEY: 0, "fused_prox_stats": 0},
+                  f"dist {variant}: launches {lb} differ from the reference "
+                  f"backend's {la}")
             check(comm.host_copies == 0 and sum(comm.calls.values()) > 0,
                   f"dist {variant}: no NCCL collective, or a host copy")
     finally:
@@ -3358,8 +3412,8 @@ def dist_ranks(torch, mods, dev) -> None:
                   f"dist {variant} ({cx},{co}): no convergence")
             check(row["err"] <= 1e-10 * max(1.0, row["scale"]),
                   f"dist {variant} ({cx},{co}): Omega differs beyond 1e-10")
-            check(row["launches"]["fused_prox_stats"] == row["trials"],
-                  f"dist {variant} ({cx},{co}): kernel 1 launches != trials")
+            check_prox_launches(row["launches"], row["trials"],
+                                f"dist {variant} ({cx},{co})", trial=False)
             check(row["launches"]["blocksparse_matmul"] > 0,
                   f"dist {variant} ({cx},{co}): kernel 2 never ran")
             check(row["bytes"] == row["volume"],
@@ -3527,8 +3581,7 @@ def telemetry_path(torch, mods, state) -> None:
     check([names.count(k) for k in ("fit_path", "fit.reference", "dispatch",
                                     "execute")] == [1, 3, 3, 3],
           f"traced path spans {names}")
-    check(ops.LAUNCHES["fused_prox_stats"] == path.total_ls,
-          "traced path: kernel 1 launches != trials")
+    check_prox_launches(ops.LAUNCHES, path.total_ls, "traced path")
     chrome, jsonl = TELE_DIR / "path.json", TELE_DIR / "path.jsonl"
     check(tracer.export_chrome(chrome) == len(spans), "chrome export")
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -3591,8 +3644,8 @@ def telemetry_dist(torch, mods, dev) -> None:
                   f"dense {variant}: the reconciliation failed")
             check(rep.converged and not rep.stalled,
                   f"dense {variant}: no convergence")
-            check(ops.LAUNCHES["fused_prox_stats"] == rep.ls_total,
-                  f"dense {variant}: kernel 1 launches != trials")
+            check_prox_launches(ops.LAUNCHES, rep.ls_total,
+                                f"dense {variant}", trial=False)
             del rep
     finally:
         group.destroy_process_group()
@@ -4039,8 +4092,7 @@ def brain_phase(torch, mods, dev) -> None:
         brain.check_result(res)
     except AssertionError as exc:
         fail(f"brain: {exc}")
-    check(launches["fused_prox_stats"] == trials,
-          "brain: fused prox launches != line-search trials")
+    check_prox_launches(launches, trials, "brain")
     check(launches["blocksparse_matmul"] > 0,
           "brain: kernel 2 never ran on the pipeline's path")
     chosen = res.paths[lam2].reports[
@@ -4553,14 +4605,15 @@ def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
 
 
 def timing(torch, ops, ref, state) -> dict:
-    from repro_torch.core.objective import gradient_from_w
+    from repro_torch.core.objective import dot, gradient_from_w
     omega, s = state["omega"], state["s"]
     p, bs = omega.shape[0], BLOCK
     gm = -(-p // bs)
     measured = {}
     # kernel 1 at a main-path trial: z = Omega - tau * grad, alpha = tau*lam1
     tau = 0.5
-    z = omega - tau * gradient_from_w(omega, omega @ s, state["lam2"])
+    grad = gradient_from_w(omega, omega @ s, state["lam2"])
+    z = omega - tau * grad
     alpha = tau * state["lam1"]
     # the weighted body at the adaptive path's weights 1 / (|Omega| + eps)
     wz = 1.0 / (omega.abs() + 1e-3)
@@ -4575,7 +4628,31 @@ def timing(torch, ops, ref, state) -> dict:
         b, by = bound(nbytes, (8.0 + (w is not None)) * p * p, "float64")
         measured[name] = {"ms": ms, "plain_ms": plain, "bound_ms": b,
                           "bound_by": by, "library_ms": None}
-    del z, wz
+    del z
+
+    # its trial entry at the same trial (both bodies), against the unfused
+    # trial it replaces: z, kernel 1, d = cand - omega, three BLAS dots
+    def unfused(w):
+        cand, *_, bnnz = ops.fused_prox_stats(omega - tau * grad, None,
+                                              alpha, weights=w,
+                                              block=(bs, bs))
+        diff = cand - omega
+        return dot(diff, diff), dot(diff, grad), dot(cand, cand), bnnz
+
+    for name, w in (("fused_prox_stats[trial]", None),
+                    ("fused_prox_stats[trial][weighted]", wz)):
+        ms = time_ms(torch, lambda: ops.fused_prox_trial(
+            omega, grad, tau, alpha, weights=w, block=(bs, bs)), 20)
+        plain = time_ms(torch, lambda: ref.fused_prox_trial(
+            omega, grad, tau, alpha, weights=w, block=(bs, bs)), 5, 1)
+        # Omega, grad (and w) in, cand out, 4 stats a tile
+        b, by = bound((3 + (w is not None)) * p * p * 8 + gm * gm * 4 * 8,
+                      (13.0 + (w is not None)) * p * p, "float64")
+        measured[name] = {
+            "ms": ms, "plain_ms": plain,
+            "unfused_ms": time_ms(torch, lambda: unfused(w), 10),
+            "bound_ms": b, "bound_by": by, "library_ms": None}
+    del grad, wz
     # kernel 2 at the main path's product: W = Omega S over Omega's tiles
     mask = (ref.block_nnz(omega, (bs, bs)) > 0).to(torch.int8)
     occ = int(mask.sum())
@@ -4640,8 +4717,12 @@ def kernel_rows(kman, measured, errs, launches, smi) -> list[dict]:
     print(f"timing on {smi}:")
     rows = []
     for e in kman.KERNEL_ENTRIES:
-        for body, site in enumerate(e["replaces"]):
-            name = e["name"] + ("[weighted]" if body else "")
+        # each TPU body it replaces, then the port's own trial entry
+        # (unweighted and weighted), each with its own launch count
+        bodies = [(e["name"] + ("[weighted]" if body else ""), site)
+                  for body, site in enumerate(e["replaces"])]
+        trial = [(e["name"] + "[trial]" + w, None) for w in ("", "[weighted]")]
+        for name, site in bodies + trial:
             if name not in measured:
                 continue
             m = measured[name]
@@ -4649,6 +4730,8 @@ def kernel_rows(kman, measured, errs, launches, smi) -> list[dict]:
                    else f", library {m['library_ms']:.3f} ms")
             if m.get("library_bsr_ms") is not None:
                 lib += f", BSR library {m['library_bsr_ms']:.3f} ms"
+            if m.get("unfused_ms") is not None:
+                lib += f", unfused trial {m['unfused_ms']:.3f} ms"
             print(f"  {name}: kernel {m['ms']:.3f} ms, plain "
                   f"{m['plain_ms']:.3f} ms{lib}, bound {m['bound_ms']:.3f} "
                   f"ms ({m['bound_by']}), launches {launches.get(name, 0)}")

@@ -39,21 +39,24 @@ def offdiag_l1(omega: torch.Tensor) -> torch.Tensor:
 
 
 def smooth_objective_cov(omega: torch.Tensor, w: torch.Tensor,
-                         lam2) -> torch.Tensor:
-    """g(Omega) given W = Omega @ S (tr(Omega S Omega) = <W, Omega>)."""
+                         lam2, norm_sq=None) -> torch.Tensor:
+    """g(Omega) given W = Omega @ S (tr(Omega S Omega) = <W, Omega>).
+
+    ``norm_sq`` is ||Omega||_F^2 where the caller already has it (the
+    fused trial's); else it is taken here."""
     logdet_term = -torch.log(omega.diagonal()).sum()
     quad = 0.5 * dot(w, omega)
-    ridge = 0.5 * lam2 * dot(omega, omega)
+    ridge = 0.5 * lam2 * (dot(omega, omega) if norm_sq is None else norm_sq)
     return logdet_term + quad + ridge
 
 
 def smooth_objective_obs(omega: torch.Tensor, y: torch.Tensor, n: int,
-                         lam2) -> torch.Tensor:
+                         lam2, norm_sq=None) -> torch.Tensor:
     """g(Omega) given Y = Omega @ X^T (unnormalized): tr(Omega S Omega)
-    = ||Y||_F^2 / n."""
+    = ||Y||_F^2 / n; ``norm_sq`` as in :func:`smooth_objective_cov`."""
     logdet_term = -torch.log(omega.diagonal()).sum()
     quad = 0.5 * dot(y, y) / n
-    ridge = 0.5 * lam2 * dot(omega, omega)
+    ridge = 0.5 * lam2 * (dot(omega, omega) if norm_sq is None else norm_sq)
     return logdet_term + quad + ridge
 
 

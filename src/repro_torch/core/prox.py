@@ -12,7 +12,16 @@ bundle, with the reference's op signatures:
     prox(z, penalty, tau, data) -> array   prox of tau*penalty, diag exempt
 
 and the optional sparsity-aware trio ``prox_stats`` (prox + the block-
-occupancy mask of the candidate), ``mask_of`` and ``density_of``.
+occupancy mask of the candidate), ``mask_of`` and ``density_of``, and the
+optional sparse trial
+
+    prox_trial(omega, grad, penalty, tau, data)
+        -> (cand, mask, <d, d>, <d, grad>, ||cand||^2),   d = cand - omega
+
+which the single-device variants give (for the soft-threshold family
+under kernels, one pass of the fused prox kernel's trial entry; else z,
+the prox and the inner products as plain ops).  With it, ``g_of`` takes
+a fourth argument, ||Omega||_F^2, for its ridge term.
 
 Both loops are Python loops.  A dense trial is :func:`ls_trial`, the
 reference's factored trial (``z = omega - tau * grad`` as two ops, the
@@ -50,6 +59,7 @@ class VariantOps(NamedTuple):
     prox_stats: Callable | None = None    # enables the block-sparse path
     mask_of: Callable | None = None
     density_of: Callable | None = None
+    prox_trial: Callable | None = None    # a whole sparse trial
 
 
 @dataclass(frozen=True)
@@ -164,8 +174,9 @@ def prox_gradient(
 ) -> ProxResult:
     """Run the CONCORD/PseudoNet proximal gradient method.
 
-    ``penalty`` enters only through ``ops.prox``/``ops.prox_stats``; the
-    legacy ``lam1=`` float builds the equivalent l1 spec."""
+    ``penalty`` enters only through ``ops.prox``/``ops.prox_stats``/
+    ``ops.prox_trial``; the legacy ``lam1=`` float builds the equivalent
+    l1 spec."""
     if penalty is None:
         if lam1 is None:
             raise TypeError("prox_gradient needs penalty= (or the legacy "
@@ -175,23 +186,36 @@ def prox_gradient(
         raise ValueError("pass either penalty= or lam1=, not both")
     schedule = resolve_tau_schedule(tau_schedule, warm_start_tau)
     sparse = ops.prox_stats is not None
+    own_trial = ops.prox_trial is not None
     omega = omega0
     mask = ops.mask_of(omega, data) if sparse else None
     aux = ops.aux_of(omega, data, mask) if sparse else ops.aux_of(omega, data)
-    g_val = ops.g_of(omega, aux, data)
+    if own_trial:
+        # ||Omega||^2 of the start; each accepted trial brings its own
+        norm_sq = ops.dot(omega, omega)
+        g_val = ops.g_of(omega, aux, data, norm_sq)
+    else:
+        g_val = ops.g_of(omega, aux, data)
 
     step, ls_total = 0, 0
     delta, tau_prev, stalled = math.inf, tau_init, False
     while step < max_iters and delta >= tol:
         grad = ops.grad_of(omega, aux, data)
-        norm_sq = ops.dot(omega, omega)
+        if not own_trial:
+            norm_sq = ops.dot(omega, omega)
         tau = tau_start(schedule, step, tau_prev, tau_init)
         trials = 0
         while True:
             if trials:
                 tau *= 0.5
             with span("ls_trial"):
-                if sparse:
+                if own_trial:
+                    cand, mask_c, dot_dd, dot_dg, nn_c = ops.prox_trial(
+                        omega, grad, penalty, tau, data)
+                    aux_c = ops.aux_of(cand, data, mask_c)
+                    g_c = ops.g_of(cand, aux_c, data, nn_c)
+                    ok_t = g_c <= g_val + dot_dg + dot_dd / (2.0 * tau)
+                elif sparse:                # the distributed solver's ops
                     z = omega - tau * grad
                     cand, mask_c = ops.prox_stats(z, penalty, tau, data)
                     del z
@@ -220,6 +244,8 @@ def prox_gradient(
         stalled = not accepted
         if accepted:
             omega, aux, mask, g_val = cand, aux_c, mask_c, g_c
+            if own_trial:
+                norm_sq = nn_c
             delta = math.sqrt(dd) / max(1.0, math.sqrt(nn))
         else:
             # keep the old iterate and STALL: delta is zeroed so the loop
@@ -250,27 +276,40 @@ def _ref_prox(z, pen, tau, data):
 
 
 def _ref_sparse_ops(policy: matops.MatmulPolicy, use_kernels: bool):
-    """(prox_stats, mask_of, density_of) for the single-device variants.
+    """(prox_stats, mask_of, density_of, prox_trial) for the single-device
+    variants.
 
-    With ``use_kernels`` the occupancy mask is harvested from the fused
-    prox kernel's per-tile nnz counts (soft-threshold family only; SCAD/
-    MCP take the plain prox + one mask pass).  The kernel derives the
-    diagonal from its indices, so no p x p identity is built."""
+    With ``use_kernels``, a soft-threshold trial is one launch of the
+    fused prox kernel's trial entry (span ``prox.fused_trial``): the
+    occupancy mask is harvested from its per-tile nnz counts, and the
+    kernel derives the diagonal from its indices, so no p x p identity is
+    built.  Every other trial (SCAD/MCP, or no kernels) takes the plain
+    prox + one mask pass, and the inner products as BLAS dots."""
     bs = policy.block_size
 
     def prox_stats(z, pen, tau, data):
-        if use_kernels and pen.kernel_ok:
-            out, _, _, _, _, bnnz = kops.fused_prox_stats(
-                z, None, tau * pen.lam1, weights=pen.weights,
-                block=(bs, bs))
-            return out, (bnnz > 0).to(matops.MASK_DTYPE)
         out = pen.prox(z, tau)
         return out, matops.block_mask(out, bs)
+
+    def prox_trial(omega, grad, pen, tau, data):
+        if use_kernels and pen.kernel_ok:
+            with span("prox.fused_trial"):
+                cand, dd, dg, nn, bnnz = kops.fused_prox_trial(
+                    omega, grad, tau, tau * pen.lam1, weights=pen.weights,
+                    block=(bs, bs))
+            return cand, (bnnz > 0).to(matops.MASK_DTYPE), dd, dg, nn
+        z = omega - tau * grad
+        cand, mask = prox_stats(z, pen, tau, data)
+        del z
+        diff = cand - omega
+        dd, dg = dot(diff, diff), dot(diff, grad)
+        del diff
+        return cand, mask, dd, dg, dot(cand, cand)
 
     def mask_of(omega, data):
         return matops.block_mask(omega, bs)
 
-    return prox_stats, mask_of, matops.block_density
+    return prox_stats, mask_of, matops.block_density, prox_trial
 
 
 def _g_guarded(g, omega):
@@ -285,8 +324,9 @@ def cov_ops(sparse_matmul: matops.MatmulPolicy | None = None,
     def aux_of(omega, data, mask=None):
         return matops.matmul(omega, data["s"], mask=mask, policy=policy)
 
-    def g_of(omega, w, data):
-        return _g_guarded(smooth_objective_cov(omega, w, data["lam2"]), omega)
+    def g_of(omega, w, data, norm_sq=None):
+        return _g_guarded(smooth_objective_cov(omega, w, data["lam2"],
+                                               norm_sq), omega)
 
     def grad_of(omega, w, data):
         return gradient_from_w(omega, w, data["lam2"])
@@ -307,8 +347,9 @@ def obs_ops(sparse_matmul: matops.MatmulPolicy | None = None,
     def aux_of(omega, data, mask=None):
         return matops.matmul(omega, data["xt"], mask=mask, policy=policy)
 
-    def g_of(omega, y, data):
-        g = smooth_objective_obs(omega, y, data["x"].shape[0], data["lam2"])
+    def g_of(omega, y, data, norm_sq=None):
+        g = smooth_objective_obs(omega, y, data["x"].shape[0], data["lam2"],
+                                 norm_sq)
         return _g_guarded(g, omega)
 
     def grad_of(omega, y, data):

@@ -146,6 +146,13 @@ def flash_problem(cfg, rng):
 PROX_OUTPUTS = ("out", "logdet", "l1_offdiag", "sumsq", "min_diag",
                 "block_nnz")
 
+#: the outputs of its trial entry (``fused_prox_trial``), in order
+TRIAL_OUTPUTS = ("out", "diff_sq", "diff_grad", "sumsq", "block_nnz")
+
+#: the trial entry's step size in the fuzz cases (its threshold is the
+#: config's alpha)
+TRIAL_TAU = 0.7
+
 
 def tolerance_class(ent: dict, output: str) -> str:
     """The declared class of ``output`` (a ``prefix:`` names a second call
@@ -178,8 +185,9 @@ def place_tensor(a, device, dtype):
 
 
 def _softthresh_fuzz(cfg, rng, device, dtype, place=place_tensor):
-    """Explicit diagonal mask (the reference's case) and the implicit
-    diagonal (``diag_mask=None``, the solver's)."""
+    """Explicit diagonal mask (the reference's case), the implicit
+    diagonal (``diag_mask=None``, the solver's), and the trial entry
+    (``trial:``) with z as Omega and a gradient drawn after the problem."""
     from . import ops, ref
     ent = entry("fused_prox_stats")
     z, mask, w = softthresh_problem(cfg, rng, bool(cfg.get("weighted")))
@@ -191,7 +199,12 @@ def _softthresh_fuzz(cfg, rng, device, dtype, place=place_tensor):
         got = ops.fused_prox_stats(zt, dm, alpha, weights=wt, block=block)
         want = ref.fused_prox_stats(zt, dm, alpha, weights=wt, block=block)
         out += _pairs(ent, PROX_OUTPUTS, got, want, prefix)
-    return out
+    gt = place(rng.standard_normal(z.shape), device, dtype)
+    got = ops.fused_prox_trial(zt, gt, TRIAL_TAU, alpha, weights=wt,
+                               block=block)
+    want = ref.fused_prox_trial(zt, gt, TRIAL_TAU, alpha, weights=wt,
+                                block=block)
+    return out + _pairs(ent, TRIAL_OUTPUTS, got, want, "trial:")
 
 
 def _pathstep_fuzz(cfg, rng, device, dtype, place=place_tensor):
@@ -246,15 +259,19 @@ KERNEL_ENTRIES = (
         "jax_entry": "kernels.softthresh.fused_prox_stats",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/softthresh.cu",
-        "kernels": ("fused_prox_stats_kernel",),
+        # the trial entry is the port's own: one line-search trial in one
+        # pass (z = omega - tau * grad, the prox, the step norms)
+        "kernels": ("fused_prox_stats_kernel",
+                    "fused_prox_stats_trial_kernel"),
         "oracle": "fused_prox_stats",
-        "outputs": PROX_OUTPUTS,
+        "outputs": PROX_OUTPUTS + tuple(f"trial:{o}" for o in TRIAL_OUTPUTS),
         # `_kernel` (:71) and `_kernel_weighted` (:82): one CUDA kernel
         # with a weight operand
         "replaces": ("src/repro/kernels/softthresh.py:71",
                      "src/repro/kernels/softthresh.py:82"),
         # out, min_diag and block_nnz are bit-exact; logdet, l1 and sumsq
-        # differ by summation order (and the device log)
+        # differ by summation order (and the device log), as do the trial
+        # entry's diff_sq, diff_grad and sumsq
         "exact": ("out", "min_diag", "block_nnz"),
         "rtol": {"float64": 1e-12, "float32": 1e-5},
         "configs": (
@@ -265,7 +282,9 @@ KERNEL_ENTRIES = (
              "block": (16, 16), "weighted": True, "alpha": 0.0},
         ),
         # the CUDA kernel's own edges: a prime p past one 128 stats tile
-        # (ragged tiles both ways), and a weighted one with inf weights
+        # (ragged tiles both ways), a weighted one with inf weights, and
+        # an even p past two tiles at alpha 0 (the trial entry's 16-byte
+        # accesses; an odd p takes its one-element ones)
         "card_configs": (
             {"label": "card-prime-p", "m": 131, "n": 131,
              "block": (128, 128)},
@@ -273,6 +292,8 @@ KERNEL_ENTRIES = (
              "block": (128, 128)},
             {"label": "card-prime-p-weighted", "m": 131, "n": 131,
              "block": (128, 128), "weighted": True, "alpha": 0.3},
+            {"label": "card-even-p-weighted-alpha0", "m": 260, "n": 260,
+             "block": (128, 128), "weighted": True, "alpha": 0.0},
         ),
         "fuzz": _softthresh_fuzz,
         "writes": {},   # every output and scratch element stored once

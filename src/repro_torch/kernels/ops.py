@@ -32,11 +32,15 @@ from . import ref
 from . import softthresh as _st
 
 #: kernel launches per kernel since the last reset
-LAUNCHES: dict[str, int] = {"fused_prox_stats": 0, "blocksparse_matmul": 0,
-                            "fused_path_step": 0, "flash_attention": 0}
+#: (``fused_prox_stats[trial]`` is the fused prox kernel's trial entry)
+LAUNCHES: dict[str, int] = {"fused_prox_stats": 0,
+                            "fused_prox_stats[trial]": 0,
+                            "blocksparse_matmul": 0, "fused_path_step": 0,
+                            "flash_attention": 0}
 
 #: of those, launches with a weight operand, per kernel that takes one
 WEIGHTED_LAUNCHES: dict[str, int] = {"fused_prox_stats": 0,
+                                     "fused_prox_stats[trial]": 0,
                                      "fused_path_step": 0}
 
 
@@ -73,6 +77,20 @@ def fused_prox_stats(z, diag_mask, alpha, *, weights=None,
     res = _st.fused_prox_stats(z, diag_mask, alpha, weights=weights,
                                block=block)
     _count("fused_prox_stats", weights)
+    return res
+
+
+def fused_prox_trial(omega, grad, tau, alpha, *, weights=None,
+                     block=_st.DEFAULT_BLOCK):
+    """(out, diff_sq, diff_grad, sumsq, block_nnz) of one line-search
+    trial; see ``kernels.ref.fused_prox_trial``.  A launch of the fused
+    prox kernel's trial entry, counted under ``fused_prox_stats[trial]``."""
+    if not _on_card(omega):
+        return ref.fused_prox_trial(omega, grad, tau, alpha, weights=weights,
+                                    block=block)
+    res = _st.fused_prox_trial(omega, grad, tau, alpha, weights=weights,
+                               block=block)
+    _count("fused_prox_stats[trial]", weights)
     return res
 
 
@@ -173,6 +191,16 @@ def _analysis_fused_prox(device):
             "kwargs": {"block": (4, 4)}}
 
 
+def _analysis_fused_prox_trial(device):
+    p = 8
+    om = (torch.eye(p, dtype=torch.float64, device=device)
+          + 0.1 * torch.linspace(-1.0, 1.0, p * p, dtype=torch.float64,
+                                 device=device).reshape(p, p))
+    return {"fn": fused_prox_trial, "args": (om, om.mT.contiguous(), 0.5,
+                                             0.05),
+            "kwargs": {"block": (4, 4)}}
+
+
 def _analysis_fused_path_step(device):
     c, p = 2, 8
     opts = dict(dtype=torch.float64, device=device)
@@ -203,6 +231,9 @@ ANALYSIS_ENTRIES = [
     {"name": "kernels.ops.fused_prox_stats",
      "path": "src/repro_torch/kernels/softthresh.py",
      "build": _analysis_fused_prox},
+    {"name": "kernels.ops.fused_prox_trial",
+     "path": "src/repro_torch/kernels/softthresh.py",
+     "build": _analysis_fused_prox_trial},
     {"name": "kernels.ops.fused_path_step",
      "path": "src/repro_torch/kernels/pathstep.py",
      "build": _analysis_fused_path_step},

@@ -99,6 +99,37 @@ def fused_prox_stats(z: torch.Tensor, diag_mask, alpha, *, weights=None,
             block_nnz(out, block))
 
 
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """<A, B> as one BLAS dot over the flattened operands (the solver's
+    ``core.objective.dot``)."""
+    return torch.dot(a.reshape(-1), b.reshape(-1))
+
+
+def fused_prox_trial(omega: torch.Tensor, grad: torch.Tensor, tau, alpha,
+                     *, weights=None, block=(128, 128)):
+    """One line-search trial of the prox loop: the trial entry of the
+    fused prox kernel.
+
+    Returns (out, diff_sq, diff_grad, sumsq, block_nnz) with
+      out       = the prox of z = omega - tau * grad at threshold
+                  ``alpha`` (``weights`` as in :func:`fused_prox`), the
+                  main diagonal exempt
+      diff_sq   = <d, d> and diff_grad = <d, grad>, d = out - omega
+      sumsq     = ||out||_F^2
+      block_nnz = per-tile nonzero counts of out
+    op by op as the prox loop's unfused trial computes them (z as two
+    eager ops, the inner products as one BLAS dot each), so a CPU solve
+    gives the same bits either way."""
+    z = omega - tau * grad
+    out = fused_prox(z, None, alpha, weights=weights)
+    del z
+    diff = out - omega
+    dd = _dot(diff, diff)
+    dg = _dot(diff, grad)
+    del diff
+    return out, dd, dg, _dot(out, out), block_nnz(out, block)
+
+
 # ---------------------------------------------------------------------------
 # fused path step (pathstep)
 # ---------------------------------------------------------------------------

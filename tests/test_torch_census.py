@@ -91,11 +91,34 @@ def test_sparse_solve_counts_two_syncs_per_trial():
                        "core/matops.py:occupied_blocks": trials + 1}
     assert sum(c.syncs.values()) == 2 * trials + 3
     assert c.spans["ls_trial"] == trials
+    assert c.spans["prox.fused_trial"] == trials
     assert c.spans[census.HOST_SYNC] == 2 * trials + 3
     assert (c.spans.get("matmul.sparse", 0)
             + c.spans.get("matmul.dense", 0)) == trials + 1
     # nothing recorded, so nothing was timed
     assert c.span_s == {} and c.sync_s == {}
+
+
+@pytest.mark.parametrize("backend,penalty,fused", [
+    ("reference", "l1", True),
+    ("reference", "scad", False),
+    ("distributed", "l1", False),
+])
+def test_fused_trial_span_counts_its_trials(backend, penalty, fused):
+    """The sequential loop's sparse trial opens ``prox.fused_trial`` once
+    a trial on the kernel prox; SCAD (no kernel prox: the plain trial)
+    and the distributed solve (its own ops) open none.  Either way a
+    trial reads the host twice."""
+    ops.reset_launches()
+    est = est_.ConcordEstimator(lam1=0.3, lam2=0.05, penalty=penalty,
+                                config=_config(backend=backend))
+    trials = est.fit_cov(_s(), n_samples=80).report_.ls_total
+    c = census.CENSUS
+    assert trials > 0 and c.spans["ls_trial"] == trials
+    assert c.spans.get("prox.fused_trial", 0) == (trials if fused else 0)
+    if backend == "reference":
+        assert c.syncs["core/prox.py:prox_gradient"] == trials + 2
+        assert c.syncs["core/matops.py:occupied_blocks"] == trials + 1
 
 
 def test_reset_launches_zeroes_the_census():

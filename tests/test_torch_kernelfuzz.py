@@ -163,7 +163,20 @@ def _oracle(entry, cfg, rng):
             weights=None if w is None else jnp.asarray(w),
             block=tuple(cfg["block"]))
         named = dict(zip(kman.PROX_OUTPUTS, out))
-        return {**named, **{f"implicit:{k}": v for k, v in named.items()}}
+        # the trial entry: z formed in numpy (no FMA), the prox and its
+        # stats by the reference's oracle
+        g = rng.standard_normal(z.shape)
+        zt = z - kman.TRIAL_TAU * g
+        tr = jref.fused_prox_stats(
+            jnp.asarray(zt), jnp.asarray(mask), cfg.get("alpha", 0.3),
+            weights=None if w is None else jnp.asarray(w),
+            block=tuple(cfg["block"]))
+        d = np.asarray(tr[0]) - z
+        trial = {"out": tr[0], "diff_sq": np.sum(d * d),
+                 "diff_grad": np.sum(d * g), "sumsq": tr[3],
+                 "block_nnz": tr[5]}
+        return {**named, **{f"implicit:{k}": v for k, v in named.items()},
+                **{f"trial:{k}": v for k, v in trial.items()}}
     if name == "fused_path_step":
         *args, w = kman.pathstep_problem(cfg, rng)
         cand, stats = jref.fused_path_step(

@@ -132,7 +132,10 @@ def test_port_manifest_lists_every_unported_kernel():
     jax_names = {e["name"] for e in manifest.KERNEL_ENTRIES}
     assert ported | set(tman.NOT_PORTED) == jax_names
     assert not ported & set(tman.NOT_PORTED)
-    assert set(tops.LAUNCHES) == {e["name"] for e in tman.KERNEL_ENTRIES}
+    # an entry's own launch keys: its name, and ``<name>[trial]`` for the
+    # fused prox's trial entry
+    assert ({k.partition("[")[0] for k in tops.LAUNCHES}
+            == {e["name"] for e in tman.KERNEL_ENTRIES})
 
 
 def test_row_revisit_raises_in_both():
@@ -194,10 +197,13 @@ def test_cpu_launches_are_not_counted():
     tops.reset_launches()
     z = torch.eye(8, dtype=torch.float64)
     tops.fused_prox_stats(z, None, 0.1, block=(4, 4))
+    tops.fused_prox_trial(z, z, 0.5, 0.1, block=(4, 4))
     tops.masked_matmul(z, z, torch.ones((2, 2), dtype=torch.int8),
                        block_size=4, capacity=4)
-    assert tops.LAUNCHES == {"fused_prox_stats": 0, "blocksparse_matmul": 0,
-                             "fused_path_step": 0, "flash_attention": 0}
+    assert tops.LAUNCHES == {"fused_prox_stats": 0,
+                             "fused_prox_stats[trial]": 0,
+                             "blocksparse_matmul": 0, "fused_path_step": 0,
+                             "flash_attention": 0}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -207,6 +213,25 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tbsmm.masked_matmul(z, z, torch.ones((1, 1), dtype=torch.int8),
                             block_size=4)
+
+
+def test_trial_entry_routes_cpu_tensors_to_its_plain_twin():
+    """On the CPU the trial entry is its plain twin, uncounted; the CUDA
+    wrapper refuses a CPU tensor; other devices are rejected."""
+    om = torch.eye(8, dtype=torch.float64) + 0.05
+    g = torch.linspace(-1.0, 1.0, 64, dtype=torch.float64).reshape(8, 8)
+    tops.reset_launches()
+    got = tops.fused_prox_trial(om, g, 0.5, 0.1, block=(4, 4))
+    want = tref.fused_prox_trial(om, g, 0.5, 0.1, block=(4, 4))
+    assert set(tops.LAUNCHES.values()) == {0}
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert got[4].shape == (2, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        tst.fused_prox_trial(om, g, 0.5, 0.1)
+    meta = torch.empty((4, 4), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tops.fused_prox_trial(meta, meta, 0.5, 0.1)
 
 
 def test_dispatch_rejects_other_devices():

@@ -43,6 +43,65 @@ def test_fused_prox_kernel_matches_plain_on_card(cuda, cfg, dt):
         assert_prox_stats(got, want, dt)
 
 
+def _offset(t):
+    """``t``'s values in a view one element into its storage (not 16-byte
+    aligned)."""
+    return None if t is None else torch.cat(
+        [t.new_zeros(1), t.flatten()])[1:].view(t.shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["float64", "float32"])
+@pytest.mark.parametrize("cfg", SOFT["configs"] + SOFT["card_configs"],
+                         ids=lambda c: c["label"])
+def test_fused_prox_trial_matches_plain_on_card(cuda, cfg, dt):
+    """The trial entry against its plain twin on the same card inputs:
+    one launch, counted under ``fused_prox_stats[trial]`` (and as a
+    weighted one with weights) and none under the stats entry; out and the tile nonzeros bit-exact, <d, d>, <d, grad> and
+    ||out||^2 within the manifest's rtol.  The same from views one
+    element into their storage (the one-element accesses; an even width
+    takes 16-byte ones from aligned tensors)."""
+    rng = np.random.default_rng(0)
+    weighted = bool(cfg.get("weighted"))
+    z, _, w = tman.softthresh_problem(cfg, rng, weighted)
+    g = rng.standard_normal(z.shape)
+    tdt = getattr(torch, dt)
+    om, gt = (torch.as_tensor(a, dtype=tdt, device=cuda) for a in (z, g))
+    wt = None if w is None else torch.as_tensor(w, dtype=tdt, device=cuda)
+    block, alpha = tuple(cfg["block"]), cfg.get("alpha", 0.3)
+    want = tref.fused_prox_trial(om, gt, tman.TRIAL_TAU, alpha, weights=wt,
+                                 block=block)
+    tol = SOFT["rtol"][dt]
+    for args in ((om, gt, wt), tuple(_offset(a) for a in (om, gt, wt))):
+        tops.reset_launches()
+        got = tops.fused_prox_trial(args[0], args[1], tman.TRIAL_TAU, alpha,
+                                    weights=args[2], block=block)
+        torch.cuda.synchronize()
+        assert tops.LAUNCHES["fused_prox_stats[trial]"] == 1
+        assert tops.WEIGHTED_LAUNCHES["fused_prox_stats[trial]"] == int(
+            weighted)
+        assert tops.LAUNCHES["fused_prox_stats"] == 0
+        for name, gv, wv in zip(tman.TRIAL_OUTPUTS, got, want):
+            assert gv.dtype == wv.dtype and gv.shape == wv.shape, name
+            if name in SOFT["exact"]:
+                assert torch.equal(gv, wv), name
+            else:
+                torch.testing.assert_close(gv, wv, rtol=tol, atol=tol,
+                                           msg=name)
+
+
+@pytest.mark.gpu
+def test_fused_prox_trial_refusals_on_card(cuda):
+    from repro_torch.kernels import softthresh as tst
+    om = torch.eye(8, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="grad shape"):
+        tops.fused_prox_trial(om, om[:4], 0.5, 0.1)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tst.fused_prox_trial(om.cpu(), om.cpu(), 0.5, 0.1)
+    with pytest.raises(TypeError):
+        tops.fused_prox_trial(om.half(), om.half(), 0.5, 0.1)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", ["float64", "float32"])
 @pytest.mark.parametrize("cfg", BSR["configs"], ids=lambda c: c["label"])
@@ -319,6 +378,9 @@ def test_checked_build_finds_nothing_in_kernel_on_card(cuda, name):
     assert not bad, bad
     assert all(c.worst_count == 1 and c.launches > 0 for c in cases)
     assert all(c.jitter_runs == len(kernelpass.JITTER_SEEDS) for c in cases)
+    if name == "fused_prox_stats":
+        # two launches of the stats entry and one of the trial entry
+        assert all(c.launches == 3 for c in cases)
 
 
 @pytest.mark.gpu

@@ -332,7 +332,7 @@ def test_obs_trace_adds_no_kernel_call(monkeypatch):
     untraced one (the tracer does no device work of its own)."""
     from repro_torch.kernels import ops
     calls = {}
-    for name in ("fused_prox_stats", "masked_matmul"):
+    for name in ("fused_prox_stats", "fused_prox_trial", "masked_matmul"):
         real = getattr(ops, name)
 
         def spy(*a, _real=real, _name=name, **kw):
@@ -344,7 +344,8 @@ def test_obs_trace_adds_no_kernel_call(monkeypatch):
         calls.clear()
         _fit(obs, **KERNEL_KNOBS)
         counts[obs] = dict(calls)
-    assert counts["off"]["fused_prox_stats"] > 0
+    # the sparse l1 trial is kernel 1's trial entry
+    assert counts["off"]["fused_prox_trial"] > 0
     assert counts["trace"] == counts["summary"] == counts["off"]
 
 

@@ -19,10 +19,12 @@ from repro.core import graphs as jgraphs
 from repro.core import matops as jm
 from repro.core import penalty as jpen
 from repro.core import prox as jprox
+from repro_torch import census
 from repro_torch.core import graphs as tgraphs
 from repro_torch.core import matops as tm
 from repro_torch.core import penalty as tpen
 from repro_torch.core import prox as tprox
+from repro_torch.kernels import ops as kops
 
 from _torch_parity import x64  # noqa: F401
 
@@ -130,6 +132,53 @@ def test_warm_start_and_iteration_cap_match(x64, problem):
                                 omega0=torch.as_tensor(om0), max_iters=3)
     assert got.iters == 3 and not got.converged and not got.stalled
     _assert_same_solve(want, got)
+
+
+def _unfused(monkeypatch):
+    """Single-device ops without their trial op: the loop's unfused
+    sparse branch (z, the prox and its mask, three inner products)."""
+    real = tprox._ref_sparse_ops
+    monkeypatch.setattr(tprox, "_ref_sparse_ops",
+                        lambda *a: real(*a)[:3] + (None,))
+
+
+@pytest.mark.parametrize("case", ["converge", "stall", "warm"])
+@pytest.mark.parametrize("kind", ["l1", "weighted_l1", "scad"])
+@pytest.mark.parametrize("variant", ["cov", "obs"])
+def test_fused_trial_gives_the_unfused_trials_bits(problem, monkeypatch,
+                                                   variant, kind, case):
+    """The sparse loop's fused trial (the kernel's trial entry; on the
+    CPU its plain twin) against the unfused composition: the same
+    iterates, trial counts, objective, step and block density, bit for
+    bit, from the identity, through a stall (max_ls 1) and from a warm
+    start (whose ||Omega||^2 the fused loop takes once).  SCAD has no
+    kernel prox: its trial is the plain composition inside the variant's
+    trial op."""
+    s, x = problem
+    data = torch.as_tensor(s if variant == "cov" else x)
+    kw = dict(penalty=_specs(kind, 0.3)[1], variant=variant,
+              sparse_matmul=tm.MatmulPolicy("on", 8, 0.5), use_kernels=True)
+    if case == "stall":
+        kw["max_ls"] = 1
+    elif case == "warm":
+        kw["omega0"] = tprox.solve_reference(
+            data, penalty=_specs(kind, 0.4)[1], variant=variant).omega
+        kw["max_iters"] = 3
+    kops.reset_launches()
+    fused = tprox.solve_reference(data, **kw)
+    fused_trials = census.CENSUS.spans.get("prox.fused_trial", 0)
+    with monkeypatch.context() as m:
+        _unfused(m)
+        kops.reset_launches()
+        plain = tprox.solve_reference(data, **kw)
+        assert census.CENSUS.spans.get("prox.fused_trial", 0) == 0
+    assert torch.equal(fused.omega, plain.omega)
+    for field in ("iters", "ls_total", "converged", "stalled", "g_final",
+                  "delta_final", "block_density"):
+        assert getattr(fused, field) == getattr(plain, field), field
+    assert fused_trials == (0 if kind == "scad" else fused.ls_total)
+    if case == "stall":
+        assert fused.stalled
 
 
 def test_tau_start_matches(x64):
